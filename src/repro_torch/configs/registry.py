@@ -1,0 +1,67 @@
+"""Architecture registry: ``--arch <id>`` -> ModelConfig (full, smoke, 100m).
+
+Counterpart of ``repro/configs/registry.py`` plus ``model_100m`` (the
+reference keeps it in ``repro/launch/train.py``).  Only the architectures
+whose family the port runs have a config module here; the others raise.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.common import ModelConfig
+
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "model_100m"]
+
+_MODULES: dict[str, str | None] = {
+    "qwen2-moe-a2.7b": None,
+    "qwen3-moe-235b-a22b": None,
+    "qwen3-8b": None,
+    "qwen2-1.5b": "qwen2_1_5b",
+    "gemma-2b": None,
+    "llama3-8b": None,
+    "xlstm-1.3b": None,
+    "whisper-small": None,
+    "llama-3.2-vision-90b": None,
+    "zamba2-2.7b": None,
+}
+
+ARCH_IDS: tuple[str, ...] = tuple(_MODULES)
+PORTED_ARCH_IDS: tuple[str, ...] = tuple(a for a, m in _MODULES.items() if m)
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
+    mod = _MODULES[arch]
+    if mod is None:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet: its config comes with its family "
+            f"(ROADMAP.md, Queue 1); ported: {', '.join(PORTED_ARCH_IDS)}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).full()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke()
+
+
+def model_100m(arch: str) -> ModelConfig:
+    """~100M-param reduction of ``arch`` (same family/features, small dims)."""
+    cfg = get_config(arch)
+    over = dict(num_layers=max(4, min(8, cfg.num_layers)), d_model=512,
+                num_heads=8, num_kv_heads=min(8, max(1, cfg.num_kv_heads)),
+                d_ff=2048, vocab_size=32_000, head_dim=64,
+                param_dtype="float32", compute_dtype="float32")
+    if cfg.num_experts:
+        over.update(num_experts=8, top_k=2, d_ff=512)
+    if cfg.encoder_layers:
+        over.update(encoder_layers=2, encoder_positions=128)
+    if cfg.vision_tokens:
+        over.update(vision_tokens=64, cross_attn_every=2)
+    if cfg.ssm_state:
+        over.update(ssm_state=16)
+    return cfg.scaled(**over)

@@ -1,0 +1,12 @@
+"""Hopper kernels for the main path, each beside its plain PyTorch version.
+
+* ``rmsnorm`` — fused residual add + RMSNorm (Triton);
+* ``flash_attention`` — causal GQA prefill attention (CUDA C++,
+  ``csrc/flash_attention.cu``);
+* ``decode_attention`` — one query per request against the KV cache,
+  split over the sequence (CUDA C++, ``csrc/decode_attention.cu``).
+
+Every ``ops`` wrapper takes the plain version only for CPU tensors; for a
+CUDA tensor it launches its kernel or raises, and counts each launch in
+its ``launches`` attribute.  Submodules import independently.
+"""

@@ -1,0 +1,123 @@
+"""Build and load the hand-written CUDA kernels under ``repro_torch/csrc``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
+``ctypes``.  No PyTorch header is included, so a build takes seconds, not
+the minutes ``torch.utils.cpp_extension.load`` needs.
+
+Libraries land in ``build/kernels/`` at the repository root (listed in
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.  Nothing is built when
+this module is imported: :func:`load` builds at first use, and
+:func:`build` compiles several sources at once, one ``nvcc`` each, all
+started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "load", "ptxas_report", "sources"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names of the kernel sources (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH); "
+                           "the CUDA kernels are built on a machine with the CUDA toolkit")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    if not src.exists():
+        raise FileNotFoundError(f"no kernel source {src}")
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by every source
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: list[str] | None = None) -> dict[str, float]:
+    """Compile every named source that has no up-to-date library.
+
+    All ``nvcc`` processes start together and are waited for; a failed
+    compile raises with the compiler's output.  Returns the seconds each
+    compile took (0.0 where the library was already built).  ``ptxas``
+    resource usage (registers, shared memory, spills) is kept beside each
+    library as ``<lib>.log``.
+    """
+    names = sources() if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {n: 0.0 for n in names}
+    procs = {}
+    nvcc = None
+    try:
+        for n in names:
+            out = _target(n)
+            if out.exists():
+                continue
+            nvcc = nvcc or _nvcc()
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out, time.monotonic())
+        failed = []
+        for n, (p, tmp, out, t0) in procs.items():
+            log, _ = p.communicate()
+            seconds[n] = time.monotonic() - t0
+            out.with_suffix(".log").write_text(log)
+            if p.returncode != 0:
+                failed.append(f"--- nvcc {n}.cu (exit {p.returncode}) ---\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    finally:
+        for p, tmp, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            tmp.unlink(missing_ok=True)
+    return seconds
+
+
+def ptxas_report(name: str) -> str:
+    """The compiler's resource report for ``name`` (after :func:`build`)."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,92 @@
+"""Public wrapper for the decode attention kernel (``csrc/decode_attention.cu``).
+
+Counterpart of ``repro/kernels/decode_attention/ops.py``.  CPU tensors take
+the plain version; CUDA tensors launch the split + combine kernels (one
+launch counted in ``decode_attention.launches``) or raise.  The caches are
+read through their strides: the model passes one layer of its
+(B, Smax, KV, hd) cache as a ``transpose(1, 2)`` view.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .._device import KERNEL_DTYPES, check_launch, device_kind, stream_of
+from .ref import decode_attention_ref
+
+__all__ = ["decode_attention", "decode_attention_ref", "KERNEL_HEAD_DIMS", "KERNEL_MAX_GROUP"]
+
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_MAX_GROUP = 8
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("decode_attention")
+    fn = lib.decode_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 8 + [_I] * 6 + [_L] * 10 + [ctypes.c_float, _P]
+        fn.restype = _I
+        lib.decode_attention_splits.argtypes = [_I]
+        lib.decode_attention_splits.restype = _I
+        lib.kernel_error_string.argtypes = [_I]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
+    """q: (B, H, hd); caches (B, KV, S, hd); lengths (B,) -> (B, H, hd).
+
+    Row b attends to cache positions ``[0, min(lengths[b], S))``; a row of
+    length 0 gives 0."""
+    if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"need q (B,H,hd), caches (B,KV,S,hd); got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    b, h, hd = q.shape
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != b or k_cache.shape[3] != hd or kvh < 1 or h % kvh:
+        raise ValueError(f"q {tuple(q.shape)} does not fit caches {tuple(k_cache.shape)}")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be int32 ({b},); got {lengths.dtype} "
+                         f"{tuple(lengths.shape)}")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"q/cache dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype}: need "
+                        f"one of {KERNEL_DTYPES}")
+    if device_kind(q, k_cache, v_cache, lengths) == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the CUDA kernel takes {KERNEL_HEAD_DIMS}")
+    if h // kvh > KERNEL_MAX_GROUP:
+        raise ValueError(f"{h // kvh} query heads per KV head: the kernel takes at most "
+                         f"{KERNEL_MAX_GROUP}")
+    if s < 1:
+        raise ValueError("empty cache (S = 0)")
+    if q.stride(-1) != 1 or k_cache.stride(-1) != 1 or v_cache.stride(-1) != 1:
+        raise ValueError("the head dim of q and the caches must be contiguous (stride 1)")
+    if not lengths.is_contiguous():
+        raise ValueError("lengths must be contiguous")
+    scale = hd ** -0.5 if scale is None else scale
+    lib = _lib()
+    ns = lib.decode_attention_splits(s)
+    g = h // kvh
+    out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
+    part = torch.empty((2 + hd) * b * kvh * ns * g, dtype=torch.float32, device=q.device)
+    pm, pl, pacc = part.split([b * kvh * ns * g, b * kvh * ns * g, b * kvh * ns * g * hd])
+    with torch.cuda.device(q.device):   # launch on the tensors' card
+        code = lib.decode_attention_fwd(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(),
+            0 if q.dtype == torch.float32 else 1, b, h, kvh, s, hd,
+            q.stride(0), q.stride(1), k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+            v_cache.stride(0), v_cache.stride(1), v_cache.stride(2), out.stride(0),
+            out.stride(1), float(scale), stream_of(q))
+    check_launch(lib, code, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -1,0 +1,230 @@
+"""Decoder-only LM, dense family: init, prefill and decode.
+
+Counterpart of the dense branch of ``repro/models/transformer.py``.  The
+reference stacks layer parameters and runs ``lax.scan``; here ``params
+["layers"]`` is a list of per-layer dicts walked by a Python loop.  The
+reference's sharding ``constrain`` calls have no counterpart on one card.
+
+Three places go through the Hopper kernels (``plain=True`` takes their
+plain versions instead):
+
+* prefill attention -> flash-attention kernel (:func:`.attention.attention`);
+* decode attention -> in-place cache append + decode-attention kernel
+  (:func:`.attention.decode_attention_append`), which also replaces the
+  reference's top-level ``_cache_scatter``;
+* ``x = x + h; h2 = rms_norm(x, ln2)`` -> one fused residual-add + RMSNorm
+  kernel call.
+
+Serving state is updated in place where the reference's jit donates it:
+``decode_step`` writes the new token's k/v into ``cache`` and bumps
+``cache["len"]`` in place, and returns the same dict.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
+
+from .attention import attention, decode_attention_append
+from .common import ModelConfig, apply_rope, dense_init, rms_norm, rope_freqs
+from .mlp import gated_mlp, init_mlp
+
+__all__ = ["init_params", "param_shapes", "prefill", "decode_step", "init_cache"]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree's structure with each leaf's shape."""
+    d, h, kv, hd, f = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    attn = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd), "wo": (h, hd, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=(h, hd), bk=(kv, hd), bv=(kv, hd))
+    if cfg.qk_norm:
+        attn.update(q_norm=(hd,), k_norm=(hd,))
+    layer = {"attn": attn, "ln1": {"scale": (d,)}, "ln2": {"scale": (d,)},
+             "mlp": {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}}
+    tree = {"tok_embed": (cfg.vocab_size, d), "layers": [layer] * cfg.num_layers,
+            "final_norm": {"scale": (d,)}}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = (cfg.vocab_size, d)
+    return tree
+
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = gen.device
+    p = {
+        "wq": dense_init(gen, (d, h, hd), cfg.pdt),
+        "wk": dense_init(gen, (d, kv, hd), cfg.pdt),
+        "wv": dense_init(gen, (d, kv, hd), cfg.pdt),
+        "wo": dense_init(gen, (h, hd, d), cfg.pdt, fan_in=h * hd),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h, hd), dtype=cfg.pdt, device=dev)
+        p["bk"] = torch.zeros((kv, hd), dtype=cfg.pdt, device=dev)
+        p["bv"] = torch.zeros((kv, hd), dtype=cfg.pdt, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=dev)
+    return p
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    ones = lambda: torch.ones((cfg.d_model,), dtype=torch.float32, device=gen.device)  # noqa: E731
+    return {
+        "attn": init_attn(gen, cfg),
+        "ln1": {"scale": ones()},
+        "ln2": {"scale": ones()},
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdt),
+    }
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random parameters on ``gen.device``, drawn from ``gen``."""
+    params = {
+        "tok_embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdt,
+                                fan_in=cfg.d_model),
+        "layers": [_init_layer(gen, cfg) for _ in range(cfg.num_layers)],
+        "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=torch.float32,
+                                           device=gen.device)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdt)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) @ w (d, N, hd) -> (B, S, N, hd)."""
+    d, n, hd = w.shape
+    return (x @ w.reshape(d, n * hd).to(x.dtype)).view(*x.shape[:2], n, hd)
+
+
+def attn_block(p: dict, x: torch.Tensor, sin, cos, cfg: ModelConfig, *, cache=None,
+               plain: bool = False):
+    """Self-attention sublayer.
+
+    Prefill (``cache`` None): returns (out, (k, v)), this call's K/V.
+    Decode: ``cache`` is ``(k_layer, v_layer, write_pos, lengths)``; the new
+    token's k/v are appended in place and (out, None) is returned.
+    """
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+
+    if cache is not None:
+        k_c, v_c, write_pos, lengths = cache
+        out = decode_attention_append(q, k_c, v_c, k, v, write_pos, lengths, plain=plain)
+        kv_out = None
+    else:
+        out = attention(q, k, v, causal=True, plain=plain)
+        kv_out = (k, v)
+    b, s, h, hd = out.shape
+    y = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1).to(out.dtype)
+    return y, kv_out
+
+
+def layer_body(p: dict, x: torch.Tensor, sin, cos, cfg: ModelConfig, *, cache=None,
+               plain: bool = False):
+    h, kv_out = attn_block(
+        p["attn"],
+        rms_norm(x, p["ln1"]["scale"], cfg.norm_eps, gemma=cfg.gemma_norm),
+        sin, cos, cfg, cache=cache, plain=plain)
+    scale = p["ln2"]["scale"]
+    if cfg.gemma_norm:  # (1 + scale), formed in f32 as rms_norm(gemma=True) does
+        scale = 1.0 + scale.float()
+    norm = rmsnorm_ref if plain else fused_rmsnorm
+    h2, x = norm(h, x, scale, eps=cfg.norm_eps)
+    x = x + gated_mlp(p["mlp"], h2, act=cfg.mlp_act)
+    return x, kv_out
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = params["tok_embed"][tokens].to(cfg.cdt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=torch.float32).to(cfg.cdt)
+    return x
+
+
+def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    table = params.get("lm_head", params["tok_embed"])
+    return x @ table.to(x.dtype).T
+
+
+def _final_norm(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps, gemma=cfg.gemma_norm)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
+               device: torch.device | str) -> dict:
+    dt = dtype or cfg.cdt
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            max_seq: int | None = None, plain: bool = False):
+    """Run the prompt; returns (last-position logits (B, 1, V), cache)."""
+    b, s = tokens.shape
+    max_seq = max_seq or s
+    x = _embed(params, tokens, cfg)
+    sin, cos = rope_freqs(torch.arange(s, device=tokens.device), cfg.head_dim,
+                          cfg.rope_theta)
+    cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    for i, p in enumerate(params["layers"]):
+        x, (k, v) = layer_body(p, x, sin, cos, cfg, plain=plain)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+    cache["len"].fill_(s)
+    # the norm is per position, so only the last one is computed
+    logits = _unembed(params, _final_norm(params, x[:, -1:], cfg), cfg)
+    return logits, cache
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                plain: bool = False):
+    """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache).
+
+    ``cache`` is updated in place (k/v at each row's ``len``, then
+    ``len += 1``) and returned."""
+    x = _embed(params, tokens, cfg)
+    pos = cache["len"]  # (B,) per-request positions
+    sin, cos = rope_freqs(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    write_pos = pos.clamp(max=cache["k"].shape[2] - 1).long()
+    lengths = pos + 1
+    for i, p in enumerate(params["layers"]):
+        x, _ = layer_body(p, x, sin, cos, cfg, plain=plain,
+                          cache=(cache["k"][i], cache["v"][i], write_pos, lengths))
+    cache["len"].add_(1)
+    logits = _unembed(params, _final_norm(params, x, cfg), cfg)
+    return logits, cache

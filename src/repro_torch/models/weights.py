@@ -1,0 +1,58 @@
+"""Carry a parameter tree of the JAX reference across to the port.
+
+The two packages cannot share weights through their random generators, so
+the parity tests initialise the reference, turn its pytree into numpy
+arrays (``jax.tree.map(np.asarray, params)``) and map it here.  Nothing in
+this module imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .common import ModelConfig
+from .transformer import param_shapes
+
+__all__ = ["params_from_numpy"]
+
+
+def _tensor(a, device: torch.device | str) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 is refused by torch.from_numpy; bf16 -> f32 -> bf16
+        # is exact
+        return torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                         dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _map(node, spec, path: str, device, layer: int | None):
+    if isinstance(spec, dict):
+        if not isinstance(node, dict) or set(node) != set(spec):
+            got = sorted(node) if isinstance(node, dict) else type(node).__name__
+            raise KeyError(f"{path or '/'}: leaves {got}, expected {sorted(spec)}")
+        return {k: _map(node[k], spec[k], f"{path}/{k}", device, layer) for k in spec}
+    a = np.asarray(node)
+    if layer is not None:
+        a = a[layer]
+    if tuple(a.shape) != tuple(spec):
+        raise ValueError(f"{path}: shape {tuple(a.shape)}, expected {tuple(spec)}")
+    return _tensor(a, device)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device: torch.device | str) -> dict:
+    """The reference's dense parameter tree (numpy leaves, layers stacked on
+    a leading axis) as the port's parameters: every leaf mapped by name,
+    the ``layers`` axis unstacked into a list of per-layer dicts."""
+    spec = param_shapes(cfg)
+    if set(tree) != set(spec):
+        raise KeyError(f"top-level leaves {sorted(tree)}, expected {sorted(spec)}")
+    out = {}
+    for key, sub in spec.items():
+        if key == "layers":
+            out[key] = [_map(tree[key], sub[i], f"/layers[{i}]", device, i)
+                        for i in range(cfg.num_layers)]
+        else:
+            out[key] = _map(tree[key], sub, f"/{key}", device, None)
+    return out

@@ -1,0 +1,106 @@
+"""The port's kernels on the card against their plain versions (needs an
+NVIDIA GPU; skips without one).
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances are those of ``tests/test_kernels.py``: 3e-5 for f32, 2e-2 for
+bf16.  f32 products run in full f32 (TF32 off)."""
+
+import pytest
+import torch
+
+from repro_torch.configs import model_100m
+from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
+from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
+from repro_torch.models import Model
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _tol(dt):
+    return 2e-2 if dt == torch.bfloat16 else 3e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(dev, *shape, dt, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", [
+    (1, 12, 2, 384, 384, 128, True), (2, 8, 2, 50, 130, 64, True), (1, 4, 4, 33, 47, 64, False),
+])
+def test_flash_attention_kernel_matches_plain(dev, b, h, kv, sq, sk, hd, causal, dt):
+    q = _randn(dev, b, sq, h, hd, dt=dt, seed=1).transpose(1, 2)
+    k = _randn(dev, b, sk, kv, hd, dt=dt, seed=2).transpose(1, 2)
+    v = _randn(dev, b, sk, kv, hd, dt=dt, seed=3).transpose(1, 2)
+    n = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == n + 1
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+                               atol=_tol(dt), rtol=_tol(dt))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("lens", [[397, 250, 130, 17], [0, 1, 512, 700]])
+def test_decode_attention_kernel_matches_plain(dev, lens, dt):
+    q = _randn(dev, 4, 12, 128, dt=dt, seed=4)
+    kc = _randn(dev, 4, 512, 2, 128, dt=dt, seed=5).transpose(1, 2)
+    vc = _randn(dev, 4, 512, 2, 128, dt=dt, seed=6).transpose(1, 2)
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = decode_attention(q, kc, vc, lt)
+    torch.testing.assert_close(out.float(), decode_attention_ref(q, kc, vc, lt).float(),
+                               atol=_tol(dt), rtol=_tol(dt))
+    assert torch.all(out[lt == 0] == 0)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("rows", [4, 384, 37])
+def test_rmsnorm_kernel_matches_plain(dev, rows, dt):
+    x, r = _randn(dev, rows, 1536, dt=dt, seed=7), _randn(dev, rows, 1536, dt=dt, seed=8)
+    sc = _randn(dev, 1536, dt=torch.float32, seed=9)
+    y, h = fused_rmsnorm(x, r, sc)
+    yr, hr = rmsnorm_ref(x, r, sc)
+    torch.testing.assert_close(y.float(), yr.float(), atol=_tol(dt), rtol=_tol(dt))
+    torch.testing.assert_close(h.float(), hr.float(), atol=_tol(dt), rtol=_tol(dt))
+
+
+@pytest.mark.parametrize("variants", [{}, dict(qk_norm=True, gemma_norm=True,
+                                                embed_scale=True, mlp_act="geglu",
+                                                tie_embeddings=False)],
+                         ids=["qwen2", "dense-variants"])
+def test_model_kernel_path_matches_plain_path(dev, variants):
+    """f32, 2 layers of the 100m config (head_dim 64): prefill and 4 decode
+    steps through the kernels agree with the plain path.  1e-4, looser than
+    the per-kernel 3e-5, because each layer adds the kernels' own
+    summation-order differences to logits of scale ~1-10.  The variant case
+    sends gemma's ``1 + scale`` norm through the fused kernel too."""
+    cfg = model_100m("qwen2-1.5b").scaled(num_layers=2, **variants)
+    fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
+    params = fast.init(0)
+    norms0 = fused_rmsnorm.launches
+    toks = torch.randint(0, cfg.vocab_size, (1, 77), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    lk, ck = fast.prefill(params, {"tokens": toks}, max_seq=128)
+    lp, cp = plain.prefill(params, {"tokens": toks}, max_seq=128)
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for _ in range(4):
+        nxt = lp[:, -1].argmax(-1, keepdim=True)
+        lk, ck = fast.decode_step(params, ck, nxt)
+        lp, cp = plain.decode_step(params, cp, nxt)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    assert torch.equal(ck["len"], cp["len"])
+    assert fused_rmsnorm.launches - norms0 == 5 * cfg.num_layers   # prefill + 4 steps
