@@ -3,22 +3,26 @@
 
     python3 chip_smoke.py            # from the root of a checkout, on a machine with one GPU
 
-Drives the port's main path (the serving plane's model step) on the GPU,
-never the JAX reference package, in five phases; any failed phase exits
-non-zero before the final line:
+Drives the port's main paths (the serving plane's model step, for the
+dense and the xLSTM families) on the GPU, never the JAX reference
+package, in seven phases; any failed phase exits non-zero before the
+final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together) and report the build time;
-3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes plus ragged ones, in f32 and bf16, and time kernel,
-   plain version and the nearest PyTorch library call;
+3. hold each kernel (K1-K5) against its plain PyTorch version on the card
+   at the main paths' shapes plus ragged ones, in f32 and bf16, and time
+   kernel, plain version and the nearest PyTorch library call;
 4. full-width qwen2-1.5b in f32: kernel path against plain path on the same
    random weights, prefill logits of 4 ragged prompts and 4 decode steps
    with the 4 slots at their ragged lengths;
 5. full-width qwen2-1.5b in bf16: serve unsized requests through
    ``repro_torch.runtime.server.InferenceServer``, with every kernel's
-   launch counter set to 0 just before and read just after.
+   launch counter set to 0 just before and read just after;
+6. full-width xlstm-1.3b in f32: kernel path against plain path, as in 4;
+7. full-width xlstm-1.3b in bf16: serve unsized requests, as in 5, and
+   check that the sLSTM scan and the fused norm ran in prefill and decode.
 
 It prints a ``{"kernels": [...]}`` line and ends with one JSON line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -40,6 +44,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # bf16 tensor cores; f32 CUDA cores
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}              # tests/test_kernels.py:17-18
+# sLSTM scan, kernel vs plain: the two differ only in the order of the f32
+# recurrent sums, carried through up to 384 dependent steps; the
+# tolerances of tests/test_slstm_kernel.py:28 (1e-5 f32, 5e-2 bf16) are
+# for 64 steps, so both get the repo's f32 3e-5: the kernel widens bf16
+# inputs to f32 as the plain version does
+SLSTM_TOL = 3e-5
 
 SEED = 0
 N_REQUESTS = 8
@@ -100,14 +110,19 @@ def device_ms(fn, iters: int = 20, warm: int = 3) -> float:
     return sum(e.self_device_time_total for e in cuda_activity(prof)) / 1e3 / iters
 
 
-def timings(kernel, plain, library) -> dict:
-    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
-            "library_ms": device_ms(library), "wall_ms": cuda_ms(kernel)}
+def timings(kernel, plain, library, *, plain_iters: int = 20) -> dict:
+    """Device ms per call of the kernel, its plain version and the library
+    call (None where there is none); ``plain_iters`` cuts the profiled
+    calls of a plain version that issues thousands of launches per call."""
+    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain, iters=plain_iters, warm=1),
+            "library_ms": None if library is None else device_ms(library),
+            "wall_ms": cuda_ms(kernel)}
 
 
-def log_timings(what: str, t: dict, library: str) -> None:
+def log_timings(what: str, t: dict, library: str | None) -> None:
+    lib = f"{library} {t['library_ms']:.5f}" if library else "no library call"
     log(f"{what}: device ms per call: kernel {t['ms']:.5f}, plain {t['plain_ms']:.5f}, "
-        f"{library} {t['library_ms']:.5f}, bound {t['bound_ms']:.5f} ({t['bound_by']}); "
+        f"{lib}, bound {t['bound_ms']:.5f} ({t['bound_by']}); "
         f"kernel wall per back-to-back call {t['wall_ms']:.5f} ms")
 
 
@@ -120,10 +135,10 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def check_close(name: str, got, ref, dtype: str) -> float:
+def check_close(name: str, got, ref, dtype: str, tol: float | None = None) -> float:
     import torch
 
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     if got.shape != ref.shape:
         fail(f"{name}: shape {tuple(got.shape)} != plain {tuple(ref.shape)}")
     if not torch.isfinite(got.float()).all():
@@ -250,38 +265,152 @@ def phase_kernels(dev) -> dict:
     log_timings(f"decode_attention bf16 B=4 H=12 KV=2 S=512 hd=128 lens={lens}", t, "SDPA")
     report["decode_attention"] = {"max_abs_err": errs[("bfloat16", tuple(lens))],
                                   "shape": f"B=4 H=12 KV=2 S=512 hd=128 lens={lens} bf16", **t}
+    report.update(phase_slstm_scan(dev, rnd, dts))
+    report.update(phase_ragged_concat(dev, gen))
     return report
 
 
-# ---------------------------------------------------------------------------
-# phase 4: full-width f32 model, kernel path vs plain path
-# ---------------------------------------------------------------------------
+def phase_slstm_scan(dev, rnd, dts) -> dict:
+    """K5 at the xLSTM path's shapes: D = 2048, H = 4; prefill B = 1 with
+    S = 1, 17 and 384, decode B = 4 with S = 1, both from the zero state,
+    and a resume from a carried state."""
+    import torch
+
+    from repro_torch.kernels.slstm_scan.ops import (grid_sync_loop, slstm_scan,
+                                                    slstm_scan_plan, slstm_scan_ref)
+
+    d, h = 2048, 4
+    dh = d // h
+
+    def inputs(b, s, dt):
+        z = torch.zeros(b, d, device=dev)
+        return (rnd(b, s, 4 * d, dt=dt), rnd(h, dh, 4 * dh, dt=dt) * dh ** -0.5,
+                rnd(4 * d, dt=torch.float32) * 0.1, z, z, z,
+                torch.full((b, d), float("-inf"), device=dev))
+
+    def cmp(what, got, ref, dname):
+        (hs, st), (hr, sr) = got, ref
+        return max([check_close(f"{what} hs", hs, hr, dname, SLSTM_TOL)] +
+                   [check_close(f"{what} {n}N", a, c, dname, SLSTM_TOL)
+                    for a, c, n in zip(st, sr, "hcnm")])
+
+    errs = {}
+    for dname, dt in dts.items():
+        for b, s in ((1, 1), (1, 17), (1, 384), (4, 1)):
+            args = inputs(b, s, dt)
+            e = cmp(f"slstm_scan {dname} B={b} S={s}", slstm_scan(*args), slstm_scan_ref(*args),
+                    dname)
+            errs[(dname, b, s)] = e
+            log(f"slstm_scan {dname} B={b} S={s} D={d} H={h}: max_abs_err {e:.3e}")
+        # resume: 24 steps in one call == 16 steps, then 8 from the carried state
+        args = inputs(2, 24, dt)
+        full = slstm_scan(*args)
+        _, st = slstm_scan(args[0][:, :16].contiguous(), *args[1:])
+        tail = slstm_scan(args[0][:, 16:].contiguous(), args[1], args[2], *st)
+        e = cmp(f"slstm_scan {dname} resume", tail, (full[0][:, 16:], full[1]), dname)
+        log(f"slstm_scan {dname} B=2 S=16+8 resumed vs one call: max_abs_err {e:.3e}")
+        e = cmp(f"slstm_scan {dname} resumed vs plain", tail,
+                slstm_scan_ref(args[0][:, 16:], args[1], args[2], *st), dname)
+        log(f"slstm_scan {dname} B=2 S=8 from a carried state vs plain: max_abs_err {e:.3e}")
+    out = {}
+    for b, s in ((1, 384), (4, 1)):
+        args = inputs(b, s, torch.bfloat16)
+        t = timings(lambda: slstm_scan(*args), lambda: slstm_scan_ref(*args), None,
+                    plain_iters=3 if s > 100 else 20)
+        # bytes: xg, w_hh, b and the state in once, hs and the state out once;
+        # operations: the f32 recurrent product (h is f32), on CUDA cores
+        nbytes = 2 * b * s * 4 * d + 2 * h * dh * 4 * dh + 4 * 4 * d + 16 * b * d + \
+            4 * b * s * d + 16 * b * d
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 2 * b * s * 4 * d * dh, "float32")
+        j, grid = slstm_scan_plan(b, d, h)
+        t["grid"] = f"{grid} blocks of J={j}"
+        t["chain_ms"] = device_ms(lambda: grid_sync_loop(grid, s, dev))
+        log_timings(f"slstm_scan bf16 B={b} S={s} D={d} H={h}", t, None)
+        log(f"slstm_scan B={b} S={s}: grid {t['grid']}; {s} grid barriers alone "
+            f"(the serial chain's floor for this grid) {t['chain_ms']:.5f} ms")
+        out[(b, s)] = t
+    return {"slstm_scan": {"max_abs_err": errs[("bfloat16", 1, 384)],
+                           "shape": f"B=1 S=384 D={d} H={h} bf16 (prefill)", **out[(1, 384)],
+                           "decode_B4_S1": out[(4, 1)]}}
 
 
-def phase_model_f32(dev) -> None:
+def phase_ragged_concat(dev, gen) -> dict:
+    """K4 at the concatenate node's size: the Top LiDAR's ~500k points and
+    two sides' ~3k, 4 fields each (src/repro/apps/pointcloud.py:50), over
+    the dtype sweep, with room to spare and with capacity < total."""
+    import torch
+
+    from repro_torch.kernels.ragged_concat.ops import ragged_concat, ragged_concat_ref
+
+    lens = [500_000, 3_011, 2_987]
+    n, lmax, c = len(lens), max(lens), 4
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for dt in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
+        src = (torch.randn(n, lmax, c, generator=gen, device=dev) * 100).to(dt)
+        for cap in (sum(lens) + 1000, 400_000):
+            out, offs, total = ragged_concat(src, lt, capacity=cap)
+            ref, roffs, rtotal = ragged_concat_ref(src, lt, cap)
+            if not (torch.equal(out, ref) and torch.equal(offs, roffs)
+                    and int(total) == int(rtotal) == sum(lens)):
+                fail(f"ragged_concat {dt} capacity {cap}: kernel differs from plain")
+            log(f"ragged_concat {dt} lens={lens} C={c} capacity={cap}: equal to plain")
+    src = torch.randn(n, lmax, c, generator=gen, device=dev)
+    cap = sum(lens) + 1000
+    t = timings(lambda: ragged_concat(src, lt, capacity=cap),
+                lambda: ragged_concat_ref(src, lt, cap),
+                # the valid rows alone, no zero-filled tail
+                lambda: torch.cat([src[i, :k] for i, k in enumerate(lens)]), plain_iters=5)
+    nbytes = 4 * c * (sum(lens) + cap) + 8 * n
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 0, "float32")
+    log_timings(f"ragged_concat f32 lens={lens} C={c} capacity={cap}", t, "torch.cat")
+    return {"ragged_concat": {"max_abs_err": 0.0, "shape": f"N=3 lens={lens} C=4 f32", **t}}
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 6: full-width f32 model, kernel path vs plain path
+# ---------------------------------------------------------------------------
+
+# the kernels each family's path goes through, by wrapper
+PATH_KERNELS = {"qwen2-1.5b": ("rmsnorm", "flash_attention", "decode_attention"),
+                "xlstm-1.3b": ("rmsnorm", "slstm_scan")}
+
+
+def wrappers() -> dict:
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ragged_concat.ops import ragged_concat
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan
+
+    return {"rmsnorm": fused_rmsnorm, "flash_attention": flash_attention,
+            "decode_attention": decode_attention, "slstm_scan": slstm_scan,
+            "ragged_concat": ragged_concat}
+
+
+def phase_model_f32(dev, arch: str) -> None:
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
-    cfg = get_config("qwen2-1.5b").scaled(param_dtype="float32", compute_dtype="float32")
+    cfg = get_config(arch).scaled(param_dtype="float32", compute_dtype="float32")
     fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
     params = fast.init(SEED)
     rng = np.random.default_rng(SEED)
 
     def cmp(what, a, b):
         if not torch.isfinite(a).all():
-            fail(f"f32 model {what}: non-finite logits")
+            fail(f"f32 {arch} {what}: non-finite logits")
         scale = float(b.abs().max())
         err = max_err(a, b)
         agree = bool((a[:, -1].argmax(-1) == b[:, -1].argmax(-1)).all())
-        log(f"f32 qwen2-1.5b {what}: max_abs_err {err:.3e} (logit scale {scale:.3e}, "
+        log(f"f32 {arch} {what}: max_abs_err {err:.3e} (logit scale {scale:.3e}, "
             f"rel {err / scale:.3e}, bound {MODEL_F32_REL_TOL}), argmax agree {agree}")
         if err > MODEL_F32_REL_TOL * scale:
-            fail(f"f32 model {what}: kernel path differs from plain path by {err:.3e}")
+            fail(f"f32 {arch} {what}: kernel path differs from plain path by {err:.3e}")
 
-    # four slots with ragged prompts, laid out as the server lays them out
+    # four slots with ragged prompts, spliced in as the server splices them
     lens = [200, 37, 311, 5]
     ck, cp = fast.init_cache(len(lens), MAX_SEQ), plain.init_cache(len(lens), MAX_SEQ)
     first = []
@@ -290,11 +419,10 @@ def phase_model_f32(dev) -> None:
         lk, k1 = fast.prefill(params, {"tokens": tt})
         lp, p1 = plain.prefill(params, {"tokens": tt})
         cmp(f"prefill S={n}", lk, lp)
-        for cache, one in ((ck, k1), (cp, p1)):
-            cache["k"][:, slot, :n] = one["k"][:, 0]
-            cache["v"][:, slot, :n] = one["v"][:, 0]
-            cache["len"][slot] = n
+        fast.splice_cache(ck, k1, slot, n)
+        plain.splice_cache(cp, p1, slot, n)
         first.append(lp[0, -1].argmax())
+        del k1, p1
     nxt = torch.stack(first)[:, None]
     for i in range(4):
         lk, ck = fast.decode_step(params, ck, nxt)
@@ -303,36 +431,52 @@ def phase_model_f32(dev) -> None:
         nxt = lp[:, -1].argmax(-1, keepdim=True)
     want = [n + 4 for n in lens]
     if ck["len"].tolist() != want or cp["len"].tolist() != want:
-        fail(f"f32 model: cache len {ck['len'].tolist()} / {cp['len'].tolist()}, "
+        fail(f"f32 {arch}: cache len {ck['len'].tolist()} / {cp['len'].tolist()}, "
              f"expected {want}")
     del params, ck, cp, lk, lp
     torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
-# phase 5: full-width bf16 serving through InferenceServer
+# phases 5 and 7: full-width bf16 serving through InferenceServer
 # ---------------------------------------------------------------------------
 
 
-def phase_serve_bf16(dev) -> dict:
+def count_by_stage(model, names: tuple, ws: dict) -> dict:
+    """Count each path kernel's launches inside ``model.prefill`` and inside
+    ``model.decode_step`` separately, by wrapping the two on this instance."""
+    counts = {"prefill": dict.fromkeys(names, 0), "decode": dict.fromkeys(names, 0)}
+
+    def counted(fn, bucket):
+        def call(*args, **kw):
+            before = {n: ws[n].launches for n in names}
+            out = fn(*args, **kw)
+            for n in names:
+                bucket[n] += ws[n].launches - before[n]
+            return out
+        return call
+
+    model.prefill = counted(model.prefill, counts["prefill"])
+    model.decode_step = counted(model.decode_step, counts["decode"])
+    return counts
+
+
+def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
     from repro_torch.launch.serve import make_requests, run, warmup
     from repro_torch.models import Model
     from repro_torch.runtime.server import InferenceServer
 
-    wrappers = {"rmsnorm": fused_rmsnorm, "flash_attention": flash_attention,
-                "decode_attention": decode_attention}
-    cfg = get_config("qwen2-1.5b")
+    ws = wrappers()
+    names = PATH_KERNELS[arch]
+    cfg = get_config(arch)
     model = Model(cfg, device=dev)
     params = model.init(SEED)
     n_params = sum(t.numel() for t in _leaves(params))
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    log(f"bf16 qwen2-1.5b: {n_params / 1e9:.3f} B parameters, {weight_bytes / 1e9:.3f} GB")
+    log(f"bf16 {arch}: {n_params / 1e9:.3f} B parameters, {weight_bytes / 1e9:.3f} GB")
 
     def serve(m):
         srv = InferenceServer(m, slots=SLOTS, max_seq=MAX_SEQ, page_tokens=PAGE_TOKENS)
@@ -345,63 +489,80 @@ def phase_serve_bf16(dev) -> dict:
                              prompt_max=PROMPT_MAX, max_new=MAX_NEW, seed=SEED, prefix=prefix)
 
     srv = serve(model)
-    for w in wrappers.values():
+    state_bytes = sum(t.numel() * t.element_size() for k, t in _items(srv._cache)
+                      if k != "len") if cfg.family == "xlstm" else 0
+    stages = count_by_stage(model, names, ws)
+    for w in ws.values():
         w.launches = 0
     out = run(srv, requests("req"))
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = {name: w.launches for name, w in ws.items()}
     torch.cuda.synchronize()
     if out["completed"] != N_REQUESTS:
-        fail(f"served {out['completed']}/{N_REQUESTS} requests")
+        fail(f"{arch}: served {out['completed']}/{N_REQUESTS} requests")
     if not out["pool_clean"]:
-        fail(f"KV page pool not clean after serving: {srv.stats()}")
+        fail(f"{arch}: KV page pool not clean after serving: {srv.stats()}")
     for r in out["results"].values():
         if len(r.tokens) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in r.tokens):
-            fail(f"request {r.rid}: bad tokens {r.tokens}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was launched {n} times on the main path")
-    log(f"launches on the main path (counters zeroed just before): {launches}")
-    bound_step = 1e3 * weight_bytes / HBM_BYTES_PER_S
-    log(f"decode-step weight-read bound {bound_step:.3f} ms ({weight_bytes / 1e9:.3f} GB / "
-        f"3.35 TB/s)")
+            fail(f"{arch} request {r.rid}: bad tokens {r.tokens}")
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"{arch}: kernel {name} was launched {launches[name]} times on the main path")
+    log(f"{arch} launches on the main path (counters zeroed just before): {launches}")
+    log(f"{arch} launches by stage: prefill {stages['prefill']}, decode {stages['decode']}")
+    if cfg.family == "xlstm":
+        for stage in ("prefill", "decode"):
+            for name in names:
+                if stages[stage][name] <= 0:
+                    fail(f"{arch}: kernel {name} was not launched in {stage}")
+        log(f"{arch}: state cache {state_bytes / 1e9:.3f} GB for {SLOTS} slots")
+    bound_step = 1e3 * (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S
+    log(f"{arch} decode-round bound {bound_step:.3f} ms ((weights {weight_bytes / 1e9:.3f} GB "
+        f"+ 2 x state {state_bytes / 1e9:.3f} GB) / 3.35 TB/s)")
     again = run(srv, requests("again"))      # the same prompts again: run-to-run spread
     for i, o in enumerate((out, again)):
-        log(f"serve run {i + 1}: {o['completed']} requests, prompts {PROMPT_MIN}-{PROMPT_MAX} "
-            f"tokens, max_new {MAX_NEW}, slots {SLOTS}: {o['generated_tokens']} tokens in "
-            f"{o['wall_s']:.3f} s = {o['tokens_per_s']:.2f} tok/s; decode step "
-            f"{o['decode_step_ms']:.3f} ms over {o['decode_steps']} rounds; peak device memory "
-            f"{o['peak_mem_gib']} GiB; pool clean {o['pool_clean']}")
-        log(f"serve run {i + 1}: TTFT ms by prompt length: "
+        log(f"{arch} serve run {i + 1}: {o['completed']} requests, prompts "
+            f"{PROMPT_MIN}-{PROMPT_MAX} tokens, max_new {MAX_NEW}, slots {SLOTS}: "
+            f"{o['generated_tokens']} tokens in {o['wall_s']:.3f} s = "
+            f"{o['tokens_per_s']:.2f} tok/s; decode step {o['decode_step_ms']:.3f} ms over "
+            f"{o['decode_steps']} rounds; peak device memory {o['peak_mem_gib']} GiB; "
+            f"pool clean {o['pool_clean']}")
+        log(f"{arch} serve run {i + 1}: TTFT ms by prompt length: "
             + json.dumps([[n, round(ms, 3)] for n, ms in o["ttft_ms"]]))
     if not again["pool_clean"] or again["completed"] != N_REQUESTS:
-        fail("second serve run did not complete cleanly")
+        fail(f"{arch}: second serve run did not complete cleanly")
 
-    path_ms = profile_rounds(srv, cfg, wrappers)
+    path_ms = profile_rounds(srv, cfg, {n: ws[n] for n in names})
 
     plain_srv = serve(Model(cfg, device=dev, plain=True))
     plain_out = run(plain_srv, requests("req"))
-    same_seq = same_tok = total = 0
+    same_seq = same_first = same_tok = total = 0
     for rid, r in out["results"].items():
         p = plain_out["results"][rid].tokens
         same_seq += r.tokens == p
+        same_first += r.tokens[0] == p[0]
         same_tok += sum(a == b for a, b in zip(r.tokens, p))
         total += len(r.tokens)
-    log(f"bf16 greedy agreement with the plain path (information): {same_seq}/{N_REQUESTS} "
-        f"identical sequences, {same_tok}/{total} tokens; plain path "
+    log(f"{arch} bf16 greedy agreement with the plain path (information): "
+        f"{same_seq}/{N_REQUESTS} identical sequences, {same_first}/{N_REQUESTS} first tokens "
+        f"(from prefill), {same_tok}/{total} tokens; plain path "
         f"{plain_out['tokens_per_s']:.2f} tok/s, decode step {plain_out['decode_step_ms']:.3f} ms")
-    return launches, path_ms
+    del srv, plain_srv, params, model
+    torch.cuda.empty_cache()
+    return {n: launches[n] for n in names}, path_ms
 
 
 # the CUDA kernels each wrapper launches, by name as the profiler shows them
 KERNEL_NAMES = {"rmsnorm": ("rmsnorm_fwd",), "flash_attention": ("flash_fwd",),
-                "decode_attention": ("decode_partial", "decode_combine")}
+                "decode_attention": ("decode_partial", "decode_combine"),
+                "slstm_scan": ("slstm_scan",)}
 
 
 def profile_rounds(srv, cfg, wrappers: dict, rounds: int = 4) -> dict:
     """Where the time goes, from ``torch.profiler``: one admission round
     (``SLOTS`` prefills and a decode round) and then ``rounds`` decode rounds
     with every slot busy.  Runs after the measured serving runs, so it costs
-    them nothing.  Returns each kernel's device ms per wrapper launch."""
+    them nothing.  Returns each kernel's device ms per wrapper launch, by
+    window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -439,13 +600,21 @@ def profile_rounds(srv, cfg, wrappers: dict, rounds: int = 4) -> dict:
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
         log(f"profile, {label}, device ms/round by kernel: " + json.dumps(
             [[k[:70], round(v / 1e3 / n, 4)] for k, v in top]))
-        for name, pats in KERNEL_NAMES.items():
-            us = sum(v for k, v in dev_us.items() if any(p in k for p in pats))
+        for name in wrappers:
+            us = sum(v for k, v in dev_us.items() if any(p in k for p in KERNEL_NAMES[name]))
             if calls[name]:
-                path_ms.setdefault(name, us / 1e3 / calls[name])
+                path_ms.setdefault(name, {})[label] = us / 1e3 / calls[name]
                 log(f"profile, {label}: {name} {calls[name]} launches, device "
                     f"{us / 1e3 / calls[name]:.5f} ms per launch")
     return path_ms
+
+
+def _items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
 
 
 def _leaves(tree):
@@ -469,6 +638,10 @@ REPLACES = {
                         "src/repro/kernels/flash_attention/kernel.py:70"),
     "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:61"),
+    "ragged_concat": ("cuda", "src/repro_torch/csrc/ragged_concat.cu",
+                      "src/repro/kernels/ragged_concat/kernel.py:42"),
+    "slstm_scan": ("cuda", "src/repro_torch/csrc/slstm_scan.cu",
+                   "src/repro/kernels/slstm_scan/kernel.py:88"),
 }
 
 
@@ -511,22 +684,31 @@ def main() -> None:
     t0 = time.monotonic()
     report = phase_kernels(dev)
     log(f"phase 3 (kernels vs plain) done in {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    phase_model_f32(dev)
-    log(f"phase 4 (f32 model) done in {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    launches, path_ms = phase_serve_bf16(dev)
-    log(f"phase 5 (bf16 serving) done in {time.monotonic() - t0:.1f} s")
+    launches, path_ms = {}, {}
+    for n, (what, fn, arch) in enumerate((("f32 model", phase_model_f32, "qwen2-1.5b"),
+                                          ("bf16 serving", phase_serve_bf16, "qwen2-1.5b"),
+                                          ("f32 model", phase_model_f32, "xlstm-1.3b"),
+                                          ("bf16 serving", phase_serve_bf16, "xlstm-1.3b")),
+                                         start=4):
+        t0 = time.monotonic()
+        out = fn(dev, arch)
+        if out is not None:
+            launches[arch], path_ms[arch] = out
+        log(f"phase {n} ({what}, {arch}) done in {time.monotonic() - t0:.1f} s")
 
     kernels = []
     for name, (route, source, replaces) in REPLACES.items():
         r = report[name]
+        by_path = {a: c[name] for a, c in launches.items() if name in c}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
+                        "on_path": bool(by_path),
+                        "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"], "wall_ms": r["wall_ms"],
-                        "path_device_ms_per_launch": path_ms.get(name)})
+                        "path_device_ms_per_launch": {a: p[name] for a, p in path_ms.items()
+                                                      if name in p}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

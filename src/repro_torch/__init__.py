@@ -7,13 +7,13 @@ never ``jax`` or ``repro``; the jax-free pieces it needs (the KV page pool,
 the generation gate) are copied, not imported.
 
 * :mod:`repro_torch.configs` — ``ModelConfig`` factories and ``model_100m``;
-* :mod:`repro_torch.models` — the dense transformer (prefill, decode) and
-  ``Model``; :mod:`repro_torch.models.weights` carries a JAX parameter tree
-  across as numpy;
+* :mod:`repro_torch.models` — the dense transformer and the xLSTM family
+  (prefill, decode) and ``Model``; :mod:`repro_torch.models.weights`
+  carries a JAX parameter tree across as numpy;
 * :mod:`repro_torch.kernels` — the Hopper kernels that replace the Pallas
-  TPU kernels on the main path (flash attention and decode attention in
-  CUDA C++ under ``csrc/``, fused residual-add + RMSNorm in Triton), each
-  beside its plain PyTorch version;
+  TPU kernels (flash attention, decode attention, the sLSTM scan and the
+  ragged concat in CUDA C++ under ``csrc/``, fused residual-add + RMSNorm
+  in Triton), each beside its plain PyTorch version;
 * :mod:`repro_torch.runtime` — the continuous-batching ``InferenceServer``;
 * :mod:`repro_torch.launch.serve` — the serving entry point.
 

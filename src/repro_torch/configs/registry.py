@@ -20,7 +20,7 @@ _MODULES: dict[str, str | None] = {
     "qwen2-1.5b": "qwen2_1_5b",
     "gemma-2b": None,
     "llama3-8b": None,
-    "xlstm-1.3b": None,
+    "xlstm-1.3b": "xlstm_1_3b",
     "whisper-small": None,
     "llama-3.2-vision-90b": None,
     "zamba2-2.7b": None,

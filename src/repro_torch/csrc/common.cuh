@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels in this directory.
+// Helpers shared by the kernels in this directory.
 //
 // Each `.cu` file here is compiled on its own into its own shared library,
 // so the C entry point below is defined once per library.  `_build.py`

@@ -4,7 +4,12 @@
 * ``flash_attention`` — causal GQA prefill attention (CUDA C++,
   ``csrc/flash_attention.cu``);
 * ``decode_attention`` — one query per request against the KV cache,
-  split over the sequence (CUDA C++, ``csrc/decode_attention.cu``).
+  split over the sequence (CUDA C++, ``csrc/decode_attention.cu``);
+* ``slstm_scan`` — the sLSTM time recurrence in one cooperative launch
+  (CUDA C++, ``csrc/slstm_scan.cu``);
+* ``ragged_concat`` — N ragged sources packed into one zero-filled buffer
+  (CUDA C++, ``csrc/ragged_concat.cu``); on no model path, an operation
+  of its own.
 
 Every ``ops`` wrapper takes the plain version only for CPU tensors; for a
 CUDA tensor it launches its kernel or raises, and counts each launch in

@@ -5,9 +5,11 @@
 Counterpart of ``repro/launch/serve.py``.  By default it serves full-width
 qwen2-1.5b (28 layers, d_model 1536, bf16, about 1.5 B parameters with
 random weights drawn from ``--seed``) on the GPU, through the port's flash
-attention, decode attention and fused RMSNorm kernels.  ``--size smoke``
-or ``100m`` give the reduced configs; ``--device cpu`` runs the kernels'
-plain versions on the CPU.
+attention, decode attention and fused RMSNorm kernels.  ``--arch
+xlstm-1.3b`` serves full-width xlstm-1.3b (48 blocks [7 mLSTM : 1 sLSTM],
+d_model 2048, bf16, 3.61 B parameters) through the sLSTM scan and fused
+RMSNorm kernels.  ``--size smoke`` or ``100m`` give the reduced configs;
+``--device cpu`` runs the kernels' plain versions on the CPU.
 """
 
 from __future__ import annotations

@@ -1,26 +1,27 @@
 """Unified model API for the port.
 
-Counterpart of ``repro/models/model.py``.  Only the ``dense`` family is
-ported; the others raise, naming their ROADMAP item.  A ``Model`` lives on
-one device: ``cuda`` unless the caller passes ``device="cpu"``.
+Counterpart of ``repro/models/model.py``.  The ``dense`` and ``xlstm``
+families are ported; the others raise, naming their ROADMAP item.  A
+``Model`` lives on one device: ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import transformer
+from . import transformer, xlstm_model
 from .common import ModelConfig
 
 __all__ = ["Model", "resolve_device"]
 
 _NOT_PORTED = {
     "moe": "ROADMAP.md Queue 1 item 5 (MoE family)",
-    "xlstm": "ROADMAP.md Queue 1 item 6 (xLSTM, with the sLSTM scan kernel K5)",
     "zamba2": "ROADMAP.md Queue 1 item 7 (Mamba2 / Zamba2)",
     "whisper": "ROADMAP.md Queue 1 item 8 (Whisper and mLLaMA)",
     "mllama": "ROADMAP.md Queue 1 item 8 (Whisper and mLLaMA)",
 }
+_FAMILIES = {"dense": transformer, "xlstm": xlstm_model}
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -38,12 +39,13 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str | None = None,
                  plain: bool = False):
-        if cfg.family != "dense":
+        if cfg.family not in _FAMILIES:
             if cfg.family in _NOT_PORTED:
                 raise NotImplementedError(
                     f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}")
             raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
+        self._m = _FAMILIES[cfg.family]
         self.device = resolve_device(device)
         self.plain = plain
 
@@ -52,18 +54,26 @@ class Model:
     def init(self, seed: int) -> dict:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return transformer.init_params(self.cfg, gen)
+        return self._m.init_params(self.cfg, gen)
 
     # -- steps ------------------------------------------------------------------
 
     @torch.no_grad()
     def prefill(self, params: dict, batch: dict, *, max_seq: int | None = None):
-        return transformer.prefill(params, batch["tokens"], self.cfg, max_seq=max_seq,
-                                   plain=self.plain)
+        return self._m.prefill(params, batch["tokens"], self.cfg, max_seq=max_seq,
+                               plain=self.plain)
 
     @torch.no_grad()
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
-        return transformer.decode_step(params, cache, tokens, self.cfg, plain=self.plain)
+        return self._m.decode_step(params, cache, tokens, self.cfg, plain=self.plain)
 
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> dict:
-        return transformer.init_cache(self.cfg, batch, max_seq, dtype, device=self.device)
+        return self._m.init_cache(self.cfg, batch, max_seq, dtype, device=self.device)
+
+    @torch.no_grad()
+    def splice_cache(self, cache: dict, single: dict, slot: int, length: int) -> None:
+        """Copy the one-request cache ``single`` (from :meth:`prefill`) into
+        slot ``slot`` of the batched ``cache``, in place, and set its
+        length: K/V rows for the dense family, every state leaf along its
+        batch axis for xLSTM."""
+        self._m.splice_cache(cache, single, slot, length)

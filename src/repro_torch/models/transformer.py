@@ -30,7 +30,8 @@ from .attention import attention, decode_attention_append
 from .common import ModelConfig, apply_rope, dense_init, rms_norm, rope_freqs
 from .mlp import gated_mlp, init_mlp
 
-__all__ = ["init_params", "param_shapes", "prefill", "decode_step", "init_cache"]
+__all__ = ["init_params", "param_shapes", "prefill", "decode_step", "init_cache",
+           "splice_cache"]
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +191,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
         "v": torch.zeros(shape, dtype=dt, device=device),
         "len": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+def splice_cache(cache: dict, single: dict, slot: int, length: int) -> None:
+    """Copy the first ``length`` K/V rows of the one-request cache ``single``
+    into slot ``slot`` of ``cache`` in place, and set ``len[slot]``."""
+    cache["k"][:, slot, :length] = single["k"][:, 0, :length]
+    cache["v"][:, slot, :length] = single["v"][:, 0, :length]
+    cache["len"][slot] = length
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,

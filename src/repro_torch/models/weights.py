@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import transformer, xlstm_model
 from .common import ModelConfig
-from .transformer import param_shapes
 
 __all__ = ["params_from_numpy"]
 
@@ -42,10 +42,17 @@ def _map(node, spec, path: str, device, layer: int | None):
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device: torch.device | str) -> dict:
-    """The reference's dense parameter tree (numpy leaves, layers stacked on
-    a leading axis) as the port's parameters: every leaf mapped by name,
-    the ``layers`` axis unstacked into a list of per-layer dicts."""
-    spec = param_shapes(cfg)
+    """The reference's parameter tree (numpy leaves) as the port's parameters,
+    every leaf mapped by name.
+
+    Dense: the ``layers`` axis is unstacked into a list of per-layer dicts.
+    xLSTM: the port keeps the reference's stacked leaves as they are — the
+    ``(ng, nm)`` axes of ``mlstm``/``ln_m``, the ``(ng,)`` axis of
+    ``slstm`` (with its ``mlp``), ``ln_s`` and ``ln_s2``, and an untied
+    ``lm_head``."""
+    if cfg.family == "xlstm":
+        return _map(tree, xlstm_model.param_shapes(cfg), "", device, None)
+    spec = transformer.param_shapes(cfg)
     if set(tree) != set(spec):
         raise KeyError(f"top-level leaves {sorted(tree)}, expected {sorted(spec)}")
     out = {}

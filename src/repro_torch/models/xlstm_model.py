@@ -1,0 +1,275 @@
+"""xLSTM language model: [7 mLSTM : 1 sLSTM] grouped stack.
+
+Counterpart of ``repro/models/xlstm_model.py``.  The parameter tree and the
+cache keep the reference's layout, stacked leaves and all: mLSTM leaves
+carry leading ``(n_groups, mlstm_per_group)`` axes, sLSTM leaves a leading
+``(n_groups,)`` axis, and the cache's mLSTM state leaves are
+``(ng, nm, B, ...)``, its sLSTM leaves ``(ng, B, D)``, and ``len (B,)``.
+Python loops over groups and blocks replace the nested ``lax.scan``, each
+block reading its parameters as views of the stacked leaves; the
+reference's ``jax.checkpoint`` (training only) and ``constrain`` calls
+have no counterpart here.
+
+Two places go through the Hopper kernels (``plain=True`` takes their plain
+versions instead):
+
+* the sLSTM time recurrence -> the sLSTM scan kernel, once per sLSTM block
+  in prefill (S = the prompt length) and in decode (S = 1, resuming from
+  the slot states);
+* ``x = x + slstm_out; rms_norm(x, ln_s2)`` -> one fused residual-add +
+  RMSNorm kernel call.
+
+``decode_step`` writes the new states into ``cache`` in place (where the
+reference's jit donates it) and returns the same dict.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
+
+from .common import ModelConfig, dense_init, rms_norm
+from .mlp import gated_mlp
+from .xlstm import (
+    init_mlstm,
+    init_mlstm_state,
+    init_slstm,
+    init_slstm_state,
+    mlstm_block,
+    mlstm_decode,
+    mlstm_shapes,
+    slstm_block,
+    slstm_decode,
+    slstm_shapes,
+)
+
+__all__ = ["init_params", "param_shapes", "prefill", "prefill_sequential", "decode_step",
+           "init_cache", "splice_cache"]
+
+
+def _layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(n_groups, mlstm_per_group). slstm_every == 0 -> pure mLSTM."""
+    if cfg.slstm_every <= 0:
+        return 1, cfg.num_layers
+    if cfg.num_layers % cfg.slstm_every:
+        raise ValueError(f"{cfg.num_layers} layers do not tile the pattern of "
+                         f"slstm_every={cfg.slstm_every}")
+    return cfg.num_layers // cfg.slstm_every, cfg.slstm_every - 1
+
+
+def _stacked(lead: tuple, tree: dict) -> dict:
+    """``tree`` of (shape, dtype) leaves with ``lead`` prepended to each shape."""
+    return {k: _stacked(lead, v) if isinstance(v, dict) else (lead + v[0], v[1])
+            for k, v in tree.items()}
+
+
+def _spec(cfg: ModelConfig) -> dict:
+    """The parameter tree as (shape, dtype) leaves."""
+    ng, nm = _layout(cfg)
+    d = cfg.d_model
+    tree = {
+        "tok_embed": ((cfg.vocab_size, d), cfg.pdt),
+        "mlstm": _stacked((ng, nm), mlstm_shapes(cfg)),
+        "ln_m": {"scale": ((ng, nm, d), torch.float32)},
+        "final_norm": {"scale": ((d,), torch.float32)},
+    }
+    if cfg.slstm_every > 0:
+        tree["slstm"] = _stacked((ng,), slstm_shapes(cfg))
+        tree["ln_s"] = {"scale": ((ng, d), torch.float32)}
+        tree["ln_s2"] = {"scale": ((ng, d), torch.float32)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ((cfg.vocab_size, d), cfg.pdt)
+    return tree
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree's structure with each leaf's shape."""
+    def shapes(t):
+        return {k: shapes(v) if isinstance(v, dict) else v[0] for k, v in t.items()}
+    return shapes(_spec(cfg))
+
+
+def _empty(tree: dict, device) -> dict:
+    return {k: _empty(v, device) if isinstance(v, dict)
+            else torch.empty(v[0], dtype=v[1], device=device) for k, v in tree.items()}
+
+
+def _fill(dst: dict, src: dict) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _fill(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def _at(tree: dict, *idx) -> dict:
+    """Views of one block's parameters in a stacked tree."""
+    return {k: _at(v, *idx) if isinstance(v, dict) else v[idx] for k, v in tree.items()}
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random parameters on ``gen.device``, drawn from ``gen``.  Each block
+    is drawn on its own and copied into the stacked leaves, so the peak is
+    one block above the tree itself."""
+    ng, nm = _layout(cfg)
+    dev = gen.device
+    spec = _spec(cfg)
+    params = {
+        "tok_embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdt,
+                                fan_in=cfg.d_model),
+        "mlstm": _empty(spec["mlstm"], dev),
+        "ln_m": {"scale": torch.ones((ng, nm, cfg.d_model), dtype=torch.float32, device=dev)},
+        "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)},
+    }
+    for g in range(ng):
+        for i in range(nm):
+            _fill(_at(params["mlstm"], g, i), init_mlstm(gen, cfg))
+    if cfg.slstm_every > 0:
+        params["slstm"] = _empty(spec["slstm"], dev)
+        for g in range(ng):
+            _fill(_at(params["slstm"], g), init_slstm(gen, cfg))
+        params["ln_s"] = {"scale": torch.ones((ng, cfg.d_model), dtype=torch.float32,
+                                              device=dev)}
+        params["ln_s2"] = {"scale": torch.ones((ng, cfg.d_model), dtype=torch.float32,
+                                               device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdt)
+    return params
+
+
+def _slstm_tail(ps: dict, lns2: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+                cfg: ModelConfig, plain: bool) -> torch.Tensor:
+    """``x = x + h; x = x + mlp(rms_norm(x, ln_s2))`` with the add and the
+    norm fused into one kernel call."""
+    norm = rmsnorm_ref if plain else fused_rmsnorm
+    h2, x = norm(h, x, lns2, eps=cfg.norm_eps)
+    return x + gated_mlp(ps["mlp"], h2, act="geglu")
+
+
+def _stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | None = None,
+           collect: bool = False, plain: bool = False):
+    """Run all groups.  Decode (``cache`` given): each block steps its slot
+    states and writes them back into ``cache`` in place; returns (x, None).
+    Prefill with ``collect``: also returns every block's final recurrent
+    state, stacked into the ``init_cache`` layout (mlstm, slstm)."""
+    ng, nm = _layout(cfg)
+    has_s = cfg.slstm_every > 0
+    b = x.shape[0]
+    eps = cfg.norm_eps
+    stm = [[None] * nm for _ in range(ng)]
+    sts = [None] * ng
+    for g in range(ng):
+        for i in range(nm):
+            p, ln = _at(params["mlstm"], g, i), params["ln_m"]["scale"][g, i]
+            if cache is not None:
+                leaves = cache["mlstm"]
+                h, st = mlstm_decode(p, rms_norm(x, ln, eps),
+                                     {k: v[g, i] for k, v in leaves.items()}, cfg)
+                for k, v in st.items():
+                    leaves[k][g, i].copy_(v)
+            elif collect:
+                h, stm[g][i] = mlstm_block(p, rms_norm(x, ln, eps), cfg, return_state=True)
+            else:
+                h = mlstm_block(p, rms_norm(x, ln, eps), cfg)
+            x = x + h
+        if not has_s:
+            sts[g] = init_slstm_state(cfg, b, device=x.device)
+            continue
+        ps = _at(params["slstm"], g)
+        lns, lns2 = params["ln_s"]["scale"][g], params["ln_s2"]["scale"][g]
+        if cache is not None:
+            leaves = cache["slstm"]
+            h, st = slstm_decode(ps, rms_norm(x, lns, eps),
+                                 {k: v[g] for k, v in leaves.items()}, cfg, plain=plain)
+            for k, v in st.items():
+                leaves[k][g].copy_(v)
+        else:
+            h, sts[g] = slstm_block(ps, rms_norm(x, lns, eps), cfg, return_state=True,
+                                    plain=plain)
+        x = _slstm_tail(ps, lns2, x, h, cfg, plain)
+    if cache is not None or not collect:
+        return x, None
+    mlstm = {k: torch.stack([torch.stack([stm[g][i][k] for i in range(nm)])
+                             for g in range(ng)]) for k in stm[0][0]}
+    slstm = {k: torch.stack([sts[g][k] for g in range(ng)]) for k in sts[0]}
+    return x, (mlstm, slstm)
+
+
+def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    table = params.get("lm_head", params["tok_embed"])
+    return x @ table.T
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params["tok_embed"][tokens].to(cfg.cdt)
+
+
+# -- recurrent serving --------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
+               device: torch.device | str) -> dict:
+    """State cache; its size does not depend on ``max_seq``."""
+    ng, nm = _layout(cfg)
+    mlstm = {k: v.expand((ng, nm) + v.shape).clone()
+             for k, v in init_mlstm_state(cfg, batch, dtype or cfg.cdt, device=device).items()}
+    slstm = {k: v.expand((ng,) + v.shape).clone()
+             for k, v in init_slstm_state(cfg, batch, device=device).items()}
+    return {"mlstm": mlstm, "slstm": slstm,
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def splice_cache(cache: dict, single: dict, slot: int, length: int) -> None:
+    """Copy a one-request cache ``single`` into slot ``slot`` of ``cache``, in
+    place: every state leaf along its own batch axis (axis 2 of the mLSTM
+    leaves, axis 1 of the sLSTM leaves), then ``len[slot]``.
+
+    This is where the port deliberately differs from the reference's
+    ``_splice_cache`` (``repro/runtime/server.py``), which splices a leaf
+    only when its axis 1 is the batch axis: the reference leaves the
+    ``(ng, nm, B, ...)`` mLSTM leaves unspliced when nm > 1 (decode starts
+    from the zero state) and broadcasts or drops them when nm == 1."""
+    for k, v in cache["mlstm"].items():
+        v[:, :, slot] = single["mlstm"][k][:, :, 0]
+    for k, v in cache["slstm"].items():
+        v[:, slot] = single["slstm"][k][:, 0]
+    cache["len"][slot] = length
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            max_seq: int | None = None, plain: bool = False):
+    """Parallel prefill: one pass over the prompt that also emits every
+    block's closed-form final recurrent state.  Returns (last-position
+    logits (B, 1, V), cache).  ``max_seq`` is unused: the state does not
+    grow with the sequence."""
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg)
+    x, (mlstm, slstm) = _stack(params, x, cfg, collect=True, plain=plain)
+    # the norm is per position, so only the last one is computed
+    logits = _head(params, x[:, -1:], cfg)
+    return logits, {"mlstm": mlstm, "slstm": slstm,
+                    "len": torch.full((b,), s, dtype=torch.int32, device=tokens.device)}
+
+
+def prefill_sequential(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                       plain: bool = False):
+    """Replay-of-decode-steps prefill: the reference's own oracle for
+    :func:`prefill`."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, 0, device=tokens.device)
+    logits = None
+    for t in range(s):
+        logits, cache = decode_step(params, cache, tokens[:, t : t + 1], cfg, plain=plain)
+    return logits, cache
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                plain: bool = False):
+    """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache), with
+    ``cache`` updated in place and returned."""
+    x = _embed(params, tokens, cfg)
+    x, _ = _stack(params, x, cfg, cache=cache, plain=plain)
+    cache["len"].add_(1)
+    return _head(params, x, cfg), cache

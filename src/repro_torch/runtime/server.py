@@ -6,12 +6,15 @@ return to the free list only when refcount == 0 AND unreceived == 0
 (``DevicePagePool``), so a cancelled request's pages are reclaimed by the
 janitor (``expire_consumer``).
 
-The decode cache is slot-contiguous ``(L, B_slots, S_max, KV, hd)`` and
-lives on the model's device.  Where the reference jits its steps and
-donates the cache (``jax.jit(..., donate_argnums=(1,))``), the port keeps
-ONE preallocated cache and updates it in place: each decode step writes the
-new token's k/v and bumps ``len`` inside it, and admission copies a
-prompt's K/V into its slot with one in-place copy.
+The decode cache is batched over slots and lives on the model's device:
+K/V ``(L, B_slots, S_max, KV, hd)`` for the dense family, per-block
+recurrent states for xLSTM (which holds no pages; the page bookkeeping
+runs all the same, as in the reference).  Where the reference jits its
+steps and donates the cache (``jax.jit(..., donate_argnums=(1,))``), the
+port keeps ONE preallocated cache and updates it in place: each decode
+step writes its new k/v or states and bumps ``len`` inside it, and
+admission copies a prompt's cache into its slot with
+``Model.splice_cache``, which holds everything family-specific.
 
 Not here yet: ``ingest_message``, ``ingest_serve_message`` and
 ``attach_executor`` need the shm message and executor planes, which the
@@ -113,10 +116,8 @@ class InferenceServer:
             key = f"kv/{req.rid}"
             self.pool.publish(key, pages, consumers=[f"decode/{req.rid}"])
             self.pool.take(key, f"decode/{req.rid}")   # zero-copy receive
-            # splice the request's KV into its slot of the batched cache
-            self._cache["k"][:, slot, :n] = cache1["k"][:, 0]
-            self._cache["v"][:, slot, :n] = cache1["v"][:, 0]
-            self._cache["len"][slot] = n
+            # splice the request's cache into its slot of the batched cache
+            self.model.splice_cache(self._cache, cache1, slot, n)
             st = {
                 "req": req, "key": key, "generated": [first],
                 "t0": t0, "ttft": time.monotonic() - t0,

@@ -4,7 +4,9 @@ NVIDIA GPU; skips without one).
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of ``tests/test_kernels.py``: 3e-5 for f32, 2e-2 for
-bf16.  f32 products run in full f32 (TF32 off)."""
+bf16; the sLSTM scan computes in f32 from either input type, so it is held
+at 3e-5 in both; the ragged concat moves bytes and must be exact.  f32
+products run in full f32 (TF32 off)."""
 
 import pytest
 import torch
@@ -12,7 +14,9 @@ import torch
 from repro_torch.configs import model_100m
 from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
+from repro_torch.kernels.ragged_concat.ops import ragged_concat, ragged_concat_ref
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
+from repro_torch.kernels.slstm_scan.ops import slstm_scan, slstm_scan_ref
 from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
@@ -104,3 +108,72 @@ def test_model_kernel_path_matches_plain_path(dev, variants):
         torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
     assert torch.equal(ck["len"], cp["len"])
     assert fused_rmsnorm.launches - norms0 == 5 * cfg.num_layers   # prefill + 4 steps
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,s,d,h", [(1, 384, 2048, 4), (4, 1, 2048, 4), (3, 40, 64, 4),
+                                     (2, 33, 48, 4), (4, 64, 64, 1)])
+def test_slstm_scan_kernel_matches_plain(dev, b, s, d, h, dt):
+    dh = d // h
+    xg = _randn(dev, b, s, 4 * d, dt=dt, seed=10)
+    w = (_randn(dev, h, dh, 4 * dh, dt=torch.float32, seed=11) * dh ** -0.5).to(dt)
+    bias = _randn(dev, 4 * d, dt=torch.float32, seed=12) * 0.1
+    z = torch.zeros(b, d, device=dev)
+    m0 = torch.full((b, d), float("-inf"), device=dev)
+    n = slstm_scan.launches
+    hs, st = slstm_scan(xg, w, bias, z, z, z, m0)
+    assert slstm_scan.launches == n + 1                 # one launch, whatever S
+    hr, sr = slstm_scan_ref(xg, w, bias, z, z, z, m0)
+    torch.testing.assert_close(hs, hr, atol=3e-5, rtol=3e-5)
+    for a, c in zip(st, sr):
+        torch.testing.assert_close(a, c, atol=3e-5, rtol=3e-5)
+    # resume from the carried state: the decode path's S = 1 calls
+    x2 = _randn(dev, b, 3, 4 * d, dt=dt, seed=13)
+    h2, s2 = slstm_scan(x2, w, bias, *st)
+    hr2, sr2 = slstm_scan_ref(x2, w, bias, *st)
+    torch.testing.assert_close(h2, hr2, atol=3e-5, rtol=3e-5)
+    for a, c in zip(s2, sr2):
+        torch.testing.assert_close(a, c, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int32, torch.uint8])
+@pytest.mark.parametrize("lens,c,cap", [([500_000, 3_011, 2_987], 4, 507_000),
+                                        ([500_000, 3_011, 2_987], 4, 400_000),
+                                        ([3, 0, 16, 5], 1, 30), ([6, 3], 3, 12)])
+def test_ragged_concat_kernel_matches_plain(dev, lens, c, cap, dt):
+    src = (_randn(dev, len(lens), max(lens), c, dt=torch.float32, seed=14) * 100).to(dt)
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n = ragged_concat.launches
+    out, offs, total = ragged_concat(src, lt, capacity=cap)
+    assert ragged_concat.launches == n + 1
+    ref, roffs, rtotal = ragged_concat_ref(src, lt, cap)
+    assert torch.equal(out, ref) and torch.equal(offs, roffs)
+    assert int(total) == int(rtotal) == sum(lens)
+
+
+@pytest.mark.parametrize("every", [8, 4])
+def test_xlstm_kernel_path_matches_plain_path(dev, every):
+    """f32, the 100m reduction of xlstm-1.3b (8 blocks) and a variant with
+    two sLSTM blocks: prefill and 4 decode steps through the sLSTM scan and
+    fused norm kernels agree with the plain path.  1e-4, as for the dense
+    model: each block adds the kernels' summation-order differences."""
+    cfg = model_100m("xlstm-1.3b").scaled(slstm_every=every)
+    fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
+    params = fast.init(0)
+    scans0, norms0 = slstm_scan.launches, fused_rmsnorm.launches
+    toks = torch.randint(0, cfg.vocab_size, (1, 77), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    lk, ck = fast.prefill(params, {"tokens": toks})
+    lp, cp = plain.prefill(params, {"tokens": toks})
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for _ in range(4):
+        nxt = lp[:, -1].argmax(-1, keepdim=True)
+        lk, ck = fast.decode_step(params, ck, nxt)
+        lp, cp = plain.decode_step(params, cp, nxt)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for part in ("mlstm", "slstm"):
+        for k, v in ck[part].items():
+            torch.testing.assert_close(v, cp[part][k], atol=1e-4, rtol=1e-4, msg=k)
+    groups = cfg.num_layers // every
+    assert slstm_scan.launches - scans0 == 5 * groups      # prefill + 4 steps
+    assert fused_rmsnorm.launches - norms0 == 5 * groups

@@ -214,7 +214,8 @@ def test_wrappers_reject_bad_inputs():
 def test_kernel_build_layout():
     """Each CUDA source builds into its own library under the ignored
     ``build/`` directory, named by a hash of the source and flags."""
-    assert _build.sources() == ["decode_attention", "flash_attention"]
+    assert _build.sources() == ["decode_attention", "flash_attention", "ragged_concat",
+                                "slstm_scan"]
     for name in _build.sources():
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces the Pallas TPU kernel" in src and "What bounds it" in src

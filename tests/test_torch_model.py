@@ -176,6 +176,8 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
     code = (
         "import pkgutil, importlib, sys\n"
         "import repro_torch.runtime.server, repro_torch.launch.serve\n"
+        "import repro_torch.models.xlstm_model, repro_torch.configs.xlstm_1_3b\n"
+        "import repro_torch.kernels.slstm_scan.ops, repro_torch.kernels.ragged_concat.ops\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
