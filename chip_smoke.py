@@ -10,16 +10,22 @@ final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and report the build time;
+   source, all started together), report the build time and each kernel's
+   registers, shared memory and spills, and count the tensor-core
+   instructions (``HMMA``) in the built flash-attention library: the bf16
+   kernels must have some;
 3. hold each kernel (K1-K5) against its plain PyTorch version on the card
-   at the main paths' shapes plus ragged ones, in f32 and bf16, and time
-   kernel, plain version and the nearest PyTorch library call;
+   at the main paths' shapes plus ragged ones and the attention kernels'
+   tile and split edges, in f32 and bf16, and time kernel, plain version
+   and the nearest PyTorch library call (flash attention at S = 16, 100,
+   384 and 1024);
 4. full-width qwen2-1.5b in f32: kernel path against plain path on the same
    random weights, prefill logits of 4 ragged prompts and 4 decode steps
    with the 4 slots at their ragged lengths;
 5. full-width qwen2-1.5b in bf16: serve unsized requests through
    ``repro_torch.runtime.server.InferenceServer``, with every kernel's
-   launch counter set to 0 just before and read just after;
+   launch counter set to 0 just before and read just after, and check in
+   a profile that each decode-attention call is one kernel launch;
 6. full-width xlstm-1.3b in f32: kernel path against plain path, as in 4;
 7. full-width xlstm-1.3b in bf16: serve unsized requests, as in 5, and
    check that the sLSTM scan and the fused norm ran in prefill and decode.
@@ -33,6 +39,7 @@ result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +57,11 @@ TOL = {"float32": 3e-5, "bfloat16": 2e-2}              # tests/test_kernels.py:1
 # for 64 steps, so both get the repo's f32 3e-5: the kernel widens bf16
 # inputs to f32 as the plain version does
 SLSTM_TOL = 3e-5
+
+# device ms per call of the previous designs at the same shapes (CUDA-core
+# flash attention with 16-row tiles; decode attention as split + combine
+# kernels), NVIDIA H100 80GB HBM3 at 700 W, kept beside the new times
+EARLIER_MS = {"flash_attention": 0.07730, "decode_attention": 0.02429}
 
 SEED = 0
 N_REQUESTS = 8
@@ -94,20 +106,27 @@ def cuda_activity(prof) -> list:
     return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
 
 
-def device_ms(fn, iters: int = 20, warm: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warm: int = 3, tries: int = 3) -> float:
     """Device time per call: all the CUDA activity ``torch.profiler`` records
-    over ``iters`` calls, divided by ``iters``."""
+    over ``iters`` calls, divided by ``iters``.  A window in which the
+    profiler delivered no device activity at all is profiled again; after
+    ``tries`` such windows the run fails rather than report 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in cuda_activity(prof)) / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in cuda_activity(prof))
+        if us > 0:
+            return us / 1e3 / iters
+        log("profiler window held no device activity; profiling again")
+    fail(f"torch.profiler recorded no device activity in {tries} windows")
 
 
 def timings(kernel, plain, library, *, plain_iters: int = 20) -> dict:
@@ -146,6 +165,63 @@ def check_close(name: str, got, ref, dtype: str, tol: float | None = None) -> fl
     if not torch.allclose(got.float(), ref.float(), atol=tol, rtol=tol):
         fail(f"{name}: max |kernel - plain| {max_err(got, ref):.3e} beyond atol=rtol={tol}")
     return max_err(got, ref)
+
+
+def demangle(names: list[str]) -> list[str]:
+    """Readable kernel names, through the toolkit's ``cu++filt``; anonymous
+    namespaces and parameter lists dropped."""
+    from repro_torch.kernels import _build
+
+    out = subprocess.run([_build.cuda_tool("cu++filt")], input="\n".join(names),
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    short = []
+    for line in out.splitlines():
+        line = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", line)
+        depth, cut = 0, len(line)
+        for i, ch in enumerate(line):       # cut at the parameter list
+            depth += ch == "<"
+            depth -= ch == ">"
+            if ch == "(" and depth == 0:
+                cut = i
+                break
+        short.append(line[:cut].replace("void ", "").replace("(int)", "").strip())
+    return short
+
+
+def ptxas_by_kernel(names: list[str]) -> None:
+    """Each kernel's registers, shared memory and spills, from ``ptxas -v``."""
+    from repro_torch.kernels import _build
+
+    for n in names:
+        entries = []                          # [mangled name, registers, spills]
+        for line in _build.ptxas_report(n).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entries.append([m.group(1), "", ""])
+            elif entries and "spill" in line:
+                entries[-1][2] = line.strip()
+            elif entries and "registers" in line:
+                entries[-1][1] = line.split(":", 1)[-1].strip()
+        for (_, regs, spill), short in zip(entries, demangle([e[0] for e in entries])):
+            log(f"ptxas {n} {short}: {regs}; {spill}")
+
+
+def sass_counts(name: str, opcode: str) -> dict:
+    """How many ``opcode`` instructions each kernel of the built library for
+    ``csrc/<name>.cu`` holds, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
+                           str(_build._target(name))], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn and f" {opcode}" in line:
+            counts[fn] += 1
+    return dict(zip(demangle(list(counts)), counts.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -218,19 +294,41 @@ def phase_kernels(dev) -> dict:
                             dname)
             errs[(dname, case)] = e
             log(f"flash_attention {dname} B,H,KV,Sq,Sk,hd,causal={case}: max_abs_err {e:.3e}")
-    b, h, kv, s, hd = 1, 12, 2, 384, 128
-    q, k, v = qkv(b, h, kv, s, s, hd, torch.bfloat16)
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    t = timings(lambda: flash_attention(q, k, v, causal=True),
-                lambda: flash_attention_ref(q, k, v, causal=True),
-                lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
-                                                       enable_gqa=True))
-    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
-    flops = 4 * hd * h * b * (s * (s + 1) // 2)
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, "bfloat16")
-    log_timings("flash_attention bf16 B=1 H=12 KV=2 S=384 hd=128", t, "SDPA")
+    # the 64-row query tiles' and 64-key tiles' edges, G = H / KV from 1 to 8
+    edges = [1, 15, 63, 64, 65, 127, 383, 384, 385]
+    pairs = [(n, n) for n in edges] + [(n, m) for n, m in zip(edges, reversed(edges)) if n != m]
+    worst = {}
+    for dname, dt in dts.items():
+        for i, (sq, sk) in enumerate(pairs):
+            g = (1, 4, 6, 8)[i % 4]
+            for hd in (64, 128):
+                for causal in (True, False):
+                    q, k, v = qkv(1, 2 * g, 2, sq, sk, hd, dt)
+                    o = flash_attention(q, k, v, causal=causal)
+                    e = check_close(f"flash {dname} edge Sq={sq} Sk={sk} G={g} hd={hd} "
+                                    f"causal={causal}", o,
+                                    flash_attention_ref(q, k, v, causal=causal), dname)
+                    worst[dname] = max(worst.get(dname, 0.0), e)
+    log(f"flash_attention tile edges ({len(pairs)} (Sq, Sk) pairs x hd 64/128 x causal "
+        f"or not, G 1/4/6/8): max_abs_err " + ", ".join(f"{d} {e:.3e}" for d, e in worst.items()))
+
+    b, h, kv, hd = 1, 12, 2, 128
+    by_seq = {}
+    for s in (16, 100, 384, 1024):        # the path's prompts reach 384; 1024 beyond
+        q, k, v = qkv(b, h, kv, s, s, hd, torch.bfloat16)
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        t = timings(lambda: flash_attention(q, k, v, causal=True),
+                    lambda: flash_attention_ref(q, k, v, causal=True),
+                    lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                                           enable_gqa=True))
+        nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+        flops = 4 * hd * h * b * (s * (s + 1) // 2)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, "bfloat16")
+        log_timings(f"flash_attention bf16 B=1 H=12 KV=2 S={s} hd=128", t, "SDPA")
+        by_seq[s] = t
     report["flash_attention"] = {"max_abs_err": errs[("bfloat16", cases[0])],
-                                 "shape": "B=1 H=12 KV=2 Sq=Sk=384 hd=128 causal bf16", **t}
+                                 "shape": "B=1 H=12 KV=2 Sq=Sk=384 hd=128 causal bf16",
+                                 **by_seq[384], "by_seq": {s: by_seq[s] for s in (16, 100, 1024)}}
 
     # K3 decode attention: one layer of the (B, Smax, KV, hd) cache, read in place
     b, h, kv, s, hd = 4, 12, 2, 512, 128
@@ -248,6 +346,30 @@ def phase_kernels(dev) -> dict:
                 fail(f"decode {dname} lens={lens}: a length-0 row is not 0")
             errs[(dname, tuple(lens))] = e
             log(f"decode_attention {dname} B=4 H=12 KV=2 S=512 lens={lens}: max_abs_err {e:.3e}")
+    # split edges: P-1, P, P+1 positions per block, S-1, S and > S, one
+    # split and many; the calls above and below run back to back on one
+    # stream with other lengths each, which a ticket counter left non-zero fails
+    from repro_torch.kernels.decode_attention.ops import decode_split_plan
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dname, dt in dts.items():
+        for bb, kvv, ss, g in ((4, 2, 512, 6), (1, 1, 2048, 8), (2, 2, 32, 1), (3, 1, 16, 4)):
+            per, ns = decode_split_plan(ss, bb, kvv, sms)
+            qd = rnd(bb, 1, g * kvv, hd, dt=dt)[:, 0]
+            kc4, vc4 = rnd(bb, ss, kvv, hd, dt=dt), rnd(bb, ss, kvv, hd, dt=dt)
+            lens_edge = [0, 1, per - 1, per, per + 1, ss - 1, ss, ss + 7]
+            for i in range(0, len(lens_edge) + bb, bb):
+                lens = (lens_edge[i:i + bb] + [ss] * bb)[:bb]
+                lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+                o = decode_attention(qd, kc4.transpose(1, 2), vc4.transpose(1, 2), lt)
+                ref = decode_attention_ref(qd, kc4.transpose(1, 2), vc4.transpose(1, 2), lt)
+                e = check_close(f"decode {dname} B={bb} KV={kvv} S={ss} G={g} P={per} "
+                                f"lens={lens}", o, ref, dname)
+                if 0 in lens and o[lt == 0].abs().max() != 0:
+                    fail(f"decode {dname} S={ss} lens={lens}: a length-0 row is not 0")
+            log(f"decode_attention {dname} B={bb} KV={kvv} S={ss} G={g}: P={per}, {ns} "
+                f"split(s), lengths at the split edges and full: last max_abs_err {e:.3e}")
+
     lens = len_cases[0]
     qd = rnd(b, 1, h, hd, dt=torch.bfloat16)[:, 0]
     kc4, vc4 = rnd(b, s, kv, hd, dt=torch.bfloat16), rnd(b, s, kv, hd, dt=torch.bfloat16)
@@ -553,7 +675,7 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
 
 # the CUDA kernels each wrapper launches, by name as the profiler shows them
 KERNEL_NAMES = {"rmsnorm": ("rmsnorm_fwd",), "flash_attention": ("flash_fwd",),
-                "decode_attention": ("decode_partial", "decode_combine"),
+                "decode_attention": ("decode_fwd",),
                 "slstm_scan": ("slstm_scan",)}
 
 
@@ -600,8 +722,16 @@ def profile_rounds(srv, cfg, wrappers: dict, rounds: int = 4) -> dict:
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
         log(f"profile, {label}, device ms/round by kernel: " + json.dumps(
             [[k[:70], round(v / 1e3 / n, 4)] for k, v in top]))
+        n_kernels = {}
+        for e in acts:
+            n_kernels[e.key] = n_kernels.get(e.key, 0) + e.count
         for name in wrappers:
             us = sum(v for k, v in dev_us.items() if any(p in k for p in KERNEL_NAMES[name]))
+            kernels = sum(c for k, c in n_kernels.items()
+                          if any(p in k for p in KERNEL_NAMES[name]))
+            if name == "decode_attention" and kernels != calls[name]:
+                fail(f"{label}: {calls[name]} decode_attention calls ran {kernels} kernels; "
+                     "each call must be one launch")
             if calls[name]:
                 path_ms.setdefault(name, {})[label] = us / 1e3 / calls[name]
                 log(f"profile, {label}: {name} {calls[name]} launches, device "
@@ -676,10 +806,13 @@ def main() -> None:
     secs = _build.build()
     log(f"built {sorted(secs)} in {time.monotonic() - t0:.1f} s (per source: "
         + ", ".join(f"{n} {s:.1f} s" for n, s in sorted(secs.items())) + ")")
-    for n in secs:
-        for line in _build.ptxas_report(n).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {n}: {line.strip()}")
+    ptxas_by_kernel(list(secs))
+    hmma = sass_counts("flash_attention", "HMMA")
+    for fn, count in hmma.items():
+        log(f"SASS flash_attention {fn}: {count} HMMA")
+    mma_kernels = {fn: c for fn, c in hmma.items() if "flash_fwd_mma" in fn}
+    if not mma_kernels or not all(mma_kernels.values()):
+        fail(f"the bf16 flash-attention kernels have no tensor-core instructions: {hmma}")
 
     t0 = time.monotonic()
     report = phase_kernels(dev)
@@ -706,9 +839,11 @@ def main() -> None:
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "earlier_ms": EARLIER_MS.get(name),
                         "shape": r["shape"], "wall_ms": r["wall_ms"],
                         "path_device_ms_per_launch": {a: p[name] for a, p in path_ms.items()
-                                                      if name in p}})
+                                                      if name in p},
+                        **({"by_seq": r["by_seq"]} if "by_seq" in r else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

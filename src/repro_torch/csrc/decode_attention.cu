@@ -11,208 +11,346 @@
 // once and used for G = 6 dot products (about 1.5 flops/byte in bf16), far
 // below the card's ~295 flops/byte, so the least time is the cache bytes
 // of the valid positions over the memory rate.  At the main path's shapes
-// (4 slots x 2 KV heads x <= 512 positions x 128 dims) that is under a
-// microsecond per layer, so in practice the launch itself dominates.
+// (4 slots x 2 KV heads x <= 512 positions x 128 dims, lengths 397, 250,
+// 130, 17) that is 0.25 us, so what a call costs in practice is one
+// dependent round trip to memory per block plus the launch.
 //
 // Design, and what it does about that:
-//  * the TPU kernel walks the sequence axis in order inside one grid cell;
-//    on the GPU that would leave most SMs idle at B x KV = 8 cells, so the
-//    sequence is split: one block of 4 warps per (128-position split, KV
-//    head, request), each computing its G rows' partial (m, l, acc), and a
-//    second small kernel merges the partials of the splits a request uses;
-//  * the loop is bounded by min(len, S): splits past a request's length
-//    exit at once and are never read, so the bytes moved follow the data;
-//  * lane j of warp w scores key s0 + 32w + j against all G rows (q staged
-//    once in shared memory, read as a broadcast); the P.V step reads each V
-//    row coalesced across lanes, one head_dim/32 slice per lane;
+//  * every load is 16 bytes a lane (8 bf16 or 4 f32): hd/8 (bf16) lanes
+//    cover a cache row, so at hd 128 bf16 one warp instruction reads two
+//    whole rows, and each lane issues U = 2-4 such rows of K and of V
+//    before it uses any, so a block has all of its bytes in flight at once;
+//  * each lane keeps its 8 (or 4) columns of the G query rows in
+//    registers; a row's dot products are reduced over its lanes with xor
+//    shuffles and scaled by scale*log2(e), the online softmax (exp2)
+//    runs per row slot, and P.V reuses the same lane-to-columns map, so
+//    each lane accumulates G x 8 f32; G is a template parameter, so every
+//    loop runs over the actual G (1..8);
+//  * the sequence is split among blocks of 4 warps: one block per
+//    (split, KV head, request).  The wrapper chooses the positions per
+//    block P (a multiple of 32): P = 32 * ceil(S / (32 * ceil(SMs / (B*KV))))
+//    gives about one block per SM over the whole grid; at B=4 KV=2 S=512 on
+//    132 SMs that is P = 32, 16 splits, 128 blocks, of which 54 hold valid
+//    positions at lengths 397/250/130/17 (the valid positions are only 1588
+//    rows of 512 bytes, 27 blocks of 32 per KV head).  Splits past a
+//    request's length exit at once, so the bytes moved follow the data;
+//  * the warps of a block merge their (m, l, acc) in shared memory; when a
+//    request uses one split the block writes the output itself, otherwise
+//    each working split writes its partial to scratch, fences, and takes a
+//    ticket from a per-(request, KV head) counter; the block that takes the
+//    last ticket merges the used splits, writes the G output rows and sets
+//    the counter back to 0.  One launch per call, no combine kernel;
+//  * a length-0 request has no working split: split 0 writes its zeros;
 //  * the cache is read in place through its strides: the model passes one
 //    layer of its (B, Smax, KV, hd) cache viewed as (B, KV, Smax, hd).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kSplit = 128;                   // cache positions per block
-constexpr int kWarps = kSplit / 32;
+constexpr int kWarps = 4;
 constexpr int kMaxG = 8;                      // query rows per KV head
+constexpr int kMaxSplits = 256;               // splits one request may use
 
 __device__ __forceinline__ int valid_len(const int* lengths, int b, int S) {
   return min(max(lengths[b], 0), S);
 }
 
-// Partial (m, l, acc) of one split.  Scratch layout: m/l (B, KV, NS, G),
-// acc (B, KV, NS, G, HD), all f32.
-template <typename T, int HD>
+// The E = 16 / sizeof(T) elements of one 16-byte vector, as f32.
+template <typename T> __device__ __forceinline__ void widen(const uint4& u, float* f);
+template <> __device__ __forceinline__ void widen<float>(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+template <> __device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& u, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+// One block per (split, KV head, request).  Scratch, used only when a
+// request spans several splits: m/l (B, KV, NS, G) and acc (B, KV, NS, G,
+// HD), f32; tickets (B, KV) int32, all 0 between calls.
+template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
-decode_partial(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const int* __restrict__ lengths, float* __restrict__ pm,
-               float* __restrict__ pl, float* __restrict__ pacc, int KV, int G, int S,
-               int NS, Strides qs, Strides ks, Strides vs, float scale) {
-  constexpr int DPL = HD / 32;
-  __shared__ float sQ[kMaxG][HD];
-  __shared__ float sM[kWarps][kMaxG], sL[kWarps][kMaxG];
-  __shared__ float sAcc[kWarps][kMaxG][HD];
+decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+           const int* __restrict__ lengths, T* __restrict__ o, float* __restrict__ pm,
+           float* __restrict__ pl, float* __restrict__ pacc, int* __restrict__ tickets, int KV,
+           int S, int P, int NS, Strides qs, Strides ks, Strides vs, long long osb,
+           long long osh, float scale_log2) {
+  constexpr int E = 16 / sizeof(T);           // elements per 16-byte lane load
+  constexpr int LPR = HD / E;                 // lanes per cache row
+  constexpr int RPW = 32 / LPR;               // rows per warp load instruction
+  constexpr int U = G * E <= 48 ? 4 : 2;      // rows each lane has in flight
+  constexpr int PB = kWarps * RPW * U;        // positions per block iteration
+  __shared__ float sM[kWarps][G], sL[kWarps][G];
+  __shared__ float sAcc[kWarps][G][HD];
+  __shared__ bool sLast;
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int n = valid_len(lengths, b, S);
-  const int s0 = split * kSplit;
-  if (s0 >= n) return;                        // never read by the combine
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = valid_len(lengths, b, S);
+  T* ob = o + b * osb + (long long)kvh * G * osh;
+  if (n == 0) {                               // no keys: the output is 0
+    if (split == 0)
+      for (int i = tid; i < G * HD; i += kWarps * 32)
+        ob[(i / HD) * osh + i % HD] = from_f32<T>(0.f);
+    return;
+  }
+  const int s0 = split * P;
+  if (s0 >= n) return;                        // past the length: never read
+  const int used = (n + P - 1) / P, send = min(s0 + P, n);
+  const int slot = lane / LPR, col = (lane % LPR) * E;
 
-  const T* qb = q + b * qs.b + (long long)kvh * G * qs.h;
-  for (int i = tid; i < kMaxG * HD; i += kWarps * 32) {
-    const int g = i / HD, d = i % HD;
-    sQ[g][d] = g < G ? to_f32(qb[g * qs.h + d]) : 0.f;
+  float qv[G][E];
+  const T* qb = q + b * qs.b + (long long)kvh * G * qs.h + col;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    widen<T>(__ldg(reinterpret_cast<const uint4*>(qb + g * qs.h)), qv[g]);
+
+  float m[G], l[G], acc[G][E];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNeg;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+
+  const T* kb = k + b * ks.b + kvh * ks.h + col;
+  const T* vb = v + b * vs.b + kvh * vs.h + col;
+  // warp-uniform loop: the shuffles below need every lane of the warp
+  for (int base = s0 + warp * RPW * U; base < send; base += PB) {
+    uint4 kr[U], vr[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {             // all of this lane's loads first
+      const int pos = base + u * RPW + slot;
+      ok[u] = pos < send;
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      kr[u] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(kb + pos * ks.s)) : zero;
+      vr[u] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(vb + pos * vs.s)) : zero;
+    }
+    float s[U][G];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[E];
+      widen<T>(kr[u], kf);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d += qv[g][e] * kf[e];
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+        s[u][g] = ok[u] ? d * scale_log2 : kNeg;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][g]);
+      const float alpha = exp2f(m[g] - mx);
+      m[g] = mx;
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[E];
+      widen<T>(vr[u], vf);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float p = ok[u] ? exp2f(s[u][g] - m[g]) : 0.f;
+        l[g] += p;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] += p * vf[e];
+      }
+    }
+  }
+
+  // merge the row slots of the warp (lanes LPR apart), then the warps
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mx = fmaxf(m[g], mo), e1 = exp2f(m[g] - mx), e2 = exp2f(mo - mx);
+      l[g] = l[g] * e1 + lo * e2;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[g][e] = acc[g][e] * e1 + __shfl_xor_sync(0xffffffffu, acc[g][e], off) * e2;
+      m[g] = mx;
+    }
+  }
+  if (lane < LPR) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) sAcc[warp][g][col + e] = acc[g][e];
+      if (lane == 0) {
+        sM[warp][g] = m[g];
+        sL[warp][g] = l[g];
+      }
+    }
   }
   __syncthreads();
 
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-  const int w0 = s0 + 32 * warp;              // this warp's first position
-  const int kpos = w0 + lane;
-  const bool valid = kpos < n;
-
-  float s[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-  if (valid) {
-    const T* kr = kb + kpos * ks.s;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float kd = to_f32(kr[d]);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) s[g] += sQ[g][d] * kd;
-    }
-  }
-
-  float m[kMaxG], l[kMaxG], p[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    const float sg = valid ? s[g] * scale : kNeg;
-    m[g] = warp_max(sg);                      // kNeg when no position is valid
-    p[g] = valid ? expf(sg - m[g]) : 0.f;
-    l[g] = warp_sum(p[g]);
-  }
-
-  float acc[kMaxG][DPL];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
-  const int jend = min(32, n - w0);           // warp-uniform
-  for (int j = 0; j < jend; ++j) {
-    const T* vr = vb + (w0 + j) * vs.s;
-    float vv[DPL];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) vv[i] = to_f32(vr[lane + 32 * i]);
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      const float pj = __shfl_sync(0xffffffffu, p[g], j);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] += pj * vv[i];
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (lane == 0) {
-      sM[warp][g] = m[g];
-      sL[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) sAcc[warp][g][lane + 32 * i] = acc[g][i];
-  }
-  __syncthreads();
-
-  // merge the warps' partials into this split's (m, l, acc)
   const long long row0 = ((long long)(b * KV + kvh) * NS + split) * G;
   for (int i = tid; i < G * HD; i += kWarps * 32) {
     const int g = i / HD, d = i % HD;
     float mx = kNeg;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sM[w][g]);
-    float a = 0.f, lsum = 0.f;
+    float a = 0.f, ls = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float e = expf(sM[w][g] - mx);
+      const float e = exp2f(sM[w][g] - mx);
       a += sAcc[w][g][d] * e;
-      lsum += sL[w][g] * e;
+      ls += sL[w][g] * e;
     }
-    pacc[(row0 + g) * HD + d] = a;
-    if (d == 0) {
-      pm[row0 + g] = mx;
-      pl[row0 + g] = lsum;
+    if (used == 1) {
+      ob[g * osh + d] = from_f32<T>(a / fmaxf(ls, 1e-30f));
+    } else {
+      pacc[(row0 + g) * HD + d] = a;
+      if (d == 0) {
+        pm[row0 + g] = mx;
+        pl[row0 + g] = ls;
+      }
     }
   }
+  if (used == 1) return;
+
+  // the block that draws the last ticket merges the used splits
+  __threadfence();
+  __syncthreads();
+  int* ticket = tickets + b * KV + kvh;
+  if (tid == 0) sLast = atomicAdd(ticket, 1) == used - 1;
+  __syncthreads();
+  if (!sLast) return;
+  __threadfence();
+  // each split's weight exp2(m - max) per row, in shared memory, all loads
+  // in parallel; then 1 / l per row; then the weighted sums of acc, 16
+  // bytes a thread and several splits in flight
+  __shared__ float sW[kMaxSplits * G], sInv[G];
+  const long long base0 = (long long)(b * KV + kvh) * NS * G;
+  for (int i = tid; i < used * G; i += kWarps * 32) sW[i] = __ldcg(pm + base0 + i);
+  __syncthreads();
+  for (int g = warp; g < G; g += kWarps) {
+    float mx = kNeg, ls = 0.f;
+    for (int sp = lane; sp < used; sp += 32) mx = fmaxf(mx, sW[sp * G + g]);
+    mx = warp_max(mx);
+    for (int sp = lane; sp < used; sp += 32) {
+      const float w = exp2f(sW[sp * G + g] - mx);
+      sW[sp * G + g] = w;
+      ls += w * __ldcg(pl + base0 + sp * G + g);
+    }
+    ls = warp_sum(ls);
+    if (lane == 0) sInv[g] = 1.f / fmaxf(ls, 1e-30f);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * HD / 4; i += kWarps * 32) {
+    const int g = i / (HD / 4), d = 4 * (i % (HD / 4));
+    const float4* src = reinterpret_cast<const float4*>(pacc + (base0 + g) * HD + d);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int sp = 0; sp < used; ++sp) {
+      const float w = sW[sp * G + g];
+      const float4 x = __ldcg(src + (long long)sp * G * HD / 4);
+      a.x += w * x.x;
+      a.y += w * x.y;
+      a.z += w * x.z;
+      a.w += w * x.w;
+    }
+    const float inv = sInv[g];
+    T* out = ob + g * osh + d;
+    out[0] = from_f32<T>(a.x * inv);
+    out[1] = from_f32<T>(a.y * inv);
+    out[2] = from_f32<T>(a.z * inv);
+    out[3] = from_f32<T>(a.w * inv);
+  }
+  if (tid == 0) *ticket = 0;                  // ready for the next call on this stream
 }
 
-// One block of HD threads per (head, request): merge the used splits.
-template <typename T>
-__global__ void decode_combine(const float* __restrict__ pm, const float* __restrict__ pl,
-                               const float* __restrict__ pacc,
-                               const int* __restrict__ lengths, T* __restrict__ o, int KV,
-                               int G, int S, int NS, int HD, long long osb, long long osh) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int kvh = h / G, g = h % G;
-  const int used = (valid_len(lengths, b, S) + kSplit - 1) / kSplit;
-  const long long base = (long long)(b * KV + kvh) * NS;
-  float mx = kNeg;
-  for (int s = 0; s < used; ++s) mx = fmaxf(mx, pm[(base + s) * G + g]);
-  float a = 0.f, lsum = 0.f;
-  for (int s = 0; s < used; ++s) {
-    const long long r = (base + s) * G + g;
-    const float e = expf(pm[r] - mx);
-    a += pacc[r * HD + d] * e;
-    lsum += pl[r] * e;
-  }
-  o[b * osb + h * osh + d] = from_f32<T>(a / fmaxf(lsum, 1e-30f));
+struct Args {
+  const void *q, *k, *v;
+  const int* lengths;
+  void* o;
+  float *pm, *pl, *pacc;
+  int* tickets;
+  int B, KV, S, P, NS;
+  Strides qs, ks, vs;
+  long long osb, osh;
+  float scale_log2;
+};
+
+template <typename T, int HD, int G>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  decode_fwd<T, HD, G><<<dim3(a.NS, a.KV, a.B), kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.lengths, static_cast<T*>(a.o), a.pm, a.pl, a.pacc, a.tickets, a.KV, a.S, a.P, a.NS,
+      a.qs, a.ks, a.vs, a.osb, a.osh, a.scale_log2);
+  return cudaGetLastError();
 }
 
 template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, const int* lengths, void* o,
-            float* pm, float* pl, float* pacc, int B, int H, int KV, int S, Strides qs,
-            Strides ks, Strides vs, long long osb, long long osh, float scale,
-            cudaStream_t stream) {
-  const int G = H / KV, NS = (S + kSplit - 1) / kSplit;
-  decode_partial<T, HD><<<dim3(NS, KV, B), kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      pm, pl, pacc, KV, G, S, NS, qs, ks, vs, scale);
-  decode_combine<T><<<dim3(H, B), HD, 0, stream>>>(pm, pl, pacc, lengths,
-                                                    static_cast<T*>(o), KV, G, S, NS, HD,
-                                                    osb, osh);
+cudaError_t launch_g(int G, const Args& a, cudaStream_t st) {
+  switch (G) {
+    case 1: return launch<T, HD, 1>(a, st);
+    case 2: return launch<T, HD, 2>(a, st);
+    case 3: return launch<T, HD, 3>(a, st);
+    case 4: return launch<T, HD, 4>(a, st);
+    case 5: return launch<T, HD, 5>(a, st);
+    case 6: return launch<T, HD, 6>(a, st);
+    case 7: return launch<T, HD, 7>(a, st);
+    default: return launch<T, HD, 8>(a, st);
+  }
 }
 
 }  // namespace
 
-// Scratch the caller allocates: m and l of B*KV*NS*G floats each and acc of
-// B*KV*NS*G*hd floats, NS = ceil(S / 128).
-extern "C" int decode_attention_splits(int S) { return (S + kSplit - 1) / kSplit; }
-
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0, a cudaError_t from the
-// launches, or -1 when the arguments are outside what the kernel takes.
+// dtype: 0 = float32, 1 = bfloat16.  P: cache positions per block, a
+// multiple of 32; the grid has NS = ceil(S / P) <= 256 splits.  Scratch the
+// caller allocates: acc of B*KV*NS*G*hd floats (16-byte aligned), m and l
+// of B*KV*NS*G floats each,
+// and B*KV int32 tickets that are 0 before the first call (each call leaves
+// them 0).  q, the caches and their strides must be 16-byte aligned.
+// Returns 0, a cudaError_t from the launch, or -1 when the arguments are
+// outside what the kernel takes.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const int* lengths, void* o, float* pm,
-    float* pl, float* pacc, int dtype, int B, int H, int KV, int S, int hd, long long qsb,
-    long long qsh, long long ksb, long long ksh, long long kss, long long vsb,
-    long long vsh, long long vss, long long osb, long long osh, float scale,
+    float* pl, float* pacc, int* tickets, int dtype, int B, int H, int KV, int S, int hd,
+    int P, long long qsb, long long qsh, long long ksb, long long ksh, long long kss,
+    long long vsb, long long vsh, long long vss, long long osb, long long osh, float scale,
     void* stream) {
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxG || B > 65535 ||
-      KV > 65535 || H > 65535)
+      KV > 65535 || P < 32 || P % 32 != 0)
     return -1;
-  const Strides qs{qsb, qsh, 0}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
+  const int NS = (S + P - 1) / P;
+  if (NS > kMaxSplits) return -1;
+  const Args a{q, k, v, lengths, o, pm, pl, pacc, tickets, B, KV, S, P, NS,
+               Strides{qsb, qsh, 0}, Strides{ksb, ksh, kss}, Strides{vsb, vsh, vss},
+               osb, osh, scale * 1.4426950408889634f};
+  const int G = H / KV;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0 && hd == 64)
-    launch<float, 64>(q, k, v, lengths, o, pm, pl, pacc, B, H, KV, S, qs, ks, vs, osb, osh,
-                      scale, st);
+    err = launch_g<float, 64>(G, a, st);
   else if (dtype == 0 && hd == 128)
-    launch<float, 128>(q, k, v, lengths, o, pm, pl, pacc, B, H, KV, S, qs, ks, vs, osb, osh,
-                       scale, st);
+    err = launch_g<float, 128>(G, a, st);
   else if (dtype == 1 && hd == 64)
-    launch<__nv_bfloat16, 64>(q, k, v, lengths, o, pm, pl, pacc, B, H, KV, S, qs, ks, vs,
-                              osb, osh, scale, st);
+    err = launch_g<__nv_bfloat16, 64>(G, a, st);
   else if (dtype == 1 && hd == 128)
-    launch<__nv_bfloat16, 128>(q, k, v, lengths, o, pm, pl, pacc, B, H, KV, S, qs, ks, vs,
-                               osb, osh, scale, st);
+    err = launch_g<__nv_bfloat16, 128>(G, a, st);
   else
     return -1;
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

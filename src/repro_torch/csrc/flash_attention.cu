@@ -3,37 +3,59 @@
 // Replaces the Pallas TPU kernel `flash_attention_kernel` / `_kernel` in
 // src/repro/kernels/flash_attention/kernel.py.  Same function: online
 // softmax (m, l, acc) in f32 over key tiles, causal key tiles past the
-// diagonal skipped, keys >= Sk masked, and the TOP-LEFT causal convention
-// of the TPU kernel (query i sees keys 0..i, whatever Sq and Sk are), which
-// differs from the bottom-right convention of GPU attention libraries when
-// Sq != Sk.
+// diagonal skipped, keys >= Sk masked, p rounded to v's dtype before P.V
+// (the TPU kernel's `p.astype(v.dtype)`), and the TOP-LEFT causal
+// convention of the TPU kernel (query i sees keys 0..i, whatever Sq and Sk
+// are), which differs from the bottom-right convention of GPU attention
+// libraries when Sq != Sk.
 //
 // What bounds it on the H100: at the main path's prefill shapes (one
-// prompt of 16-384 tokens, 12 heads, head_dim 128) the work is a few
-// hundred MFLOP over a few MB, so the card's memory is not the limit; this
-// first version does its products with f32 FMAs on the CUDA cores, so it is
-// bound by operations at the non-tensor f32 rate (and by shared-memory
-// bandwidth feeding them), not by the tensor cores.  wgmma/TMA are left to
-// a later version.
+// prompt of 16-384 tokens, 12 heads over 2 KV heads, head_dim 128) a call
+// is at most 0.45 GFLOP over about 2.8 MB, so the least time is set by the
+// bytes (0.8 us) and the tensor cores could do the products in 0.5 us.
+// What binds in practice is each block's serial walk over its key tiles
+// (load, two products, the softmax), the K/V tiles every block re-reads
+// from L2 (each query tile and each head reads its own copy), and the
+// issue rate of one or two warps per scheduler.
 //
-// Design, and what it does about that:
-//  * one block of 4 warps per (q-tile of 16 rows, head, batch); the Pallas
-//    grid's sequential K axis becomes a loop inside the block, so nothing
-//    carries across blocks;
-//  * each key tile (32 keys) of K and V is staged once in shared memory as
-//    f32 and reused by all 16 query rows; K rows are padded by one float so
-//    that lane j reading key j's column d hits a distinct bank;
-//  * lane j scores key j against the warp's 4 rows (q read as a shared-
-//    memory broadcast), the row max and sum are warp shuffles, and the P.V
-//    product reads p from shared memory (broadcast) and V row j coalesced,
-//    each lane owning head_dim/32 output columns in registers;
-//  * q/k/v/o are read and written through their strides, so the model's
-//    (B, S, H, hd) activations need no transpose, and the ragged edges
-//    (Sq, Sk not multiples of the tiles) are masked here, so nothing is
-//    padded.
+// Design, bf16 (the served type), FlashAttention-2 on `mma.sync`:
+//  * one block of 8 warps per (64-query tile, head, batch), the heaviest
+//    (last) query tiles first; each warp owns 16 query rows, and the
+//    Pallas grid's sequential K axis becomes a loop inside the block;
+//  * the warps form two sets of 4 that take every other 64-key tile, so
+//    each warp's serial chain is half the tiles; the two softmax states of
+//    each row merge once, at the end, through shared memory;
+//  * the Q tile is copied once with 16-byte `cp.async` and moved with
+//    `ldmatrix` into A fragments that stay in registers for the key loop;
+//  * each set streams its K and V tiles through its own 2-stage
+//    `cp.async` ring, so its next tile loads while this one is multiplied;
+//    rows past Sq / Sk are zero-filled by the copy (source size 0), so
+//    nothing is padded;
+//  * shared memory rows are XOR-swizzled in 16-byte chunks (mma.cuh), so
+//    `ldmatrix` (K) and `ldmatrix.trans` (V) are free of bank conflicts;
+//    Q + 2 sets x 2 stages x (K + V) is 144 KB at hd 128, dynamic shared
+//    memory, one block per SM;
+//  * S = Q.K^T and O += P.V are `mma.sync` m16n8k16 bf16 -> f32; the
+//    online softmax runs on the accumulator fragments (row max and sum
+//    over the 4 lanes of a quad, `ex2.approx` with scale*log2(e) folded
+//    into one FMA, -inf for a masked key), and P is rounded to bf16 in
+//    registers to become the A operand of P.V;
+//  * the element mask is applied only on a tile that straddles the
+//    diagonal or the Sk edge; q/k/v/o are read and written through their
+//    strides (16-byte aligned, checked by the wrapper), so the model's
+//    (B, S, H, hd) activations need no transpose.
+//
+// Design, f32 (parity checks only; the server runs bf16): on the tensor
+// cores an f32 product is TF32 (10-bit mantissa) and would miss the 3e-5
+// f32 bound, so f32 keeps a CUDA-core kernel: 16 query rows per block,
+// 32-key tiles staged in shared memory as f32, lane j scoring key j, the
+// P.V product reading V rows coalesced, each lane owning hd/32 columns.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+// ---- f32: CUDA cores ------------------------------------------------------
 
 constexpr int kBQ = 16;                       // query rows per block
 constexpr int kBK = 32;                       // keys per tile: one per lane
@@ -135,38 +157,274 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-            int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, int causal,
-            float scale, cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
+                       int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+                       int causal, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd<T, HD><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H / KV, Sq, Sk, qs, ks, vs, os, causal, scale);
+  flash_fwd<float, HD><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H / KV, Sq, Sk, qs, ks, vs, os,
+      causal, scale);
+  return cudaGetLastError();
+}
+
+// ---- bf16: tensor cores (mma.sync), cp.async rings -------------------------
+
+constexpr int kQ = 16 * kWarps;               // query rows per block, 16 per warp
+constexpr int kK = 64;                        // keys per tile
+constexpr int kSets = 2;                      // warp sets, each on every other key tile
+constexpr int kThreads = kSets * kWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Copy rows [r0, r0 + R) of one (S, HD) bf16 matrix (row stride `rs`
+// elements) into a swizzled tile at `dst`, with the NT threads of index
+// `tid`; rows >= `rows` are zero-filled.
+template <int HD, int R, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, long long rs,
+                                          int r0, int rows, int tid) {
+  constexpr int CH = HD / 8;                  // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < R * CH / NT; ++it) {
+    const int i = tid + it * NT, r = i / CH, c = i % CH;
+    const bool ok = r0 + r < rows;
+    cp_async16(dst + swz(r, c, HD * 2), ok ? src + (r0 + r) * rs + c * 8 : src, ok);
+  }
+}
+
+// Barrier over the 128 threads of one warp set (ids 1, 2; 0 is __syncthreads).
+__device__ __forceinline__ void set_sync(int set) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + set), "r"(kWarps * 32) : "memory");
+}
+
+// Warp w of set `set` owns query rows 16 w .. 16 w + 15 of the block over
+// the set's key tiles (set, set + 2, ...); the two sets' softmax states of
+// each row merge once, at the end.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int G,
+              int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+              float scale_log2) {
+  constexpr int RB = HD * 2;                  // bytes per tile row
+  constexpr int TB = kK * RB;                 // bytes per Q, K or V tile (kQ == kK)
+  constexpr int KS = HD / 16;                 // k-steps of Q.K^T over head_dim
+  constexpr int NO = HD / 8;                  // 8-column n-tiles of O
+  const float kInf = __int_as_float(0x7f800000);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & (kWarps - 1);
+  const int set = tid >> 7, stid = tid & 127;
+  // Q | set 0: K0 K1 V0 V1 | set 1: K0 K1 V0 V1
+  const uint32_t sQ = smem_u32(smem), sS = sQ + TB + set * 4 * TB;
+  auto sK = [&](int st) { return sS + TB * st; };
+  auto sV = [&](int st) { return sS + TB * (2 + st); };
+
+  const int g = lane >> 2, t = lane & 3;     // mma fragment coordinates
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kQ;   // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + kvh * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + kvh * vs.h;
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+
+  // top-left causal: the block's last row sees keys up to itself
+  const int kend = causal ? min(Sk, min(Sq, q0 + kQ)) : Sk;
+  const int ntiles = (kend + kK - 1) / kK;
+  const int nloc = (ntiles - set + 1) / 2;   // this set's tiles
+
+  load_tile<HD, kQ, kThreads>(sQ, qb, qs.s, q0, Sq, tid);
+  cp_async_commit();
+  if (nloc > 0) {
+    load_tile<HD, kK, kWarps * 32>(sK(0), kb, ks.s, set * kK, Sk, stid);
+    load_tile<HD, kK, kWarps * 32>(sV(0), vb, vs.s, set * kK, Sk, stid);
+  }
+  cp_async_commit();                          // possibly empty: keeps the group count
+  cp_async_wait<1>();                         // this thread's share of Q
+  __syncthreads();
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks_ = 0; ks_ < KS; ++ks_)
+    ldmatrix_x4(qf[ks_], sQ + swz(16 * warp + (lane & 15), 2 * ks_ + (lane >> 4), RB));
+
+  // rows g and g + 8 of the warp: m in log2 units (-inf before any key), l
+  // this lane's share of the row sum
+  float m[2] = {-kInf, -kInf}, l[2] = {0.f, 0.f}, acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int row0 = q0 + 16 * warp + g;
+
+  for (int i = 0; i < nloc; ++i) {
+    const int st = i & 1, k0 = (set + 2 * i) * kK;
+    if (i + 1 < nloc) {                       // this set's next tile into the other stage
+      load_tile<HD, kK, kWarps * 32>(sK(st ^ 1), kb, ks.s, k0 + 2 * kK, Sk, stid);
+      load_tile<HD, kK, kWarps * 32>(sV(st ^ 1), vb, vs.s, k0 + 2 * kK, Sk, stid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    set_sync(set);
+
+    // S = Q.K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int ks_ = 0; ks_ < KS; ++ks_) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, sK(st) + swz(16 * np + (lane & 7) + ((lane >> 4) << 3),
+                                     2 * ks_ + ((lane >> 3) & 1), RB));
+        mma_bf16_16816(s[2 * np], qf[ks_], bk[0], bk[1]);
+        mma_bf16_16816(s[2 * np + 1], qf[ks_], bk[2], bk[3]);
+      }
+    }
+    // mask (to -inf) only a tile that straddles the diagonal or the Sk edge
+    if (k0 + kK > Sk || (causal && k0 + kK - 1 > q0 + 16 * warp)) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1), row = row0 + (e >> 1) * 8;
+          if (key >= Sk || (causal && key > row)) s[n][e] = -kInf;
+        }
+    }
+    // online softmax on the fragments: each row lives in one quad of lanes;
+    // scores stay unscaled, and scale*log2(e) > 0 folds into one FMA
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(s[0][2 * r], s[0][2 * r + 1]);
+#pragma unroll
+      for (int n = 1; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[r], mx * scale_log2);
+      const float mu = mn == -kInf ? 0.f : mn;   // no key yet: 2^(-inf - 0) = 0
+      const float alpha = ex2(m[r] - mu);
+      m[r] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[n][e] = ex2(fmaf(s[n][e], scale_log2, -mu));
+          sum += s[n][e];
+        }
+      l[r] = l[r] * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+    // O += P.V: P (16 x 64) in bf16 as the A operand, V through ldmatrix.trans
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, sV(st) + swz(16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                           2 * dp + (lane >> 4), RB));
+        mma_bf16_16816(acc[2 * dp], pa, bv[0], bv[1]);
+        mma_bf16_16816(acc[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+    set_sync(set);                            // this stage is refilled two tiles on
+  }
+
+  // set 1 hands its (m, l, acc) to the thread of set 0 that owns the same
+  // rows and columns, through set 1's own (now idle) stages
+  constexpr int NX = 4 + 4 * NO;              // floats per thread
+  static_assert(NX * 128 * 4 <= 4 * TB, "the exchange fits in a set's stages");
+  float* xch = reinterpret_cast<float*>(smem + 5 * TB) + stid;
+  if (set == 1) {
+    xch[0] = m[0];
+    xch[128] = m[1];
+    xch[2 * 128] = l[0];
+    xch[3 * 128] = l[1];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xch[(4 + 4 * n + e) * 128] = acc[n][e];
+  }
+  __syncthreads();
+  if (set == 1) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mo = xch[r * 128], mn = fmaxf(m[r], mo);
+    const float mu = mn == -kInf ? 0.f : mn;
+    const float e0 = ex2(m[r] - mu), e1 = ex2(mo - mu);
+    float lr = l[r] * e0 + xch[(2 + r) * 128] * e1;
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    const float inv = 1.f / fmaxf(lr, 1e-30f);
+    __nv_bfloat16* orow = ob + row * os.s + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const float a0 = acc[n][2 * r] * e0 + xch[(4 + 4 * n + 2 * r) * 128] * e1;
+      const float a1 = acc[n][2 * r + 1] * e0 + xch[(5 + 4 * n + 2 * r) * 128] * e1;
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+          __floats2bfloat162_rn(a0 * inv, a1 * inv);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+                        Strides os, int causal, float scale, cudaStream_t stream) {
+  constexpr int kSmem = (kQ + kSets * 4 * kK) * HD * 2;   // Q + each set's ring
+  static bool ready[64] = {};                 // attribute set, per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && !ready[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_mma<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  const dim3 grid((Sq + kQ - 1) / kQ, H, B);
+  flash_fwd_mma<HD><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H / KV, Sq, Sk,
+      qs, ks, vs, os, causal, scale * kLog2e);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns 0, a cudaError_t from the
-// launch, or -1 when the arguments are outside what the kernel takes.
+// launch, or -1 when the arguments are outside what the kernel takes.  bf16
+// pointers and the strides of q, k, v and o must be 16-byte aligned, and the
+// scale positive.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B, int H, int KV,
     int Sq, int Sk, int hd, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss, int causal, float scale, void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535)
+  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535 ||
+      !(scale > 0.f))
     return -1;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0 && hd == 64)
-    launch<float, 64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_f32<64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 0 && hd == 128)
-    launch<float, 128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_f32<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 1 && hd == 64)
-    launch<__nv_bfloat16, 64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_bf16<64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 1 && hd == 128)
-    launch<__nv_bfloat16, 128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_bf16<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else
     return -1;
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -24,7 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "load", "ptxas_report", "sources"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "cuda_tool", "load", "ptxas_report",
+           "sources"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -39,14 +40,15 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``, ``cu++filt``)."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH); "
+        raise RuntimeError(f"{name} not found (looked in $CUDA_HOME/bin and PATH); "
                            "the CUDA kernels are built on a machine with the CUDA toolkit")
     return found
 
@@ -81,7 +83,7 @@ def build(names: list[str] | None = None) -> dict[str, float]:
             out = _target(n)
             if out.exists():
                 continue
-            nvcc = nvcc or _nvcc()
+            nvcc = nvcc or cuda_tool("nvcc")
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

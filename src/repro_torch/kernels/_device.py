@@ -23,6 +23,20 @@ def device_kind(*tensors: torch.Tensor) -> str:
     return kind
 
 
+def check_aligned(what: str, **tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless each tensor's data pointer and the byte
+    stride of each of its dims longer than 1, but the last (contiguous,
+    checked by the caller), are multiples of 16: the kernels move 16 bytes
+    a lane with ``cp.async`` or vector loads."""
+    for name, t in tensors.items():
+        size = t.element_size()
+        bad = [d for d in range(t.ndim - 1) if t.shape[d] > 1 and (t.stride(d) * size) % 16]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned (data_ptr "
+                             f"{t.data_ptr() % 16} bytes past 16, strides {t.stride()} of "
+                             f"{size}-byte elements, unaligned dims {bad})")
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as an integer handle."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,37 +1,69 @@
 """Public wrapper for the decode attention kernel (``csrc/decode_attention.cu``).
 
 Counterpart of ``repro/kernels/decode_attention/ops.py``.  CPU tensors take
-the plain version; CUDA tensors launch the split + combine kernels (one
-launch counted in ``decode_attention.launches``) or raise.  The caches are
-read through their strides: the model passes one layer of its
-(B, Smax, KV, hd) cache as a ``transpose(1, 2)`` view.
+the plain version; CUDA tensors launch the kernel once (counted in
+``decode_attention.launches``) or raise.  The caches are read through their
+strides: the model passes one layer of its (B, Smax, KV, hd) cache as a
+``transpose(1, 2)`` view, and q, the caches and their strides must be
+16-byte aligned (the kernel loads 16 bytes a lane).
+
+The sequence is split among blocks of :func:`decode_split_plan` positions;
+the splits of one request merge inside the same launch through a ticket
+counter per (request, KV head).  The counters live in one int32 buffer per
+(device, stream), zeroed when it is allocated; every call leaves them 0.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _build
-from .._device import KERNEL_DTYPES, check_launch, device_kind, stream_of
+from .._device import KERNEL_DTYPES, check_aligned, check_launch, device_kind, stream_of
 from .ref import decode_attention_ref
 
-__all__ = ["decode_attention", "decode_attention_ref", "KERNEL_HEAD_DIMS", "KERNEL_MAX_GROUP"]
+__all__ = ["decode_attention", "decode_attention_ref", "decode_split_plan",
+           "KERNEL_HEAD_DIMS", "KERNEL_MAX_GROUP"]
 
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 8
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}     # (device, stream) -> int32 counters
+
+
+def decode_split_plan(s: int, b: int, kv: int, sms: int) -> tuple[int, int]:
+    """(positions per block, splits) for a cache of ``s`` positions.
+
+    The grid is (splits, kv, b).  Aim at ``ceil(sms / (b * kv))`` splits,
+    about one block per SM, and round each split up to a multiple of 32
+    positions (one block iteration of the kernel reads 16-64)."""
+    want = -(-sms // (b * kv))
+    per = 32 * -(-s // (32 * want))
+    return per, -(-s // per)
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 6 + [_L] * 10 + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * 9 + [_I] * 7 + [_L] * 10 + [ctypes.c_float, _P]
         fn.restype = _I
-        lib.decode_attention_splits.argtypes = [_I]
-        lib.decode_attention_splits.restype = _I
         lib.kernel_error_string.argtypes = [_I]
         lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
@@ -70,20 +102,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if not lengths.is_contiguous():
         raise ValueError("lengths must be contiguous")
     scale = hd ** -0.5 if scale is None else scale
+    check_aligned("decode_attention", q=q, k_cache=k_cache, v_cache=v_cache)
     lib = _lib()
-    ns = lib.decode_attention_splits(s)
+    dev = q.device
+    per, ns = decode_split_plan(s, b, kvh, _sm_count(dev.index))
     g = h // kvh
-    out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
-    part = torch.empty((2 + hd) * b * kvh * ns * g, dtype=torch.float32, device=q.device)
-    pm, pl, pacc = part.split([b * kvh * ns * g, b * kvh * ns * g, b * kvh * ns * g * hd])
-    with torch.cuda.device(q.device):   # launch on the tensors' card
+    out = torch.empty((b, h, hd), dtype=q.dtype, device=dev)
+    rows = b * kvh * ns * g
+    part = torch.empty((hd + 2) * rows, dtype=torch.float32, device=dev)
+    pacc, pm, pl = part.split([rows * hd, rows, rows])    # acc first: 16-byte aligned
+    stream = stream_of(q)
+    tickets = _tickets(dev, stream, b * kvh)
+    with torch.cuda.device(dev):   # launch on the tensors' card
         code = lib.decode_attention_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(),
-            0 if q.dtype == torch.float32 else 1, b, h, kvh, s, hd,
+            out.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), tickets.data_ptr(),
+            0 if q.dtype == torch.float32 else 1, b, h, kvh, s, hd, per,
             q.stride(0), q.stride(1), k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2), out.stride(0),
-            out.stride(1), float(scale), stream_of(q))
+            out.stride(1), float(scale), stream)
     check_launch(lib, code, "decode_attention")
     decode_attention.launches += 1
     return out

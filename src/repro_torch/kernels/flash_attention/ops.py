@@ -4,7 +4,10 @@ Counterpart of ``repro/kernels/flash_attention/ops.py``.  CPU tensors take
 the plain version; CUDA tensors launch the CUDA kernel (one launch counted
 in ``flash_attention.launches``) or raise.  The kernel reads q/k/v through
 their strides, so the model passes ``x.transpose(1, 2)`` views of its
-(B, S, H, hd) activations and nothing is copied or padded.
+(B, S, H, hd) activations and nothing is copied or padded.  bf16 runs on
+the tensor cores, f32 on the CUDA cores (TF32 would miss the f32 bound).
+The kernel copies 16 bytes a lane, so each data pointer and every stride
+(in bytes, but the head dim's) must be a multiple of 16; other views raise.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .._device import KERNEL_DTYPES, check_launch, device_kind, stream_of
+from .._device import KERNEL_DTYPES, check_aligned, check_launch, device_kind, stream_of
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_ref", "KERNEL_HEAD_DIMS"]
@@ -61,7 +64,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous (stride 1)")
     scale = hd ** -0.5 if scale is None else scale
+    if not scale > 0:
+        raise ValueError(f"scale {scale}: the CUDA kernel takes a positive scale")
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    check_aligned("flash_attention", q=q, k=k, v=v, out=out)
     lib = _lib()
     with torch.cuda.device(q.device):   # launch on the tensors' card
         code = lib.flash_attention_fwd(

@@ -1,0 +1,253 @@
+"""The tiling of the port's attention kernels, modelled in plain torch and
+held against the plain versions and the JAX reference.
+
+The CUDA kernels (``csrc/flash_attention.cu``, ``csrc/decode_attention.cu``)
+run only on the card.  What they do differently from a one-shot softmax is
+the order of the work: key tiles with an online softmax, tiles past the
+causal diagonal skipped, even and odd tiles taken by two warp sets whose
+states merge at the end (K2);
+the cache split into blocks of ``decode_split_plan`` positions, a partial
+(m, l, acc) per split and a merge (K3).  The models below follow that order
+step by step, in f32, with p rounded to v's dtype before P.V as K2 does, so
+a fault in the order (a skipped tile that holds a visible key, a
+wrong merge, a length edge) shows here on the CPU.  Each is held against
+``flash_attention_ref`` / ``decode_attention_ref`` and, on the same numpy
+inputs, against the JAX Pallas kernels in interpret mode and the JAX
+oracles, at the tolerances of ``tests/test_kernels.py``: 3e-5 for f32 and
+2e-2 for bf16."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.ops import decode_attention as jax_decode
+from repro.kernels.decode_attention.ops import decode_attention_ref as jax_decode_ref
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ops import flash_attention_ref as jax_flash_ref
+from repro_torch.kernels._device import check_aligned
+from repro_torch.kernels.decode_attention.ops import decode_attention_ref, decode_split_plan
+from repro_torch.kernels.flash_attention.ops import flash_attention_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+NEG = -2.0e38
+Q_ROWS, K_TILE = 64, 64          # the bf16 K2 kernel's query rows per block, keys per tile
+H100_SMS = 132
+
+
+def _tol(dt: str) -> float:
+    return 2e-2 if dt == "bfloat16" else 3e-5
+
+
+def _close(got: torch.Tensor, want, dt: str) -> None:
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=_tol(dt), rtol=_tol(dt))
+
+
+# ---------------------------------------------------------------------------
+# K2: key tiles, online softmax, diagonal skip, two warp sets
+# ---------------------------------------------------------------------------
+
+
+def _online(state, s, v, vdt):
+    """One online-softmax step of (m, l, acc) over scores ``s`` (rows, keys)."""
+    m, l, acc = state
+    m_new = torch.maximum(m, s.max(dim=-1).values)
+    p = torch.where(s > 0.5 * NEG, torch.exp(s - m_new[:, None]), torch.zeros_like(s))
+    alpha = torch.exp(m - m_new)
+    return (m_new, l * alpha + p.sum(-1),
+            acc * alpha[:, None] + p.to(vdt).float() @ v.float())
+
+
+def _merge(a, b):
+    (ma, la, aa), (mb, lb, ab) = a, b
+    m = torch.maximum(ma, mb)
+    ea, eb = torch.exp(ma - m), torch.exp(mb - m)
+    return m, la * ea + lb * eb, aa * ea[:, None] + ab * eb[:, None]
+
+
+def tiled_flash(q, k, v, *, causal, tiles_seen=None):
+    """The kernel's order of work for one (batch, head) at a time: blocks of
+    ``Q_ROWS`` query rows; for each, key tiles of ``K_TILE`` up to the
+    block's diagonal (top-left causal), tile j going to warp set j % 2 with
+    its own (m, l, acc), the two sets' states merged at the end."""
+    b, h, sq, hd = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5
+    out = torch.zeros(b, h, sq, hd)
+    for bi in range(b):
+        for hi in range(h):
+            qh, kk, vv = q[bi, hi].float(), k[bi, hi // g], v[bi, hi // g]
+            for q0 in range(0, sq, Q_ROWS):
+                rows = torch.arange(q0, min(q0 + Q_ROWS, sq))
+                kend = min(sk, sq, q0 + Q_ROWS) if causal else sk
+                sets = [(torch.full((len(rows),), NEG), torch.zeros(len(rows)),
+                         torch.zeros(len(rows), hd)) for _ in range(2)]
+                for j, k0 in enumerate(range(0, kend, K_TILE)):
+                    if tiles_seen is not None:
+                        tiles_seen.append((q0, k0))
+                    keys = torch.arange(k0, min(k0 + K_TILE, sk))
+                    s = (qh[rows] @ kk[keys].float().T) * scale
+                    if causal:
+                        s = torch.where(keys[None, :] <= rows[:, None], s,
+                                        torch.full_like(s, NEG))
+                    sets[j % 2] = _online(sets[j % 2], s, vv[keys], v.dtype)
+                m, l, acc = _merge(*sets)
+                out[bi, hi, rows] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+FLASH_CASES = [
+    (1, 4, 2, 65, 65, 16, True),       # one row and one key past the first tiles
+    (2, 6, 2, 33, 130, 32, True),      # Sq < Sk, top-left causal
+    (1, 4, 1, 130, 33, 16, True),      # Sq > Sk: rows past Sk see every key
+    (1, 2, 1, 200, 200, 16, True),     # four key tiles: both sets take two
+    (1, 8, 2, 63, 129, 16, False),     # non-causal, ragged tiles
+    (1, 2, 2, 1, 1, 8, True),          # a single query and key
+]
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", FLASH_CASES)
+def test_tiled_flash_matches_plain_and_jax(b, h, kv, sq, sk, hd, causal, dt):
+    rng = np.random.default_rng(sq * 1000 + sk + hd)
+    qn = rng.standard_normal((b, h, sq, hd), np.float32)
+    kn = rng.standard_normal((b, kv, sk, hd), np.float32)
+    vn = rng.standard_normal((b, kv, sk, hd), np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(DTYPES[dt][1]) for a in (qn, kn, vn))
+    jq, jk, jv = (jnp.asarray(a, DTYPES[dt][0]) for a in (qn, kn, vn))
+    out = tiled_flash(tq, tk, tv, causal=causal)
+    _close(out, flash_attention_ref(tq, tk, tv, causal=causal).float(), dt)
+    _close(out, jax_flash(jq, jk, jv, causal=causal, block_q=32, block_k=32), dt)
+    _close(out, jax_flash_ref(jq, jk, jv, causal=causal), dt)
+
+
+def test_tiled_flash_skips_exactly_the_tiles_past_the_diagonal():
+    """Causal, S = 384: the block of rows q0..q0+63 walks key tiles
+    0..q0/64 and no further; non-causal walks every tile."""
+    q = torch.zeros(1, 1, 384, 8)
+    kv = torch.zeros(1, 1, 384, 8)
+    seen = []
+    tiled_flash(q, kv, kv, causal=True, tiles_seen=seen)
+    want = [(q0, k0) for q0 in range(0, 384, 64) for k0 in range(0, q0 + 64, 64)]
+    assert seen == want and len(seen) == 21
+    seen = []
+    tiled_flash(q, kv, kv, causal=False, tiles_seen=seen)
+    assert len(seen) == 6 * 6
+
+
+# ---------------------------------------------------------------------------
+# K3: splits of decode_split_plan positions, partials, merge
+# ---------------------------------------------------------------------------
+
+
+def split_decode(q, k_cache, v_cache, lengths, *, sms=H100_SMS):
+    """The kernel's order of work: the cache cut into splits of P positions
+    (``decode_split_plan``); each split of a request's valid prefix makes a
+    partial (m, l, acc) with an online softmax over runs of 32 positions;
+    the used splits merge; a request of length 0 gives zeros."""
+    b, h, hd = q.shape
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    per, ns = decode_split_plan(s, b, kvh, sms)
+    scale = hd ** -0.5
+    out = torch.zeros(b, h, hd)
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), s)
+        for kh in range(kvh):
+            qg = q[bi, kh * g:(kh + 1) * g].float()
+            parts = []
+            for split in range(ns):
+                s0 = split * per
+                if s0 >= n:
+                    break                           # splits past the length exit
+                state = (torch.full((g,), NEG), torch.zeros(g), torch.zeros(g, hd))
+                for r0 in range(s0, min(s0 + per, n), 32):
+                    pos = torch.arange(r0, min(r0 + 32, s0 + per, n))
+                    sc = (qg @ k_cache[bi, kh, pos].float().T) * scale
+                    m, l, acc = state
+                    m_new = torch.maximum(m, sc.max(-1).values)
+                    p = torch.exp(sc - m_new[:, None])
+                    alpha = torch.exp(m - m_new)
+                    state = (m_new, l * alpha + p.sum(-1),
+                             acc * alpha[:, None] + p @ v_cache[bi, kh, pos].float())
+                parts.append(state)
+            if not parts:
+                continue                            # length 0: split 0 writes zeros
+            merged = parts[0]
+            for part in parts[1:]:
+                merged = _merge(merged, part)
+            m, l, acc = merged
+            out[bi, kh * g:(kh + 1) * g] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+def _decode_inputs(b, h, kv, s, hd, lens, dt, seed):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((b, h, hd), np.float32),
+              rng.standard_normal((b, kv, s, hd), np.float32),
+              rng.standard_normal((b, kv, s, hd), np.float32))
+    jargs = tuple(jnp.asarray(a, DTYPES[dt][0]) for a in arrays) + \
+        (jnp.asarray(lens, jnp.int32),)
+    targs = tuple(torch.from_numpy(a).to(DTYPES[dt][1]) for a in arrays) + \
+        (torch.tensor(lens, dtype=torch.int32),)
+    return jargs, targs
+
+
+DECODE_CASES = [
+    # (b, h, kv, s, hd, sms, lens): split edges of P = 32 on a 132-SM card
+    (4, 12, 2, 512, 16, H100_SMS, [397, 250, 130, 17]),      # the serving path's lengths
+    (4, 6, 2, 128, 16, H100_SMS, [0, 1, 31, 32]),
+    (4, 6, 2, 128, 16, H100_SMS, [33, 127, 128, 200]),
+    (2, 8, 1, 300, 32, 8, [299, 65]),                        # few SMs: P = 160, 2 splits
+    (1, 4, 4, 16, 8, H100_SMS, [16]),                        # one split
+]
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("b,h,kv,s,hd,sms,lens", DECODE_CASES)
+def test_split_decode_matches_plain_and_jax(b, h, kv, s, hd, sms, lens, dt):
+    jargs, targs = _decode_inputs(b, h, kv, s, hd, lens, dt, seed=s + hd + sum(lens))
+    out = split_decode(*targs, sms=sms)
+    _close(out, decode_attention_ref(*targs).float(), dt)
+    zero = [i for i, n in enumerate(lens) if n <= 0]
+    keys = [i for i, n in enumerate(lens) if n > 0]
+    assert torch.all(out[zero] == 0)
+    pallas = np.asarray(jax_decode(*jargs, block_s=min(128, s)), np.float32)
+    _close(out, pallas, dt)
+    # the JAX oracle spreads uniform weights over a length-0 row: rows with keys only
+    _close(out[keys], np.asarray(jax_decode_ref(*jargs), np.float32)[keys], dt)
+
+
+def test_decode_split_plan_rule():
+    """P is a multiple of 32 that covers S in about ceil(SMs / (B*KV))
+    splits; at the serving path's B=4 KV=2 S=512 on 132 SMs that is P = 32
+    and 16 splits (128 blocks), of which 54 hold valid positions at lengths
+    397/250/130/17."""
+    assert decode_split_plan(512, 4, 2, H100_SMS) == (32, 16)
+    per = 32
+    assert 2 * sum(-(-n // per) for n in (397, 250, 130, 17)) == 54
+    for s in (1, 16, 31, 32, 33, 100, 512, 700, 2048, 32768):
+        for b, kv in ((1, 1), (4, 2), (3, 1), (8, 8), (64, 4)):
+            for sms in (8, 132):
+                per, ns = decode_split_plan(s, b, kv, sms)
+                assert per % 32 == 0 and per >= 32
+                assert per * ns >= s > per * (ns - 1)
+                assert ns <= max(1, -(-sms // (b * kv)))          # about one block per SM
+
+
+def test_check_aligned_names_the_unaligned_view():
+    """The kernels' 16-byte rule, checked on CPU tensors: pointer and every
+    stride but the contiguous last one; a dim of length 1 may have any
+    stride."""
+    base = torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16)
+    check_aligned("t", ok=base.transpose(1, 2),
+                  one=torch.zeros(2, 65, dtype=torch.bfloat16)[:1, :64])   # stride 130 B, length 1
+    with pytest.raises(ValueError, match="aligned"):
+        check_aligned("t", x=torch.zeros(1 + 2 * 8 * 4 * 64, dtype=torch.bfloat16)[1:]
+                      .view(2, 8, 4, 64))
+    with pytest.raises(ValueError, match="aligned"):
+        check_aligned("t", x=torch.zeros(2, 8, 4, 65, dtype=torch.bfloat16)[..., :64])
+    check_aligned("t", x=torch.zeros(2, 8, 4, 68, dtype=torch.float32)[..., :64])

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from repro_torch.configs import model_100m
-from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
+from repro_torch.kernels.decode_attention.ops import (decode_attention, decode_attention_ref,
+                                                      decode_split_plan)
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
 from repro_torch.kernels.ragged_concat.ops import ragged_concat, ragged_concat_ref
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
@@ -69,6 +70,93 @@ def test_decode_attention_kernel_matches_plain(dev, lens, dt):
     torch.testing.assert_close(out.float(), decode_attention_ref(q, kc, vc, lt).float(),
                                atol=_tol(dt), rtol=_tol(dt))
     assert torch.all(out[lt == 0] == 0)
+
+
+# the tile edges of the redesigned kernels: K2's 64-row query tiles and
+# 64-key tiles, K3's splits of decode_split_plan positions
+EDGES = [1, 15, 63, 64, 65, 127, 383, 384, 385]
+EDGE_PAIRS = [(n, n) for n in EDGES] + [(n, m) for n, m in zip(EDGES, reversed(EDGES)) if n != m]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_tile_edges(dev, hd, causal, dt):
+    """Sq and Sk over the 64-row tile edges, equal and unequal both ways,
+    with G = H / KV cycling through 1, 4, 6 and 8."""
+    for i, (sq, sk) in enumerate(EDGE_PAIRS):
+        g = (1, 4, 6, 8)[i % 4]
+        b, kv = 1 + i % 2, 2 if i % 3 else 1
+        q = _randn(dev, b, sq, g * kv, hd, dt=dt, seed=20 + i).transpose(1, 2)
+        k = _randn(dev, b, sk, kv, hd, dt=dt, seed=40 + i).transpose(1, 2)
+        v = _randn(dev, b, sk, kv, hd, dt=dt, seed=60 + i).transpose(1, 2)
+        out = flash_attention(q, k, v, causal=causal)
+        torch.testing.assert_close(
+            out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+            atol=_tol(dt), rtol=_tol(dt), msg=lambda m: f"Sq={sq} Sk={sk} G={g}: {m}")
+
+
+def _decode_case(dev, b, h, kv, s, hd, dt, seed):
+    q = _randn(dev, b, h, hd, dt=dt, seed=seed)
+    kc = _randn(dev, b, s, kv, hd, dt=dt, seed=seed + 1).transpose(1, 2)
+    vc = _randn(dev, b, s, kv, hd, dt=dt, seed=seed + 2).transpose(1, 2)
+    return q, kc, vc
+
+
+def _check_decode(q, kc, vc, lens, dt, what):
+    lt = torch.tensor(lens, dtype=torch.int32, device=q.device)
+    n = decode_attention.launches
+    out = decode_attention(q, kc, vc, lt)
+    assert decode_attention.launches == n + 1
+    torch.testing.assert_close(out.float(), decode_attention_ref(q, kc, vc, lt).float(),
+                               atol=_tol(dt), rtol=_tol(dt), msg=lambda m: f"{what}: {m}")
+    assert torch.all(out[lt == 0] == 0), what
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [1, 6, 8])
+@pytest.mark.parametrize("b,kv,s", [(4, 2, 512), (1, 1, 2048), (2, 2, 32), (3, 1, 16)])
+def test_decode_attention_kernel_split_edges(dev, b, kv, s, g, hd, dt):
+    """Lengths at the split edges (0, 1, P-1, P, P+1, S-1, S, > S), all
+    full, on shapes that give one split (S = 16, 32) and many (16, 64)."""
+    per, ns = decode_split_plan(s, b, kv, torch.cuda.get_device_properties(dev)
+                                .multi_processor_count)
+    q, kc, vc = _decode_case(dev, b, g * kv, kv, s, hd, dt, seed=80 + s + g)
+    edges = [0, 1, per - 1, per, per + 1, s - 1, s, s + 7]
+    for i in range(0, len(edges), b):
+        lens = (edges[i:i + b] + [s] * b)[:b]
+        _check_decode(q, kc, vc, lens, dt, f"P={per} NS={ns} lens={lens}")
+    _check_decode(q, kc, vc, [s] * b, dt, f"P={per} NS={ns} all full")
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_decode_attention_kernel_repeated_calls(dev, dt):
+    """Three calls in a row on one stream with other lengths: a ticket
+    counter not set back to 0 would merge too early or never."""
+    q, kc, vc = _decode_case(dev, 4, 12, 2, 512, 128, dt, seed=90)
+    for lens in ([397, 250, 130, 17], [512, 33, 0, 700], [64, 65, 1, 300]):
+        _check_decode(q, kc, vc, lens, dt, f"lens={lens}")
+
+
+def test_attention_kernels_reject_unaligned_views(dev):
+    """The kernels copy 16 bytes a lane: a view whose pointer or stride is
+    not 16-byte aligned raises ValueError instead of launching."""
+    dt = torch.bfloat16
+    ok = _randn(dev, 1, 8, 2, 64, dt=dt, seed=1).transpose(1, 2)
+    shifted = torch.zeros(1 + 8 * 2 * 64, dtype=dt, device=dev)[1:].view(1, 8, 2, 64)
+    wide = torch.zeros(1, 8, 2, 65, dtype=dt, device=dev)[..., :64]     # row stride 130 B
+    for bad in (shifted.transpose(1, 2), wide.transpose(1, 2)):
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention(bad, ok, ok)
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention(ok, ok, bad)
+    q = _randn(dev, 1, 2, 64, dt=dt, seed=2)
+    lt = torch.tensor([5], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        decode_attention(q, shifted.transpose(1, 2), ok, lt)
+    with pytest.raises(ValueError, match="aligned"):
+        decode_attention(torch.zeros(1, 2, 65, dtype=dt, device=dev)[..., :64], ok, ok, lt)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
