@@ -58,11 +58,6 @@ TOL = {"float32": 3e-5, "bfloat16": 2e-2}              # tests/test_kernels.py:1
 # inputs to f32 as the plain version does
 SLSTM_TOL = 3e-5
 
-# device ms per call of the previous designs at the same shapes (CUDA-core
-# flash attention with 16-row tiles; decode attention as split + combine
-# kernels), NVIDIA H100 80GB HBM3 at 700 W, kept beside the new times
-EARLIER_MS = {"flash_attention": 0.07730, "decode_attention": 0.02429}
-
 SEED = 0
 N_REQUESTS = 8
 MAX_NEW = 32
@@ -233,6 +228,8 @@ def phase_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from _attention_edges import DECODE_SHAPES, decode_edge_lens, flash_edge_cases
+
     from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
     from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
@@ -294,23 +291,21 @@ def phase_kernels(dev) -> dict:
                             dname)
             errs[(dname, case)] = e
             log(f"flash_attention {dname} B,H,KV,Sq,Sk,hd,causal={case}: max_abs_err {e:.3e}")
-    # the 64-row query tiles' and 64-key tiles' edges, G = H / KV from 1 to 8
-    edges = [1, 15, 63, 64, 65, 127, 383, 384, 385]
-    pairs = [(n, n) for n in edges] + [(n, m) for n, m in zip(edges, reversed(edges)) if n != m]
+    # the 64-row query tiles' and 64-key tiles' edges (tests/_attention_edges.py)
     worst = {}
     for dname, dt in dts.items():
-        for i, (sq, sk) in enumerate(pairs):
-            g = (1, 4, 6, 8)[i % 4]
+        for sq, sk, g, eb, ekv in flash_edge_cases():
             for hd in (64, 128):
                 for causal in (True, False):
-                    q, k, v = qkv(1, 2 * g, 2, sq, sk, hd, dt)
+                    q, k, v = qkv(eb, g * ekv, ekv, sq, sk, hd, dt)
                     o = flash_attention(q, k, v, causal=causal)
-                    e = check_close(f"flash {dname} edge Sq={sq} Sk={sk} G={g} hd={hd} "
-                                    f"causal={causal}", o,
+                    e = check_close(f"flash {dname} edge B={eb} KV={ekv} Sq={sq} Sk={sk} "
+                                    f"G={g} hd={hd} causal={causal}", o,
                                     flash_attention_ref(q, k, v, causal=causal), dname)
                     worst[dname] = max(worst.get(dname, 0.0), e)
-    log(f"flash_attention tile edges ({len(pairs)} (Sq, Sk) pairs x hd 64/128 x causal "
-        f"or not, G 1/4/6/8): max_abs_err " + ", ".join(f"{d} {e:.3e}" for d, e in worst.items()))
+    log(f"flash_attention tile edges ({len(flash_edge_cases())} (Sq, Sk, G, B, KV) cases x "
+        f"hd 64/128 x causal or not): max_abs_err "
+        + ", ".join(f"{d} {e:.3e}" for d, e in worst.items()))
 
     b, h, kv, hd = 1, 12, 2, 128
     by_seq = {}
@@ -346,20 +341,19 @@ def phase_kernels(dev) -> dict:
                 fail(f"decode {dname} lens={lens}: a length-0 row is not 0")
             errs[(dname, tuple(lens))] = e
             log(f"decode_attention {dname} B=4 H=12 KV=2 S=512 lens={lens}: max_abs_err {e:.3e}")
-    # split edges: P-1, P, P+1 positions per block, S-1, S and > S, one
-    # split and many; the calls above and below run back to back on one
-    # stream with other lengths each, which a ticket counter left non-zero fails
+    # split edges (tests/_attention_edges.py): P-1, P, P+1 positions per
+    # block, S-1, S and > S, one split and many, G even and odd; the calls
+    # above and below run back to back on one stream with other lengths
+    # each, which a ticket counter left non-zero fails
     from repro_torch.kernels.decode_attention.ops import decode_split_plan
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dname, dt in dts.items():
-        for bb, kvv, ss, g in ((4, 2, 512, 6), (1, 1, 2048, 8), (2, 2, 32, 1), (3, 1, 16, 4)):
+        for (bb, kvv, ss), g in zip(DECODE_SHAPES, (6, 7, 1, 3)):
             per, ns = decode_split_plan(ss, bb, kvv, sms)
             qd = rnd(bb, 1, g * kvv, hd, dt=dt)[:, 0]
             kc4, vc4 = rnd(bb, ss, kvv, hd, dt=dt), rnd(bb, ss, kvv, hd, dt=dt)
-            lens_edge = [0, 1, per - 1, per, per + 1, ss - 1, ss, ss + 7]
-            for i in range(0, len(lens_edge) + bb, bb):
-                lens = (lens_edge[i:i + bb] + [ss] * bb)[:bb]
+            for lens in decode_edge_lens(per, ss, bb):
                 lt = torch.tensor(lens, dtype=torch.int32, device=dev)
                 o = decode_attention(qd, kc4.transpose(1, 2), vc4.transpose(1, 2), lt)
                 ref = decode_attention_ref(qd, kc4.transpose(1, 2), vc4.transpose(1, 2), lt)
@@ -785,6 +779,7 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT / 'src' / 'repro_torch'} not found: run from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))       # the attention kernels' edge cases
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -839,7 +834,6 @@ def main() -> None:
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "earlier_ms": EARLIER_MS.get(name),
                         "shape": r["shape"], "wall_ms": r["wall_ms"],
                         "path_device_ms_per_launch": {a: p[name] for a, p in path_ms.items()
                                                       if name in p},

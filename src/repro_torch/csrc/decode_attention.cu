@@ -25,7 +25,9 @@
 //    shuffles and scaled by scale*log2(e), the online softmax (exp2)
 //    runs per row slot, and P.V reuses the same lane-to-columns map, so
 //    each lane accumulates G x 8 f32; G is a template parameter, so every
-//    loop runs over the actual G (1..8);
+//    loop runs over the actual G: 1, 2, 4, 6 and 8 are built, and an odd
+//    G of 3, 5 or 7 runs in the next even build with its last row slot's
+//    q read as 0 and its output never written (20 instantiations, not 32);
 //  * the sequence is split among blocks of 4 warps: one block per
 //    (split, KV head, request).  The wrapper chooses the positions per
 //    block P (a multiple of 32): P = 32 * ceil(S / (32 * ceil(SMs / (B*KV))))
@@ -51,6 +53,10 @@ constexpr int kWarps = 4;
 constexpr int kMaxG = 8;                      // query rows per KV head
 constexpr int kMaxSplits = 256;               // splits one request may use
 
+// Row slots the kernel runs for Gq query rows per KV head: Gq when it is 1
+// or even, else Gq + 1 (the wrapper sizes the scratch by the same rule).
+__host__ __device__ constexpr int row_slots(int Gq) { return Gq == 1 ? 1 : Gq + Gq % 2; }
+
 __device__ __forceinline__ int valid_len(const int* lengths, int b, int S) {
   return min(max(lengths[b], 0), S);
 }
@@ -73,16 +79,17 @@ template <> __device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& u,
   }
 }
 
-// One block per (split, KV head, request).  Scratch, used only when a
-// request spans several splits: m/l (B, KV, NS, G) and acc (B, KV, NS, G,
-// HD), f32; tickets (B, KV) int32, all 0 between calls.
+// One block per (split, KV head, request); G row slots, of which the
+// first Gq (G or G - 1) are query rows.  Scratch, used only when a request
+// spans several splits: m/l (B, KV, NS, G) and acc (B, KV, NS, G, HD),
+// f32; tickets (B, KV) int32, all 0 between calls.
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const int* __restrict__ lengths, T* __restrict__ o, float* __restrict__ pm,
            float* __restrict__ pl, float* __restrict__ pacc, int* __restrict__ tickets, int KV,
-           int S, int P, int NS, Strides qs, Strides ks, Strides vs, long long osb,
-           long long osh, float scale_log2) {
+           int Gq, int S, int P, int NS, Strides qs, Strides ks, Strides vs,
+           long long osb, long long osh, float scale_log2) {
   constexpr int E = 16 / sizeof(T);           // elements per 16-byte lane load
   constexpr int LPR = HD / E;                 // lanes per cache row
   constexpr int RPW = 32 / LPR;               // rows per warp load instruction
@@ -95,10 +102,10 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = valid_len(lengths, b, S);
-  T* ob = o + b * osb + (long long)kvh * G * osh;
+  T* ob = o + b * osb + (long long)kvh * Gq * osh;
   if (n == 0) {                               // no keys: the output is 0
     if (split == 0)
-      for (int i = tid; i < G * HD; i += kWarps * 32)
+      for (int i = tid; i < Gq * HD; i += kWarps * 32)
         ob[(i / HD) * osh + i % HD] = from_f32<T>(0.f);
     return;
   }
@@ -108,10 +115,11 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int slot = lane / LPR, col = (lane % LPR) * E;
 
   float qv[G][E];
-  const T* qb = q + b * qs.b + (long long)kvh * G * qs.h + col;
+  const T* qb = q + b * qs.b + (long long)kvh * Gq * qs.h + col;
 #pragma unroll
   for (int g = 0; g < G; ++g)
-    widen<T>(__ldg(reinterpret_cast<const uint4*>(qb + g * qs.h)), qv[g]);
+    widen<T>(g < Gq ? __ldg(reinterpret_cast<const uint4*>(qb + g * qs.h))
+                    : make_uint4(0u, 0u, 0u, 0u), qv[g]);
 
   float m[G], l[G], acc[G][E];
 #pragma unroll
@@ -218,7 +226,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       ls += sL[w][g] * e;
     }
     if (used == 1) {
-      ob[g * osh + d] = from_f32<T>(a / fmaxf(ls, 1e-30f));
+      if (g < Gq) ob[g * osh + d] = from_f32<T>(a / fmaxf(ls, 1e-30f));
     } else {
       pacc[(row0 + g) * HD + d] = a;
       if (d == 0) {
@@ -257,7 +265,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     if (lane == 0) sInv[g] = 1.f / fmaxf(ls, 1e-30f);
   }
   __syncthreads();
-  for (int i = tid; i < G * HD / 4; i += kWarps * 32) {
+  for (int i = tid; i < Gq * HD / 4; i += kWarps * 32) {
     const int g = i / (HD / 4), d = 4 * (i % (HD / 4));
     const float4* src = reinterpret_cast<const float4*>(pacc + (base0 + g) * HD + d);
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -286,7 +294,7 @@ struct Args {
   void* o;
   float *pm, *pl, *pacc;
   int* tickets;
-  int B, KV, S, P, NS;
+  int B, KV, Gq, S, P, NS;
   Strides qs, ks, vs;
   long long osb, osh;
   float scale_log2;
@@ -296,21 +304,20 @@ template <typename T, int HD, int G>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   decode_fwd<T, HD, G><<<dim3(a.NS, a.KV, a.B), kWarps * 32, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.lengths, static_cast<T*>(a.o), a.pm, a.pl, a.pacc, a.tickets, a.KV, a.S, a.P, a.NS,
+      a.lengths, static_cast<T*>(a.o), a.pm, a.pl, a.pacc, a.tickets, a.KV, a.Gq, a.S, a.P,
+      a.NS,
       a.qs, a.ks, a.vs, a.osb, a.osh, a.scale_log2);
   return cudaGetLastError();
 }
 
+// the build for a.Gq query rows: Gq itself, or the next even G
 template <typename T, int HD>
-cudaError_t launch_g(int G, const Args& a, cudaStream_t st) {
-  switch (G) {
+cudaError_t launch_g(const Args& a, cudaStream_t st) {
+  switch (row_slots(a.Gq)) {
     case 1: return launch<T, HD, 1>(a, st);
     case 2: return launch<T, HD, 2>(a, st);
-    case 3: return launch<T, HD, 3>(a, st);
     case 4: return launch<T, HD, 4>(a, st);
-    case 5: return launch<T, HD, 5>(a, st);
     case 6: return launch<T, HD, 6>(a, st);
-    case 7: return launch<T, HD, 7>(a, st);
     default: return launch<T, HD, 8>(a, st);
   }
 }
@@ -319,8 +326,8 @@ cudaError_t launch_g(int G, const Args& a, cudaStream_t st) {
 
 // dtype: 0 = float32, 1 = bfloat16.  P: cache positions per block, a
 // multiple of 32; the grid has NS = ceil(S / P) <= 256 splits.  Scratch the
-// caller allocates: acc of B*KV*NS*G*hd floats (16-byte aligned), m and l
-// of B*KV*NS*G floats each,
+// caller allocates, with R = row_slots(H / KV): acc of B*KV*NS*R*hd floats
+// (16-byte aligned), m and l of B*KV*NS*R floats each,
 // and B*KV int32 tickets that are 0 before the first call (each call leaves
 // them 0).  q, the caches and their strides must be 16-byte aligned.
 // Returns 0, a cudaError_t from the launch, or -1 when the arguments are
@@ -336,20 +343,19 @@ extern "C" int decode_attention_fwd(
     return -1;
   const int NS = (S + P - 1) / P;
   if (NS > kMaxSplits) return -1;
-  const Args a{q, k, v, lengths, o, pm, pl, pacc, tickets, B, KV, S, P, NS,
+  const Args a{q, k, v, lengths, o, pm, pl, pacc, tickets, B, KV, H / KV, S, P, NS,
                Strides{qsb, qsh, 0}, Strides{ksb, ksh, kss}, Strides{vsb, vsh, vss},
                osb, osh, scale * 1.4426950408889634f};
-  const int G = H / KV;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0 && hd == 64)
-    err = launch_g<float, 64>(G, a, st);
+    err = launch_g<float, 64>(a, st);
   else if (dtype == 0 && hd == 128)
-    err = launch_g<float, 128>(G, a, st);
+    err = launch_g<float, 128>(a, st);
   else if (dtype == 1 && hd == 64)
-    err = launch_g<__nv_bfloat16, 64>(G, a, st);
+    err = launch_g<__nv_bfloat16, 64>(a, st);
   else if (dtype == 1 && hd == 128)
-    err = launch_g<__nv_bfloat16, 128>(G, a, st);
+    err = launch_g<__nv_bfloat16, 128>(a, st);
   else
     return -1;
   return static_cast<int>(err);

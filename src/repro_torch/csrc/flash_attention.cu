@@ -402,16 +402,17 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns 0, a cudaError_t from the
-// launch, or -1 when the arguments are outside what the kernel takes.  bf16
-// pointers and the strides of q, k, v and o must be 16-byte aligned, and the
-// scale positive.
+// launch, or -1 when the arguments are outside what the kernel takes.  For
+// bf16 the pointers and the strides of q, k, v and o must be 16-byte
+// aligned (the wrapper checks) and the scale positive; f32 reads scalars
+// and takes any stride and any scale.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B, int H, int KV,
     int Sq, int Sk, int hd, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss, int causal, float scale, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || B > 65535 || H > 65535 ||
-      !(scale > 0.f))
+      (dtype == 1 && !(scale > 0.f)))
     return -1;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -44,6 +44,14 @@ def decode_split_plan(s: int, b: int, kv: int, sms: int) -> tuple[int, int]:
     return per, -(-s // per)
 
 
+def _row_slots(g: int) -> int:
+    """Row slots the kernel runs for ``g`` query rows per KV head: 1, 2, 4,
+    6 and 8 are built, and an odd ``g`` runs in the next even build
+    (``row_slots`` in ``csrc/decode_attention.cu``); the scratch is sized
+    by it."""
+    return g if g == 1 else g + g % 2
+
+
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     key = (device.index, stream)
     t = _TICKETS.get(key)
@@ -108,7 +116,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     per, ns = decode_split_plan(s, b, kvh, _sm_count(dev.index))
     g = h // kvh
     out = torch.empty((b, h, hd), dtype=q.dtype, device=dev)
-    rows = b * kvh * ns * g
+    rows = b * kvh * ns * _row_slots(g)
     part = torch.empty((hd + 2) * rows, dtype=torch.float32, device=dev)
     pacc, pm, pl = part.split([rows * hd, rows, rows])    # acc first: 16-byte aligned
     stream = stream_of(q)

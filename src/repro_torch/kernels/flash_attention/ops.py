@@ -6,8 +6,11 @@ in ``flash_attention.launches``) or raise.  The kernel reads q/k/v through
 their strides, so the model passes ``x.transpose(1, 2)`` views of its
 (B, S, H, hd) activations and nothing is copied or padded.  bf16 runs on
 the tensor cores, f32 on the CUDA cores (TF32 would miss the f32 bound).
-The kernel copies 16 bytes a lane, so each data pointer and every stride
-(in bytes, but the head dim's) must be a multiple of 16; other views raise.
+The bf16 kernel copies 16 bytes a lane and folds a positive scale into
+one multiply-add, so for bf16 each data pointer and every stride (in
+bytes, but the head dim's) must be a multiple of 16 and the scale
+positive; other calls raise.  The f32 kernel reads scalars and takes any
+stride and any scale.
 """
 
 from __future__ import annotations
@@ -64,10 +67,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous (stride 1)")
     scale = hd ** -0.5 if scale is None else scale
-    if not scale > 0:
-        raise ValueError(f"scale {scale}: the CUDA kernel takes a positive scale")
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    check_aligned("flash_attention", q=q, k=k, v=v, out=out)
+    if q.dtype == torch.bfloat16:
+        if not scale > 0:
+            raise ValueError(f"scale {scale}: the bf16 kernel takes a positive scale")
+        check_aligned("flash_attention", q=q, k=k, v=v, out=out)
     lib = _lib()
     with torch.cuda.device(q.device):   # launch on the tensors' card
         code = lib.flash_attention_fwd(

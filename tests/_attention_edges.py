@@ -1,0 +1,33 @@
+"""The tile and split edge cases of the attention kernels, in one place for
+the card tests (``tests/test_torch_cuda.py``) and ``chip_smoke.py``'s
+kernel phase, so a change to the tiling updates both.
+
+Flash attention (K2) works in 64-row query tiles and 64-key tiles; decode
+attention (K3) splits the cache into blocks of ``decode_split_plan``
+positions and builds 1, 2, 4, 6 and 8 query rows per KV head (an odd
+count runs padded to the next even one)."""
+
+EDGES = [1, 15, 63, 64, 65, 127, 383, 384, 385]
+EDGE_PAIRS = [(n, n) for n in EDGES] + [(n, m) for n, m in zip(EDGES, reversed(EDGES)) if n != m]
+FLASH_GROUPS = (1, 4, 6, 8)
+
+
+def flash_edge_cases() -> list[tuple[int, int, int, int, int]]:
+    """(Sq, Sk, G, B, KV): Sq and Sk over the tile edges, equal and unequal
+    both ways, G = H / KV cycling through ``FLASH_GROUPS``, B 1 or 2 and
+    KV 1 or 2."""
+    return [(sq, sk, FLASH_GROUPS[i % 4], 1 + i % 2, 2 if i % 3 else 1)
+            for i, (sq, sk) in enumerate(EDGE_PAIRS)]
+
+
+# (B, KV, S): one split (S = 16, 32 on 132 SMs) and many (16, 64)
+DECODE_SHAPES = [(4, 2, 512), (1, 1, 2048), (2, 2, 32), (3, 1, 16)]
+DECODE_GROUPS = (1, 3, 6, 7, 8)
+
+
+def decode_edge_lens(per: int, s: int, b: int) -> list[list[int]]:
+    """Length rows of ``b`` requests covering 0, 1, P-1, P, P+1, S-1, S and
+    > S for ``per`` = P positions per block, then a row all full."""
+    edges = [0, 1, per - 1, per, per + 1, s - 1, s, s + 7]
+    rows = [(edges[i:i + b] + [s] * b)[:b] for i in range(0, len(edges), b)]
+    return rows + [[s] * b]

@@ -10,6 +10,7 @@ products run in full f32 (TF32 off)."""
 
 import pytest
 import torch
+from _attention_edges import DECODE_GROUPS, DECODE_SHAPES, decode_edge_lens, flash_edge_cases
 
 from repro_torch.configs import model_100m
 from repro_torch.kernels.decode_attention.ops import (decode_attention, decode_attention_ref,
@@ -72,21 +73,13 @@ def test_decode_attention_kernel_matches_plain(dev, lens, dt):
     assert torch.all(out[lt == 0] == 0)
 
 
-# the tile edges of the redesigned kernels: K2's 64-row query tiles and
-# 64-key tiles, K3's splits of decode_split_plan positions
-EDGES = [1, 15, 63, 64, 65, 127, 383, 384, 385]
-EDGE_PAIRS = [(n, n) for n in EDGES] + [(n, m) for n, m in zip(EDGES, reversed(EDGES)) if n != m]
-
-
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_tile_edges(dev, hd, causal, dt):
     """Sq and Sk over the 64-row tile edges, equal and unequal both ways,
     with G = H / KV cycling through 1, 4, 6 and 8."""
-    for i, (sq, sk) in enumerate(EDGE_PAIRS):
-        g = (1, 4, 6, 8)[i % 4]
-        b, kv = 1 + i % 2, 2 if i % 3 else 1
+    for i, (sq, sk, g, b, kv) in enumerate(flash_edge_cases()):
         q = _randn(dev, b, sq, g * kv, hd, dt=dt, seed=20 + i).transpose(1, 2)
         k = _randn(dev, b, sk, kv, hd, dt=dt, seed=40 + i).transpose(1, 2)
         v = _randn(dev, b, sk, kv, hd, dt=dt, seed=60 + i).transpose(1, 2)
@@ -115,19 +108,17 @@ def _check_decode(q, kc, vc, lens, dt, what):
 
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("g", [1, 6, 8])
-@pytest.mark.parametrize("b,kv,s", [(4, 2, 512), (1, 1, 2048), (2, 2, 32), (3, 1, 16)])
+@pytest.mark.parametrize("g", DECODE_GROUPS)
+@pytest.mark.parametrize("b,kv,s", DECODE_SHAPES)
 def test_decode_attention_kernel_split_edges(dev, b, kv, s, g, hd, dt):
     """Lengths at the split edges (0, 1, P-1, P, P+1, S-1, S, > S), all
-    full, on shapes that give one split (S = 16, 32) and many (16, 64)."""
+    full, on shapes that give one split (S = 16, 32) and many (16, 64);
+    odd G (3, 7) runs padded to the next even build."""
     per, ns = decode_split_plan(s, b, kv, torch.cuda.get_device_properties(dev)
                                 .multi_processor_count)
     q, kc, vc = _decode_case(dev, b, g * kv, kv, s, hd, dt, seed=80 + s + g)
-    edges = [0, 1, per - 1, per, per + 1, s - 1, s, s + 7]
-    for i in range(0, len(edges), b):
-        lens = (edges[i:i + b] + [s] * b)[:b]
+    for lens in decode_edge_lens(per, s, b):
         _check_decode(q, kc, vc, lens, dt, f"P={per} NS={ns} lens={lens}")
-    _check_decode(q, kc, vc, [s] * b, dt, f"P={per} NS={ns} all full")
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -157,6 +148,20 @@ def test_attention_kernels_reject_unaligned_views(dev):
         decode_attention(q, shifted.transpose(1, 2), ok, lt)
     with pytest.raises(ValueError, match="aligned"):
         decode_attention(torch.zeros(1, 2, 65, dtype=dt, device=dev)[..., :64], ok, ok, lt)
+
+
+def test_flash_attention_f32_takes_unaligned_views(dev):
+    """The f32 kernel reads scalars: views whose pointer or stride is not
+    16-byte aligned, and a negative scale, still match the plain version."""
+    dt = torch.float32
+    q = _randn(dev, 1 + 2 * 21 * 8 * 64, dt=dt, seed=11)[1:].view(2, 21, 8, 64).transpose(1, 2)
+    k = _randn(dev, 2, 33, 2, 65, dt=dt, seed=12)[..., :64].transpose(1, 2)   # 260 B rows
+    v = _randn(dev, 2, 33, 2, 64, dt=dt, seed=13).transpose(1, 2)
+    for causal, scale in ((True, None), (False, -0.3)):
+        out = flash_attention(q, k, v, causal=causal, scale=scale)
+        torch.testing.assert_close(
+            out, flash_attention_ref(q, k, v, causal=causal, scale=scale),
+            atol=_tol(dt), rtol=_tol(dt))
 
 
 @pytest.mark.parametrize("dt", DTYPES)
