@@ -18,7 +18,12 @@ final line:
    at the main paths' shapes plus ragged ones and the attention kernels'
    tile and split edges, in f32 and bf16, and time kernel, plain version
    and the nearest PyTorch library call (flash attention at S = 16, 100,
-   384 and 1024);
+   384 and 1024); the K4 and K5 windows are also printed by kernel name,
+   K4 must be one kernel per call, and K5 is timed at the admission
+   path's S = 16, 100 and 384, at decode's B = 4 S = 1 warm and with L2
+   flushed, and beside its serial floor (S rounds of the cluster's h
+   exchange and barrier alone, or of the grid barrier for the f32 grid
+   kernel);
 4. full-width qwen2-1.5b in f32: kernel path against plain path on the same
    random weights, prefill logits of 4 ragged prompts and 4 decode steps
    with the 4 slots at their ragged lengths;
@@ -101,11 +106,17 @@ def cuda_activity(prof) -> list:
     return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
 
 
-def device_ms(fn, iters: int = 20, warm: int = 3, tries: int = 3) -> float:
-    """Device time per call: all the CUDA activity ``torch.profiler`` records
-    over ``iters`` calls, divided by ``iters``.  A window in which the
-    profiler delivered no device activity at all is profiled again; after
-    ``tries`` such windows the run fails rather than report 0."""
+def device_breakdown(fn, iters: int = 20, warm: int = 3, tries: int = 3,
+                     flush=None) -> dict:
+    """{kernel name: [device ms per call, launches per call]} from the CUDA
+    activity ``torch.profiler`` records over ``iters`` calls.  ``flush``
+    (e.g. a write of a buffer larger than L2) runs before each call; its
+    activity, which it must launch as a fill, is left out.  The profiler
+    can deliver fewer activities than were launched (seen on the H100: 14
+    of 20 calls of a 5 us kernel), so a name's ms per call is its mean time
+    per activity times its launches per call, rounded to a whole number (at
+    least 1).  A window with no device activity at all is profiled again;
+    after ``tries`` such windows the run fails rather than report 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,20 +126,49 @@ def device_ms(fn, iters: int = 20, warm: int = 3, tries: int = 3) -> float:
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if flush is not None:
+                    flush()
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in cuda_activity(prof))
-        if us > 0:
-            return us / 1e3 / iters
+        seen = {}
+        for e in cuda_activity(prof):
+            if e.self_device_time_total <= 0 or (flush is not None and "fill" in e.key.lower()):
+                continue
+            us, n = seen.get(e.key, (0.0, 0))
+            seen[e.key] = (us + e.self_device_time_total, n + e.count)
+        if seen:
+            by = {}
+            for k, (us, n) in seen.items():
+                per_call = max(1, round(n / iters))
+                by[k] = [us / 1e3 / n * per_call, per_call]
+            return by
         log("profiler window held no device activity; profiling again")
     fail(f"torch.profiler recorded no device activity in {tries} windows")
 
 
-def timings(kernel, plain, library, *, plain_iters: int = 20) -> dict:
+def device_ms(fn, iters: int = 20, warm: int = 3, tries: int = 3) -> float:
+    """Device time per call (see :func:`device_breakdown`)."""
+    return sum(ms for ms, _ in device_breakdown(fn, iters, warm, tries).values())
+
+
+def log_breakdown(what: str, by: dict) -> None:
+    log(f"{what}: device ms per call by kernel: "
+        + "; ".join(f"{k[:80]} {ms:.5f} x{n:g}" for k, (ms, n) in
+                    sorted(by.items(), key=lambda kv: -kv[1][0])))
+
+
+def timings(kernel, plain, library, *, plain_iters: int = 20, what: str | None = None) -> dict:
     """Device ms per call of the kernel, its plain version and the library
     call (None where there is none); ``plain_iters`` cuts the profiled
-    calls of a plain version that issues thousands of launches per call."""
-    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain, iters=plain_iters, warm=1),
+    calls of a plain version that issues thousands of launches per call.
+    With ``what``, the kernel's window is logged by kernel name, and
+    ``kernels_per_call`` counts its device activities per call."""
+    by = device_breakdown(kernel)
+    if what:
+        log_breakdown(what, by)
+    return {"ms": sum(ms for ms, _ in by.values()),
+            "kernels_per_call": sum(n for _, n in by.values()),
+            "plain_ms": device_ms(plain, iters=plain_iters, warm=1),
             "library_ms": None if library is None else device_ms(library),
             "wall_ms": cuda_ms(kernel)}
 
@@ -388,12 +428,17 @@ def phase_kernels(dev) -> dict:
 
 def phase_slstm_scan(dev, rnd, dts) -> dict:
     """K5 at the xLSTM path's shapes: D = 2048, H = 4; prefill B = 1 with
-    S = 1, 17 and 384, decode B = 4 with S = 1, both from the zero state,
-    and a resume from a carried state."""
+    S = 1, 16, 17, 100 and 384 (the admission path's prompts), decode B = 4
+    with S = 1, both from the zero state, and a resume from a carried
+    state.  bf16 takes the cluster kernel, f32 the grid kernel.  Timed: bf16
+    B = 1 at S = 16, 100, 384, and B = 4 S = 1 warm and with L2 flushed;
+    f32 B = 1 S = 384 (the grid kernel); each kernel's serial floor (the
+    cluster's exchange and barrier, the grid's barrier) at S = 384."""
     import torch
 
-    from repro_torch.kernels.slstm_scan.ops import (grid_sync_loop, slstm_scan,
-                                                    slstm_scan_plan, slstm_scan_ref)
+    from repro_torch.kernels.slstm_scan.ops import (cluster_sync_loop, grid_sync_loop,
+                                                    slstm_scan, slstm_scan_plan,
+                                                    slstm_scan_ref)
 
     d, h = 2048, 4
     dh = d // h
@@ -410,14 +455,21 @@ def phase_slstm_scan(dev, rnd, dts) -> dict:
                    [check_close(f"{what} {n}N", a, c, dname, SLSTM_TOL)
                     for a, c, n in zip(st, sr, "hcnm")])
 
+    def variant(b, dt):
+        p = slstm_scan_plan(b, d, h, x_dtype=dt, w_dtype=dt)
+        where = f"cluster of {p.cluster}" if p.variant == "cluster" else "cooperative grid"
+        return p, (f"{p.variant} kernel: {p.blocks} blocks of J={p.j} ({where}), "
+                   f"{p.smem} B shared memory a block, {p.active} resident at once")
+
     errs = {}
     for dname, dt in dts.items():
-        for b, s in ((1, 1), (1, 17), (1, 384), (4, 1)):
+        for b, s in ((1, 1), (1, 16), (1, 17), (1, 100), (1, 384), (4, 1)):
             args = inputs(b, s, dt)
             e = cmp(f"slstm_scan {dname} B={b} S={s}", slstm_scan(*args), slstm_scan_ref(*args),
                     dname)
             errs[(dname, b, s)] = e
-            log(f"slstm_scan {dname} B={b} S={s} D={d} H={h}: max_abs_err {e:.3e}")
+            log(f"slstm_scan {dname} B={b} S={s} D={d} H={h}: max_abs_err {e:.3e} "
+                f"({variant(b, dt)[1]})")
         # resume: 24 steps in one call == 16 steps, then 8 from the carried state
         args = inputs(2, 24, dt)
         full = slstm_scan(*args)
@@ -428,32 +480,57 @@ def phase_slstm_scan(dev, rnd, dts) -> dict:
         e = cmp(f"slstm_scan {dname} resumed vs plain", tail,
                 slstm_scan_ref(args[0][:, 16:], args[1], args[2], *st), dname)
         log(f"slstm_scan {dname} B=2 S=8 from a carried state vs plain: max_abs_err {e:.3e}")
-    out = {}
-    for b, s in ((1, 384), (4, 1)):
-        args = inputs(b, s, torch.bfloat16)
-        t = timings(lambda: slstm_scan(*args), lambda: slstm_scan_ref(*args), None,
-                    plain_iters=3 if s > 100 else 20)
+
+    def bound(b, s, wbytes):
         # bytes: xg, w_hh, b and the state in once, hs and the state out once;
         # operations: the f32 recurrent product (h is f32), on CUDA cores
-        nbytes = 2 * b * s * 4 * d + 2 * h * dh * 4 * dh + 4 * 4 * d + 16 * b * d + \
-            4 * b * s * d + 16 * b * d
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 2 * b * s * 4 * d * dh, "float32")
-        j, grid = slstm_scan_plan(b, d, h)
-        t["grid"] = f"{grid} blocks of J={j}"
-        t["chain_ms"] = device_ms(lambda: grid_sync_loop(grid, s, dev))
-        log_timings(f"slstm_scan bf16 B={b} S={s} D={d} H={h}", t, None)
-        log(f"slstm_scan B={b} S={s}: grid {t['grid']}; {s} grid barriers alone "
-            f"(the serial chain's floor for this grid) {t['chain_ms']:.5f} ms")
-        out[(b, s)] = t
+        nbytes = 2 * b * s * 4 * d * (2 if wbytes == 4 else 1) + wbytes * h * dh * 4 * dh + \
+            4 * 4 * d + 16 * b * d + 4 * b * s * d + 16 * b * d
+        return bound_ms(nbytes, 2 * b * s * 4 * d * dh, "float32")
+
+    flush_buf = torch.empty(64 * 2 ** 20 // 4, device=dev)      # 64 MB > the 50 MB L2
+    out = {}
+    for b, s, dt in ((1, 384, torch.bfloat16), (1, 100, torch.bfloat16),
+                     (1, 16, torch.bfloat16), (4, 1, torch.bfloat16), (1, 384, torch.float32)):
+        dname = str(dt).split(".")[-1]
+        args = inputs(b, s, dt)
+        fn = lambda: slstm_scan(*args)  # noqa: E731
+        t = timings(fn, lambda: slstm_scan_ref(*args), None, plain_iters=3 if s > 100 else 20,
+                    what=f"slstm_scan {dname} B={b} S={s}")
+        t["bound_ms"], t["bound_by"] = bound(b, s, 4 if dt == torch.float32 else 2)
+        p, desc = variant(b, dt)
+        t["variant"], t["cluster"], t["blocks"], t["j"] = p.variant, p.cluster, p.blocks, p.j
+        if s == 1:
+            by = device_breakdown(fn, flush=lambda: flush_buf.fill_(1.0))
+            log_breakdown(f"slstm_scan {dname} B={b} S={s} L2 flushed", by)
+            t["l2_flushed_ms"] = sum(ms for ms, _ in by.values())
+        if s == 384:
+            if p.variant == "cluster":
+                t["chain_ms"] = device_ms(lambda: cluster_sync_loop(p.cluster, h, b * p.j, s,
+                                                                    dev))
+                floor = f"{s} rounds of the DSMEM exchange (st.async, mbarrier wait) alone"
+            else:
+                t["chain_ms"] = device_ms(lambda: grid_sync_loop(p.blocks, s, dev))
+                floor = f"{s} grid barriers alone"
+            log(f"slstm_scan {dname} B={b} S={s}: {floor} (the chain's floor) "
+                f"{t['chain_ms']:.5f} ms")
+        log_timings(f"slstm_scan {dname} B={b} S={s} D={d} H={h} [{desc}]", t, None)
+        if s == 1:
+            log(f"slstm_scan {dname} B={b} S={s}: with L2 flushed {t['l2_flushed_ms']:.5f} ms "
+                f"(warm {t['ms']:.5f})")
+        out[(b, s, dname)] = t
+    shapes = {f"B={b} S={s} {dn}": {k: v for k, v in t.items() if k != "wall_ms"}
+              for (b, s, dn), t in out.items()}
     return {"slstm_scan": {"max_abs_err": errs[("bfloat16", 1, 384)],
-                           "shape": f"B=1 S=384 D={d} H={h} bf16 (prefill)", **out[(1, 384)],
-                           "decode_B4_S1": out[(4, 1)]}}
+                           "shape": f"B=1 S=384 D={d} H={h} bf16 (prefill)",
+                           **out[(1, 384, "bfloat16")], "shapes": shapes}}
 
 
 def phase_ragged_concat(dev, gen) -> dict:
     """K4 at the concatenate node's size: the Top LiDAR's ~500k points and
     two sides' ~3k, 4 fields each (src/repro/apps/pointcloud.py:50), over
-    the dtype sweep, with room to spare and with capacity < total."""
+    the dtype sweep, with room to spare and with capacity < total; then
+    timed beside ``torch.cat``, and required to be one kernel per call."""
     import torch
 
     from repro_torch.kernels.ragged_concat.ops import ragged_concat, ragged_concat_ref
@@ -472,10 +549,14 @@ def phase_ragged_concat(dev, gen) -> dict:
             log(f"ragged_concat {dt} lens={lens} C={c} capacity={cap}: equal to plain")
     src = torch.randn(n, lmax, c, generator=gen, device=dev)
     cap = sum(lens) + 1000
+    cat = lambda: torch.cat([src[i, :k] for i, k in enumerate(lens)])  # noqa: E731
     t = timings(lambda: ragged_concat(src, lt, capacity=cap),
                 lambda: ragged_concat_ref(src, lt, cap),
                 # the valid rows alone, no zero-filled tail
-                lambda: torch.cat([src[i, :k] for i, k in enumerate(lens)]), plain_iters=5)
+                cat, plain_iters=5, what=f"ragged_concat f32 lens={lens} capacity={cap}")
+    log_breakdown("torch.cat of the valid views", device_breakdown(cat))
+    if t["kernels_per_call"] != 1:
+        fail(f"ragged_concat: {t['kernels_per_call']:g} kernels per call, not one")
     nbytes = 4 * c * (sum(lens) + cap) + 8 * n
     t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 0, "float32")
     log_timings(f"ragged_concat f32 lens={lens} C={c} capacity={cap}", t, "torch.cat")
@@ -837,7 +918,8 @@ def main() -> None:
                         "shape": r["shape"], "wall_ms": r["wall_ms"],
                         "path_device_ms_per_launch": {a: p[name] for a, p in path_ms.items()
                                                       if name in p},
-                        **({"by_seq": r["by_seq"]} if "by_seq" in r else {})})
+                        **{k: r[k] for k in ("by_seq", "shapes", "variant", "cluster")
+                           if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,11 @@
 """Public wrapper for the ragged concat kernel (``csrc/ragged_concat.cu``).
 
-Counterpart of ``repro/kernels/ragged_concat/ops.py``.  The exclusive
-prefix sum of the lengths is taken with ``torch.cumsum`` outside the
-kernel, as the reference takes it outside its own.  CPU tensors take the
-plain version; CUDA tensors launch the CUDA kernel (one launch counted in
-``ragged_concat.launches``) or raise.  No call reads ``total`` back to the
-host: the kernel finds each output row's source on the card.  Lengths must
-be >= 0.
+Counterpart of ``repro/kernels/ragged_concat/ops.py``.  CPU tensors take
+the plain version; CUDA tensors launch the CUDA kernel or raise.  On the
+card a call is one launch (counted in ``ragged_concat.launches``), also
+for N = 0 or capacity 0: the kernel computes the offsets and the total
+itself, so no prefix sum, fill or concatenation runs beside it, and no
+call reads ``total`` back to the host.  Lengths must be >= 0.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ import torch
 
 from .. import _build
 from .._device import check_launch, device_kind, stream_of
-from .ref import exclusive_offsets, ragged_concat_ref
+from .ref import ragged_concat_ref
 
 __all__ = ["ragged_concat", "ragged_concat_ref", "KERNEL_DTYPES"]
 
@@ -29,7 +28,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ragged_concat")
     fn = lib.ragged_concat_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _L, _L, _P]
+        fn.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _L, _P]
         fn.restype = _I
         lib.kernel_error_string.argtypes = [_I]
         lib.kernel_error_string.restype = ctypes.c_char_p
@@ -55,16 +54,19 @@ def ragged_concat(src: torch.Tensor, lengths: torch.Tensor, *, capacity: int):
     if not src.is_contiguous():
         raise ValueError("ragged_concat on CUDA needs a contiguous src")
     n, lmax, c = src.shape
-    lengths = lengths.to(torch.int32).contiguous()
-    offsets, total = exclusive_offsets(lengths)
+    if c * src.element_size() >= 2 ** 31:
+        raise ValueError(f"rows of {c * src.element_size()} bytes: the kernel takes < 2 GiB")
+    lengths = lengths.contiguous()
+    # offsets (1,) = [0] at N = 0, as the plain version and the reference give
+    offsets = torch.empty((max(n, 1),), dtype=torch.int32, device=src.device)
+    total = torch.empty((), dtype=torch.int32, device=src.device)
     out = torch.empty((capacity, c), dtype=src.dtype, device=src.device)
-    if capacity * c == 0:
-        return out, offsets, total
     lib = _lib()
     with torch.cuda.device(src.device):   # launch on the tensors' card
-        code = lib.ragged_concat_fwd(src.data_ptr(), lengths.data_ptr(), offsets.data_ptr(),
-                                     out.data_ptr(), n, lmax, c * src.element_size(),
-                                     capacity, stream_of(src))
+        code = lib.ragged_concat_fwd(src.data_ptr(), lengths.data_ptr(),
+                                     int(lengths.dtype == torch.int64), offsets.data_ptr(),
+                                     total.data_ptr(), out.data_ptr(), n, lmax,
+                                     c * src.element_size(), capacity, stream_of(src))
     check_launch(lib, code, "ragged_concat")
     ragged_concat.launches += 1
     return out, offsets, total

@@ -18,7 +18,8 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention, decode_a
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
 from repro_torch.kernels.ragged_concat.ops import ragged_concat, ragged_concat_ref
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
-from repro_torch.kernels.slstm_scan.ops import slstm_scan, slstm_scan_ref
+from repro_torch.kernels.slstm_scan.ops import (cluster_plan, slstm_scan, slstm_scan_plan,
+                                                slstm_scan_ref)
 from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
@@ -242,6 +243,130 @@ def test_ragged_concat_kernel_matches_plain(dev, lens, c, cap, dt):
     ref, roffs, rtotal = ragged_concat_ref(src, lt, cap)
     assert torch.equal(out, ref) and torch.equal(offs, roffs)
     assert int(total) == int(rtotal) == sum(lens)
+
+
+def _slstm_inputs(dev, b, s, d, h, dt, seed):
+    dh = d // h
+    xg = _randn(dev, b, s, 4 * d, dt=dt, seed=seed)
+    w = (_randn(dev, h, dh, 4 * dh, dt=torch.float32, seed=seed + 1) * dh ** -0.5).to(dt)
+    bias = _randn(dev, 4 * d, dt=torch.float32, seed=seed + 2) * 0.1
+    z = torch.zeros(b, d, device=dev)
+    return xg, w, bias, z, z, z, torch.full((b, d), float("-inf"), device=dev)
+
+
+def _slstm_close(got, want):
+    (hs, st), (hr, sr) = got, want
+    torch.testing.assert_close(hs, hr, atol=3e-5, rtol=3e-5)
+    for a, c in zip(st, sr):
+        torch.testing.assert_close(a, c, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("s", [1, 2, 17, 384])
+@pytest.mark.parametrize("b", range(1, 9))
+def test_slstm_scan_kernel_batch_and_steps(dev, b, s, dt):
+    """Full width (D = 2048, H = 4): bf16 takes the cluster kernel, f32 the
+    grid kernel, at every batch the path can give (1..8 rows)."""
+    args = _slstm_inputs(dev, b, s, 2048, 4, dt, seed=20 + b)
+    n = slstm_scan.launches
+    got = slstm_scan(*args)
+    assert slstm_scan.launches == n + 1
+    _slstm_close(got, slstm_scan_ref(*args))
+
+
+# (D, H) whose head width dh puts the smallest cluster that holds w_hh (bf16,
+# B = 3) at each size; none of these dh is a multiple of the block's J
+CLUSTER_SHAPES = {1: (24, 2), 2: (400, 2), 4: (560, 2), 8: (800, 2), 16: (1000, 2)}
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("cs", sorted(CLUSTER_SHAPES))
+def test_slstm_scan_kernel_cluster_sizes(dev, cs, dt):
+    d, h = CLUSTER_SHAPES[cs]
+    budget = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    plan = slstm_scan_plan(3, d, h, x_dtype=dt, w_dtype=dt)
+    size = 2 if dt == torch.bfloat16 else 4
+    want = cluster_plan(3, d, h, size, size, budget)
+    if want is None:                    # f32 past 16 blocks' shared memory
+        assert dt == torch.float32 and plan.variant == "grid"
+    else:
+        assert plan.variant == "cluster" and plan.blocks == h * plan.cluster
+        assert (plan.cluster, plan.j, plan.smem) == want
+    if dt == torch.bfloat16:
+        assert plan.cluster == cs and (d // h) % plan.j != 0
+    args = _slstm_inputs(dev, 3, 17, d, h, dt, seed=30 + cs)
+    _slstm_close(slstm_scan(*args), slstm_scan_ref(*args))
+
+
+def test_slstm_scan_plan_variants(dev):
+    """At full width bf16 takes one cluster of 16 blocks per head, and f32
+    (4 MiB of w_hh per head) the cooperative grid kernel."""
+    budget = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for b in (1, 4, 8):
+        p = slstm_scan_plan(b, 2048, 4)
+        assert (p.variant, p.cluster, p.j, p.blocks) == ("cluster", 16, 32, 64)
+        assert p.active >= 1 and (p.cluster, p.j, p.smem) == cluster_plan(b, 2048, 4, 2, 2,
+                                                                          budget)
+        f = slstm_scan_plan(b, 2048, 4, x_dtype=torch.float32, w_dtype=torch.float32)
+        assert f.variant == "grid" and f.cluster == 0
+        assert cluster_plan(b, 2048, 4, 4, 4, budget) is None
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_slstm_scan_kernel_repeated_calls(dev, dt):
+    """Three calls in a row on one stream, with other inputs each, before
+    any is read back."""
+    calls = [_slstm_inputs(dev, b, s, 2048, 4, dt, seed=40 + b) for b, s in
+             ((1, 100), (4, 1), (2, 17))]
+    outs = [slstm_scan(*a) for a in calls]
+    for a, o in zip(calls, outs):
+        _slstm_close(o, slstm_scan_ref(*a))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("lens,lmax,c,cap", [
+    ([], 4, 4, 8),                      # N = 0: all zeros, total 0
+    ([7], 9, 4, 12),                    # N = 1
+    ([0, 0, 0], 5, 4, 6),               # all-zero lengths
+    ([5, 3], 5, 4, 0),                  # capacity 0: offsets and total only
+    ([9, 4, 6], 9, 4, 11),              # capacity below the total
+    ([9, 4, 6], 9, 3, 30),              # 3-element rows (3 bytes in uint8)
+    ("many", 20, 4, 60_000),            # 5000 sources: more than one scan pass
+])
+def test_ragged_concat_kernel_edges(dev, lens, lmax, c, cap, dt):
+    if lens == "many":
+        g = torch.Generator().manual_seed(15)
+        lens = torch.randint(0, 21, (5000,), generator=g).tolist()
+    src = (_randn(dev, len(lens), lmax, c, dt=torch.float32, seed=16) * 100).to(dt)
+    for ldt in (torch.int32, torch.int64):
+        lt = torch.tensor(lens, dtype=ldt, device=dev)
+        n = ragged_concat.launches
+        out, offs, total = ragged_concat(src, lt, capacity=cap)
+        assert ragged_concat.launches == n + 1
+        ref, roffs, rtotal = ragged_concat_ref(src, lt, cap)
+        assert torch.equal(out, ref) and torch.equal(offs, roffs.to(torch.int32))
+        assert offs.dtype == total.dtype == torch.int32
+        assert int(total) == int(rtotal) == sum(lens)
+
+
+def test_ragged_concat_one_kernel_per_call(dev):
+    """A call is one kernel launch in the profile: no prefix sum, fill or
+    concatenation beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lens = [500_000, 3_011, 2_987]
+    src = _randn(dev, 3, max(lens), 4, dt=torch.float32, seed=17)
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    ragged_concat(src, lt, capacity=sum(lens) + 1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ragged_concat(src, lt, capacity=sum(lens) + 1000)
+        torch.cuda.synchronize()
+    acts = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # the profiler may deliver fewer activities than were launched, never more
+    assert 0 < sum(e.count for e in acts) <= 5, [(e.key, e.count) for e in acts]
+    assert all("ragged_concat" in e.key for e in acts), [e.key for e in acts]
 
 
 @pytest.mark.parametrize("every", [8, 4])

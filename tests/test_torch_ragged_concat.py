@@ -76,3 +76,22 @@ def test_ragged_concat_wrapper_checks():
                       torch.ones(2, dtype=torch.int32), capacity=4)
     with pytest.raises(ValueError, match="capacity"):
         ragged_concat(torch.zeros(2, 4, 3), torch.ones(2, dtype=torch.int32), capacity=-1)
+
+
+@pytest.mark.parametrize("cap", ["total+7", "below", 0], ids=str)
+def test_ragged_concat_plain_matches_jax_many_sources(cap):
+    """About 300 sources with zero lengths mixed in (more sources than one
+    256-wide scan pass of the CUDA kernel), lengths above and below Lmax."""
+    rng = np.random.default_rng(300)
+    lens = rng.integers(0, 13, 301)
+    lens[rng.random(301) < 0.3] = 0
+    lens = lens.tolist()
+    cap = {"total+7": sum(lens) + 7, "below": sum(lens) // 2}.get(cap, cap)
+    src = torch.from_numpy(rng.standard_normal((len(lens), 10, 3), np.float32))
+    _check(src, lens, cap)
+
+
+def test_ragged_concat_plain_matches_jax_no_sources():
+    """N = 0: a zero-filled buffer, total 0, and the reference's offsets [0]."""
+    out = _check(torch.zeros(0, 4, 2), [], 5)
+    assert not out.any()

@@ -18,7 +18,8 @@ from repro.kernels.slstm_scan import slstm_scan as jax_scan
 from repro.kernels.slstm_scan import slstm_scan_ref as jax_scan_ref
 from repro.models.common import ModelConfig as JaxModelConfig
 from repro.models.xlstm import _slstm_step as jax_slstm_step
-from repro_torch.kernels.slstm_scan.ops import slstm_scan, slstm_scan_ref
+from repro_torch.kernels.slstm_scan.ops import (cluster_plan, cluster_smem, slstm_scan,
+                                                slstm_scan_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -135,3 +136,58 @@ def test_slstm_scan_wrapper_checks():
         slstm_scan(*targs[:3], targs[3][:, :8], *targs[4:])
     with pytest.raises(TypeError):
         slstm_scan(targs[0].double(), *targs[1:])
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_slstm_scan_plain_matches_jax_decode_batch(dt):
+    """The decode path's shape: B = 8 rows, one step, from a carried state."""
+    jargs, targs = _inputs(np.random.default_rng(8), 8, 1, 64, 4, dt, state=True)
+    hs, st = slstm_scan(*targs)
+    for jhs, jst in (jax_scan(*jargs), jax_scan_ref(*jargs)):
+        _close(hs, jhs, _tol(dt), "hs")
+        for a, c, name in zip(st, jst, "hcnm"):
+            _close(a, c, _tol(dt), name)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_slstm_scan_plain_one_step_chain_matches_jax(dt):
+    """Four S = 1 calls, each resuming from the last one's state (four
+    decode rounds), equal one S = 4 call, here and in the JAX kernel."""
+    jargs, targs = _inputs(np.random.default_rng(9), 3, 4, 32, 2, dt, state=True)
+    hs_full, st_full = slstm_scan(*targs)
+    st, jst = tuple(targs[3:]), tuple(jargs[3:])
+    for t in range(4):
+        hs, st = slstm_scan(targs[0][:, t:t + 1], targs[1], targs[2], *st)
+        jhs, jst = jax_scan(jargs[0][:, t:t + 1], jargs[1], jargs[2], *jst)
+        _close(hs[:, 0], hs_full[:, t].numpy(), 1e-5, f"step {t}")
+        _close(hs[:, 0], np.asarray(jhs, np.float32)[:, 0], _tol(dt), f"jax step {t}")
+    for a, c, j in zip(st, st_full, jst):
+        _close(a, c.numpy(), 1e-5)
+        _close(a, j, _tol(dt))
+
+
+H100_SMEM = 232_448          # opt-in shared memory per block on an H100 (227 KB)
+
+
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_cluster_plan_full_width(b):
+    """bf16 at full width (D = 2048, H = 4): one cluster of 16 blocks per
+    head, J = 32; f32 (4 MiB of w_hh per head) fits no cluster."""
+    cs, j, smem = cluster_plan(b, 2048, 4, 2, 2, H100_SMEM)
+    assert (cs, j) == (16, 32) and 131_072 < smem <= H100_SMEM
+    assert cluster_plan(b, 2048, 4, 4, 4, H100_SMEM) is None
+    assert cluster_plan(b, 2048, 4, 2, 4, H100_SMEM) is None
+
+
+@pytest.mark.parametrize("cs,d,h", [(1, 24, 2), (2, 400, 2), (4, 560, 2), (8, 800, 2),
+                                    (16, 1000, 2), (1, 64, 4), (1, 32, 2)])
+def test_cluster_plan_test_shapes(cs, d, h):
+    """The smallest cluster whose blocks hold the head's w_hh (bf16, B = 3),
+    at the card tests' shapes; J is a multiple of 8 and covers dh."""
+    got = cluster_plan(3, d, h, 2, 2, H100_SMEM)
+    assert got is not None and got[0] == cs
+    j, dh = got[1], d // h
+    assert j % 8 == 0 and cs * j >= dh and j - 8 < -(-dh // cs)
+    if cs > 1:       # the next smaller cluster does not fit
+        smaller = (-(-dh // (cs // 2)) + 7) // 8 * 8
+        assert cluster_smem(3, dh, smaller, cs // 2, 2, 2) > H100_SMEM
