@@ -11,14 +11,18 @@ final line:
 1. the card's name and power limit, and the torch/CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together), report the build time and each kernel's
-   registers, shared memory and spills, and count the tensor-core
-   instructions (``HMMA``) in the built flash-attention library: the bf16
-   kernels must have some;
+   registers, shared memory and spills (the fused norm's instantiations
+   must spill nothing), and count the tensor-core instructions (``HMMA``)
+   in the built flash-attention library: the bf16 kernels must have some;
 3. hold each kernel (K1-K5) against its plain PyTorch version on the card
    at the main paths' shapes plus ragged ones and the attention kernels'
-   tile and split edges, in f32 and bf16, and time kernel, plain version
-   and the nearest PyTorch library call (flash attention at S = 16, 100,
-   384 and 1024); the K4 and K5 windows are also printed by kernel name,
+   tile and split edges, in f32 and bf16 (K1 in every mode the models call:
+   with and without the residual add, Gemma's ``1 + scale``, with and
+   without the residual output, on strided and unaligned rows), and time
+   kernel, plain version and the nearest PyTorch library call (flash
+   attention at S = 16, 100, 384 and 1024), and each wrapper's host time
+   per call (K1's beside one ``torch.add``); the K4 and K5 windows are
+   also printed by kernel name,
    K4 must be one kernel per call, and K5 is timed at the admission
    path's S = 16, 100 and 384, at decode's B = 4 S = 1 warm and with L2
    flushed, and beside its serial floor (S rounds of the cluster's h
@@ -29,11 +33,14 @@ final line:
    with the 4 slots at their ragged lengths;
 5. full-width qwen2-1.5b in bf16: serve unsized requests through
    ``repro_torch.runtime.server.InferenceServer``, with every kernel's
-   launch counter set to 0 just before and read just after, and check in
-   a profile that each decode-attention call is one kernel launch;
+   launch counter set to 0 just before and read just after, check that
+   every prefill and decode call launched the fused norm once per
+   full-width RMSNorm (2L + 1), and check in a profile that each
+   decode-attention call is one kernel launch;
 6. full-width xlstm-1.3b in f32: kernel path against plain path, as in 4;
-7. full-width xlstm-1.3b in bf16: serve unsized requests, as in 5, and
-   check that the sLSTM scan and the fused norm ran in prefill and decode.
+7. full-width xlstm-1.3b in bf16: serve unsized requests, as in 5 (103
+   fused norms a call), and check that the sLSTM scan and the fused norm
+   ran in prefill and decode.
 
 It prints a ``{"kernels": [...]}`` line and ends with one JSON line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -99,6 +106,35 @@ def cuda_ms(fn, iters: int = 50, warm: int = 5) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def host_ms_each(fns: dict, iters: int = 100, reps: int = 5, warm: int = 10) -> dict:
+    """Host time per call of each of ``fns``, on the CPU's clock, around
+    ``iters`` back-to-back calls issued without a synchronise: what a call
+    costs the host (checks, allocation, the launch), whatever the device
+    does meanwhile.  The functions take turns, one block of ``iters`` calls
+    each per round, so a drift of the host's speed falls on all alike; the
+    median of ``reps`` rounds."""
+    import torch
+
+    for fn in fns.values():
+        for _ in range(warm):
+            fn()
+    runs = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            runs[k].append((time.perf_counter() - t0) * 1e3 / iters)
+    torch.cuda.synchronize()
+    return {k: sorted(v)[reps // 2] for k, v in runs.items()}
+
+
+def host_ms(fn, **kw) -> float:
+    """Host time per call of ``fn`` alone (see :func:`host_ms_each`)."""
+    return host_ms_each({0: fn}, **kw)[0]
 
 
 def cuda_activity(prof) -> list:
@@ -170,14 +206,14 @@ def timings(kernel, plain, library, *, plain_iters: int = 20, what: str | None =
             "kernels_per_call": sum(n for _, n in by.values()),
             "plain_ms": device_ms(plain, iters=plain_iters, warm=1),
             "library_ms": None if library is None else device_ms(library),
-            "wall_ms": cuda_ms(kernel)}
+            "wall_ms": cuda_ms(kernel), "host_ms": host_ms(kernel)}
 
 
 def log_timings(what: str, t: dict, library: str | None) -> None:
     lib = f"{library} {t['library_ms']:.5f}" if library else "no library call"
     log(f"{what}: device ms per call: kernel {t['ms']:.5f}, plain {t['plain_ms']:.5f}, "
         f"{lib}, bound {t['bound_ms']:.5f} ({t['bound_by']}); "
-        f"kernel wall per back-to-back call {t['wall_ms']:.5f} ms")
+        f"kernel wall per back-to-back call {t['wall_ms']:.5f} ms, host {t['host_ms']:.5f} ms")
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -223,10 +259,12 @@ def demangle(names: list[str]) -> list[str]:
     return short
 
 
-def ptxas_by_kernel(names: list[str]) -> None:
-    """Each kernel's registers, shared memory and spills, from ``ptxas -v``."""
+def ptxas_by_kernel(names: list[str]) -> dict:
+    """Each kernel's registers, shared memory and spills, from ``ptxas -v``:
+    logged, and returned as {source: [(kernel, registers line, spill line)]}."""
     from repro_torch.kernels import _build
 
+    report = {}
     for n in names:
         entries = []                          # [mangled name, registers, spills]
         for line in _build.ptxas_report(n).splitlines():
@@ -237,8 +275,11 @@ def ptxas_by_kernel(names: list[str]) -> None:
                 entries[-1][2] = line.strip()
             elif entries and "registers" in line:
                 entries[-1][1] = line.split(":", 1)[-1].strip()
+        report[n] = []
         for (_, regs, spill), short in zip(entries, demangle([e[0] for e in entries])):
             log(f"ptxas {n} {short}: {regs}; {spill}")
+            report[n].append((short, regs, spill))
+    return report
 
 
 def sass_counts(name: str, opcode: str) -> dict:
@@ -280,35 +321,7 @@ def phase_kernels(dev) -> dict:
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     report = {}
 
-    # K1 fused residual-add + RMSNorm: decode (4 slots), prefill (16..384 rows), ragged
-    d = 1536
-    errs = {}
-    for dname, dt in dts.items():
-        for rows in (4, 384, 16, 1, 37):
-            x, r = rnd(rows, d, dt=dt), rnd(rows, d, dt=dt)
-            sc = torch.randn(d, generator=gen, device=dev)
-            y, h = fused_rmsnorm(x, r, sc, eps=1e-6)
-            yr, hr = rmsnorm_ref(x, r, sc, eps=1e-6)
-            e = max(check_close(f"rmsnorm {dname} R={rows} y", y, yr, dname),
-                    check_close(f"rmsnorm {dname} R={rows} h", h, hr, dname))
-            errs[(dname, rows)] = e
-            log(f"rmsnorm {dname} R={rows} D={d}: max_abs_err {e:.3e}")
-    times = {}
-    for rows in (4, 384):
-        x, r = rnd(rows, d, dt=torch.bfloat16), rnd(rows, d, dt=torch.bfloat16)
-        sc = torch.randn(d, generator=gen, device=dev)
-        hsum = (x.float() + r.float()).to(torch.bfloat16)
-        sc16 = sc.to(torch.bfloat16)
-        t = timings(lambda: fused_rmsnorm(x, r, sc, eps=1e-6),
-                    lambda: rmsnorm_ref(x, r, sc, eps=1e-6),
-                    # the norm alone on the pre-added input: PyTorch has no add+norm call
-                    lambda: F.rms_norm(hsum, (d,), sc16, 1e-6))
-        t["bound_ms"], t["bound_by"] = bound_ms(4 * rows * d * 2 + d * 4, 6 * rows * d,
-                                                "bfloat16")
-        times[rows] = t
-        log_timings(f"rmsnorm bf16 R={rows}", t, "F.rms_norm")
-    report["rmsnorm"] = {"max_abs_err": errs[("bfloat16", 4)], "shape": "R=4 D=1536 bf16",
-                         **times[4], "prefill_R384": times[384]}
+    report["rmsnorm"] = phase_rmsnorm(dev, gen, rnd, dts)
 
     # K2 flash attention: the model's (B,S,H,hd) tensors viewed as (B,H,S,hd)
     def qkv(b, h, kv, sq, sk, hd, dt):
@@ -424,6 +437,86 @@ def phase_kernels(dev) -> dict:
     report.update(phase_slstm_scan(dev, rnd, dts))
     report.update(phase_ragged_concat(dev, gen))
     return report
+
+
+def phase_rmsnorm(dev, gen, rnd, dts) -> dict:
+    """K1 in every mode the paths call, at their widths: D = 1536 (qwen2),
+    2048 (xlstm) and 4096 (the mLSTM's inner norm), the smoke configs' 48
+    and the unaligned 52; R = 4 (decode's slots) to 384 (prefill).  Then
+    the views the model hands over: prefill's last position of (B, S, D),
+    strided rows, and a view offset by one element (the scalar
+    instantiation).  Timed in bf16 at D = 1536, R = 4 and 384 beside
+    ``F.rms_norm`` (the norm alone on the pre-added input: PyTorch has no
+    add + norm call), at D = 2048 and 4096, R = 4, and the host time of one
+    call beside one ``torch.add`` of the same tensors."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
+
+    def cmp(what, got, ref, dname):
+        (y, h), (yr, hr) = got, ref
+        e = check_close(f"{what} y", y, yr, dname)
+        if (h is None) != (hr is None):
+            fail(f"{what}: residual output {h is None} vs plain {hr is None}")
+        return e if h is None else max(e, check_close(f"{what} h", h, hr, dname))
+
+    errs = {}
+    modes = {"add": (True, False, True), "add-gemma": (True, True, True),
+             "add-no-out": (True, False, False), "norm": (False, False, False),
+             "norm-gemma": (False, True, True)}
+    for dname, dt in dts.items():
+        for d in (1536, 2048, 4096, 48, 52):
+            worst = 0.0
+            for rows in (4, 384, 16, 1, 37):
+                for mode, (with_r, gemma, want) in modes.items():
+                    x = rnd(rows, d, dt=dt)
+                    r = rnd(rows, d, dt=dt) if with_r else None
+                    sc = torch.randn(d, generator=gen, device=dev)
+                    kw = dict(eps=1e-6, gemma=gemma, want_residual=want)
+                    e = cmp(f"rmsnorm {dname} R={rows} D={d} {mode}", fused_rmsnorm(x, r, sc, **kw),
+                            rmsnorm_ref(x, r, sc, **kw), dname)
+                    errs[(dname, rows, d, mode)] = e
+                    worst = max(worst, e)
+            log(f"rmsnorm {dname} D={d} R=4/384/16/1/37, modes {'/'.join(modes)}: "
+                f"max_abs_err {worst:.3e}")
+        base, res = rnd(4, 40, 1536, dt=dt), rnd(4, 40, 1536, dt=dt)
+        sc = torch.randn(1536, generator=gen, device=dev)
+        e = cmp(f"rmsnorm {dname} (4, 1, 1536) slice of (4, 40, 1536)",
+                fused_rmsnorm(base[:, -1:], res[:, -1:], sc),
+                rmsnorm_ref(base[:, -1:].contiguous(), res[:, -1:].contiguous(), sc), dname)
+        flat = rnd(4 * 2048 + 1, dt=dt)
+        xu, sc2 = flat[1:].view(4, 2048), torch.randn(2048, generator=gen, device=dev)
+        e = max(e, cmp(f"rmsnorm {dname} unaligned view", fused_rmsnorm(xu, xu.flip(0), sc2),
+                       rmsnorm_ref(xu, xu.flip(0), sc2), dname))
+        log(f"rmsnorm {dname} strided last-position rows and a view offset by one element "
+            f"(scalar instantiation): max_abs_err {e:.3e}")
+
+    times = {}
+    for rows, d in ((4, 1536), (384, 1536), (4, 2048), (4, 4096)):
+        x, r = rnd(rows, d, dt=torch.bfloat16), rnd(rows, d, dt=torch.bfloat16)
+        sc = torch.randn(d, generator=gen, device=dev)
+        hsum = (x.float() + r.float()).to(torch.bfloat16)
+        sc16 = sc.to(torch.bfloat16)
+        t = timings(lambda: fused_rmsnorm(x, r, sc, eps=1e-6),
+                    lambda: rmsnorm_ref(x, r, sc, eps=1e-6),
+                    lambda: F.rms_norm(hsum, (d,), sc16, 1e-6))
+        # x and r read once, y and h written once, the f32 scale read once
+        t["bound_ms"], t["bound_by"] = bound_ms(4 * rows * d * 2 + d * 4, 6 * rows * d,
+                                                "bfloat16")
+        # the wrapper and one torch.add in turns, for their ratio
+        pair = host_ms_each({"k1": lambda: fused_rmsnorm(x, r, sc, eps=1e-6),
+                             "add": lambda: torch.add(x, r)}, reps=9)
+        t["host_ms"], t["torch_add_host_ms"] = pair["k1"], pair["add"]
+        times[(rows, d)] = t
+        log_timings(f"rmsnorm bf16 R={rows} D={d}", t, "F.rms_norm")
+        log(f"rmsnorm bf16 R={rows} D={d}: host ms per back-to-back call: wrapper "
+            f"{t['host_ms']:.5f}, one torch.add of the same tensors "
+            f"{t['torch_add_host_ms']:.5f} (ratio {t['host_ms'] / t['torch_add_host_ms']:.2f})")
+    shapes = {f"R={rows} D={d} bf16": {k: v for k, v in t.items() if k != "wall_ms"}
+              for (rows, d), t in times.items()}
+    return {"max_abs_err": errs[("bfloat16", 4, 1536, "add")], "shape": "R=4 D=1536 bf16",
+            **times[(4, 1536)], "shapes": shapes}
 
 
 def phase_slstm_scan(dev, rnd, dts) -> dict:
@@ -641,21 +734,37 @@ def phase_model_f32(dev, arch: str) -> None:
 
 def count_by_stage(model, names: tuple, ws: dict) -> dict:
     """Count each path kernel's launches inside ``model.prefill`` and inside
-    ``model.decode_step`` separately, by wrapping the two on this instance."""
-    counts = {"prefill": dict.fromkeys(names, 0), "decode": dict.fromkeys(names, 0)}
+    ``model.decode_step`` separately, by wrapping the two on this instance;
+    ``calls`` counts the calls of each."""
+    counts = {"prefill": dict.fromkeys(names, 0), "decode": dict.fromkeys(names, 0),
+              "calls": {"prefill": 0, "decode": 0}}
 
-    def counted(fn, bucket):
+    def counted(fn, stage):
+        bucket = counts[stage]
+
         def call(*args, **kw):
             before = {n: ws[n].launches for n in names}
             out = fn(*args, **kw)
             for n in names:
                 bucket[n] += ws[n].launches - before[n]
+            counts["calls"][stage] += 1
             return out
         return call
 
-    model.prefill = counted(model.prefill, counts["prefill"])
-    model.decode_step = counted(model.decode_step, counts["decode"])
+    model.prefill = counted(model.prefill, "prefill")
+    model.decode_step = counted(model.decode_step, "decode")
     return counts
+
+
+def norms_per_call(cfg) -> int:
+    """K1 launches one prefill or decode step makes: every full-width
+    RMSNorm, its residual add fused in.  Dense: ln1 and ln2 of each layer
+    and the final norm (2L + 1); xLSTM: each block's pre-norm and inner
+    norm, each sLSTM block's ln_s2 and the final norm (103 at full width)."""
+    if cfg.family == "xlstm":
+        n_slstm = cfg.num_layers // cfg.slstm_every if cfg.slstm_every > 0 else 0
+        return 2 * cfg.num_layers + n_slstm + 1
+    return 2 * cfg.num_layers + 1
 
 
 def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
@@ -705,7 +814,14 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
         if launches[name] <= 0:
             fail(f"{arch}: kernel {name} was launched {launches[name]} times on the main path")
     log(f"{arch} launches on the main path (counters zeroed just before): {launches}")
-    log(f"{arch} launches by stage: prefill {stages['prefill']}, decode {stages['decode']}")
+    log(f"{arch} launches by stage: prefill {stages['prefill']}, decode {stages['decode']} "
+        f"({stages['calls']['prefill']} prefill and {stages['calls']['decode']} decode calls)")
+    for stage in ("prefill", "decode"):
+        calls, want = stages["calls"][stage], norms_per_call(cfg)
+        if not calls or stages[stage]["rmsnorm"] != calls * want:
+            fail(f"{arch}: {stages[stage]['rmsnorm']} rmsnorm launches in {calls} {stage} "
+                 f"calls, expected {want} per call")
+    log(f"{arch}: {norms_per_call(cfg)} rmsnorm launches per prefill and per decode call")
     if cfg.family == "xlstm":
         for stage in ("prefill", "decode"):
             for name in names:
@@ -804,9 +920,15 @@ def profile_rounds(srv, cfg, wrappers: dict, rounds: int = 4) -> dict:
             us = sum(v for k, v in dev_us.items() if any(p in k for p in KERNEL_NAMES[name]))
             kernels = sum(c for k, c in n_kernels.items()
                           if any(p in k for p in KERNEL_NAMES[name]))
-            if name == "decode_attention" and kernels != calls[name]:
+            # each decode-attention call is one launch: the profiler may
+            # deliver fewer activities than were launched (seen on the H100:
+            # 111 of 112), never more
+            if name == "decode_attention" and not 0 < kernels <= calls[name]:
                 fail(f"{label}: {calls[name]} decode_attention calls ran {kernels} kernels; "
                      "each call must be one launch")
+            if name == "decode_attention" and kernels < calls[name]:
+                log(f"profile, {label}: the profiler delivered {kernels} of "
+                    f"{calls[name]} decode_attention activities")
             if calls[name]:
                 path_ms.setdefault(name, {})[label] = us / 1e3 / calls[name]
                 log(f"profile, {label}: {name} {calls[name]} launches, device "
@@ -837,7 +959,7 @@ def _leaves(tree):
 
 
 REPLACES = {
-    "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
+    "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:70"),
@@ -882,7 +1004,11 @@ def main() -> None:
     secs = _build.build()
     log(f"built {sorted(secs)} in {time.monotonic() - t0:.1f} s (per source: "
         + ", ".join(f"{n} {s:.1f} s" for n, s in sorted(secs.items())) + ")")
-    ptxas_by_kernel(list(secs))
+    ptxas = ptxas_by_kernel(list(secs))
+    spilled = [k for k, _, spill in ptxas.get("rmsnorm", ())
+               if re.search(r"[1-9]\d* bytes spill", spill)]
+    if not ptxas.get("rmsnorm") or spilled:
+        fail(f"rmsnorm: no ptxas report, or instantiations that spill: {spilled}")
     hmma = sass_counts("flash_attention", "HMMA")
     for fn, count in hmma.items():
         log(f"SASS flash_attention {fn}: {count} HMMA")
@@ -916,9 +1042,11 @@ def main() -> None:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"], "wall_ms": r["wall_ms"],
+                        "host_ms": r["host_ms"],
                         "path_device_ms_per_launch": {a: p[name] for a, p in path_ms.items()
                                                       if name in p},
-                        **{k: r[k] for k in ("by_seq", "shapes", "variant", "cluster")
+                        **{k: r[k] for k in ("by_seq", "shapes", "variant", "cluster",
+                                             "torch_add_host_ms")
                            if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,9 @@ the generation gate) are copied, not imported.
   (prefill, decode) and ``Model``; :mod:`repro_torch.models.weights`
   carries a JAX parameter tree across as numpy;
 * :mod:`repro_torch.kernels` — the Hopper kernels that replace the Pallas
-  TPU kernels (flash attention, decode attention, the sLSTM scan and the
-  ragged concat in CUDA C++ under ``csrc/``, fused residual-add + RMSNorm
-  in Triton), each beside its plain PyTorch version;
+  TPU kernels (fused residual-add + RMSNorm, flash attention, decode
+  attention, the sLSTM scan and the ragged concat, all in CUDA C++ under
+  ``csrc/``), each beside its plain PyTorch version;
 * :mod:`repro_torch.runtime` — the continuous-batching ``InferenceServer``;
 * :mod:`repro_torch.launch.serve` — the serving entry point.
 

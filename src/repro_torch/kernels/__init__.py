@@ -1,6 +1,8 @@
 """Hopper kernels for the main path, each beside its plain PyTorch version.
 
-* ``rmsnorm`` — fused residual add + RMSNorm (Triton);
+* ``rmsnorm`` — fused residual add + RMSNorm, also the norm alone and
+  Gemma's ``1 + scale`` (CUDA C++, ``csrc/rmsnorm.cu``); every full-width
+  RMSNorm of both served models goes through it;
 * ``flash_attention`` — causal GQA prefill attention (CUDA C++,
   ``csrc/flash_attention.cu``);
 * ``decode_attention`` — one query per request against the KV cache,

@@ -7,6 +7,8 @@ other device raises.  Whether the process could see a GPU is never asked.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -38,8 +40,23 @@ def check_aligned(what: str, **tensors: torch.Tensor) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as an integer handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as an integer handle.
+
+    Read straight from PyTorch's C layer (as its own code generator does):
+    ``torch.cuda.current_stream`` builds a ``Stream`` object per call, a
+    host cost each kernel launch paid."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(t: torch.Tensor):
+    """A context in which ``t``'s card is the current device, for a launch:
+    nothing to enter when it already is, as on one card; a
+    ``torch.cuda.device`` switch otherwise."""
+    index = t.get_device()
+    return _CURRENT if index == torch.cuda.current_device() else torch.cuda.device(index)
 
 
 def check_launch(lib, code: int, what: str) -> None:

@@ -21,7 +21,8 @@ import functools
 import torch
 
 from .. import _build
-from .._device import KERNEL_DTYPES, check_aligned, check_launch, device_kind, stream_of
+from .._device import (KERNEL_DTYPES, check_aligned, check_launch, device_kind,
+                       on_device, stream_of)
 from .ref import decode_attention_ref
 
 __all__ = ["decode_attention", "decode_attention_ref", "decode_split_plan",
@@ -121,7 +122,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     pacc, pm, pl = part.split([rows * hd, rows, rows])    # acc first: 16-byte aligned
     stream = stream_of(q)
     tickets = _tickets(dev, stream, b * kvh)
-    with torch.cuda.device(dev):   # launch on the tensors' card
+    with on_device(q):   # launch on the tensors' card
         code = lib.decode_attention_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), tickets.data_ptr(),

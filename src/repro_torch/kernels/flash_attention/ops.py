@@ -20,7 +20,8 @@ import ctypes
 import torch
 
 from .. import _build
-from .._device import KERNEL_DTYPES, check_aligned, check_launch, device_kind, stream_of
+from .._device import (KERNEL_DTYPES, check_aligned, check_launch, device_kind,
+                       on_device, stream_of)
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_ref", "KERNEL_HEAD_DIMS"]
@@ -73,7 +74,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"scale {scale}: the bf16 kernel takes a positive scale")
         check_aligned("flash_attention", q=q, k=k, v=v, out=out)
     lib = _lib()
-    with torch.cuda.device(q.device):   # launch on the tensors' card
+    with on_device(q):   # launch on the tensors' card
         code = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             0 if q.dtype == torch.float32 else 1, b, h, kvh, sq, sk, hd,

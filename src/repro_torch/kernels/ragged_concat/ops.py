@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .._device import check_launch, device_kind, stream_of
+from .._device import check_launch, device_kind, on_device, stream_of
 from .ref import ragged_concat_ref
 
 __all__ = ["ragged_concat", "ragged_concat_ref", "KERNEL_DTYPES"]
@@ -62,7 +62,7 @@ def ragged_concat(src: torch.Tensor, lengths: torch.Tensor, *, capacity: int):
     total = torch.empty((), dtype=torch.int32, device=src.device)
     out = torch.empty((capacity, c), dtype=src.dtype, device=src.device)
     lib = _lib()
-    with torch.cuda.device(src.device):   # launch on the tensors' card
+    with on_device(src):   # launch on the tensors' card
         code = lib.ragged_concat_fwd(src.data_ptr(), lengths.data_ptr(),
                                      int(lengths.dtype == torch.int64), offsets.data_ptr(),
                                      total.data_ptr(), out.data_ptr(), n, lmax,

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .._device import KERNEL_DTYPES, check_launch, device_kind, stream_of
+from .._device import KERNEL_DTYPES, check_launch, device_kind, on_device, stream_of
 from .ref import slstm_scan_ref
 
 __all__ = ["slstm_scan", "slstm_scan_ref", "slstm_scan_plan", "cluster_plan", "Plan",
@@ -174,7 +174,7 @@ def slstm_scan(xg: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor, h0: tor
     hs = torch.empty((b, s, d), dtype=torch.float32, device=xg.device)
     out = torch.empty((4, b, d), dtype=torch.float32, device=xg.device)
     lib = _lib()
-    with torch.cuda.device(xg.device):   # launch on the tensors' card
+    with on_device(xg):   # launch on the tensors' card
         plan = slstm_scan_plan(b, d, nh, x_dtype=xg.dtype, w_dtype=w_hh.dtype,
                                device=xg.device)
         hbuf = torch.empty((2, b, d), dtype=torch.float32, device=xg.device) \

@@ -48,9 +48,9 @@ def make_requests(n: int, *, vocab: int, prompt_min: int, prompt_max: int, max_n
 
 
 def warmup(server: InferenceServer, vocab: int, prompt_len: int) -> None:
-    """One request of ``prompt_len`` tokens: loads the kernels, compiles the
-    Triton one and grows the allocator's pool, so the measured requests'
-    TTFT is not a build or an allocation."""
+    """One request of ``prompt_len`` tokens: builds and loads the kernels and
+    grows the allocator's pool, so the measured requests' TTFT is not a
+    build or an allocation."""
     server.submit(Request(rid="warmup", tokens=np.arange(prompt_len) % vocab, max_new=2))
     server.serve()
     server.results.pop("warmup", None)

@@ -12,8 +12,13 @@ plain versions instead):
 * decode attention -> in-place cache append + decode-attention kernel
   (:func:`.attention.decode_attention_append`), which also replaces the
   reference's top-level ``_cache_scatter``;
-* ``x = x + h; h2 = rms_norm(x, ln2)`` -> one fused residual-add + RMSNorm
-  kernel call.
+* every full-width RMSNorm, each with the residual add in front of it ->
+  one fused residual-add + RMSNorm kernel call: ``ln1`` takes the previous
+  layer's MLP output (layer 0's is the norm alone), ``ln2`` the attention
+  output, and the final norm the last layer's MLP output, so a call is
+  2L + 1 launches.  The layer loop therefore carries each layer's MLP
+  output into the next one un-added.  The per-head ``qk_norm`` stays the
+  plain ``rms_norm``.
 
 Serving state is updated in place where the reference's jit donates it:
 ``decode_step`` writes the new token's k/v into ``cache`` and bumps
@@ -141,19 +146,16 @@ def attn_block(p: dict, x: torch.Tensor, sin, cos, cfg: ModelConfig, *, cache=No
     return y, kv_out
 
 
-def layer_body(p: dict, x: torch.Tensor, sin, cos, cfg: ModelConfig, *, cache=None,
-               plain: bool = False):
-    h, kv_out = attn_block(
-        p["attn"],
-        rms_norm(x, p["ln1"]["scale"], cfg.norm_eps, gemma=cfg.gemma_norm),
-        sin, cos, cfg, cache=cache, plain=plain)
-    scale = p["ln2"]["scale"]
-    if cfg.gemma_norm:  # (1 + scale), formed in f32 as rms_norm(gemma=True) does
-        scale = 1.0 + scale.float()
+def layer_body(p: dict, x: torch.Tensor, m: torch.Tensor | None, sin, cos, cfg: ModelConfig,
+               *, cache=None, plain: bool = False):
+    """One layer on the residual stream ``x`` plus the previous layer's MLP
+    output ``m``, not yet added (None before layer 0).  Returns (x, m,
+    kv_out): the stream before this layer's MLP output, and that output."""
     norm = rmsnorm_ref if plain else fused_rmsnorm
-    h2, x = norm(h, x, scale, eps=cfg.norm_eps)
-    x = x + gated_mlp(p["mlp"], h2, act=cfg.mlp_act)
-    return x, kv_out
+    h1, x = norm(x, m, p["ln1"]["scale"], eps=cfg.norm_eps, gemma=cfg.gemma_norm)
+    h, kv_out = attn_block(p["attn"], h1, sin, cos, cfg, cache=cache, plain=plain)
+    h2, x = norm(x, h, p["ln2"]["scale"], eps=cfg.norm_eps, gemma=cfg.gemma_norm)
+    return x, gated_mlp(p["mlp"], h2, act=cfg.mlp_act), kv_out
 
 
 # ---------------------------------------------------------------------------
@@ -173,8 +175,12 @@ def _unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ table.to(x.dtype).T
 
 
-def _final_norm(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps, gemma=cfg.gemma_norm)
+def _final_norm(params: dict, x: torch.Tensor, m: torch.Tensor, cfg: ModelConfig,
+                plain: bool) -> torch.Tensor:
+    """rms_norm(x + m): the last layer's add fused into the final norm."""
+    norm = rmsnorm_ref if plain else fused_rmsnorm
+    return norm(x, m, params["final_norm"]["scale"], eps=cfg.norm_eps, gemma=cfg.gemma_norm,
+                want_residual=False)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -210,13 +216,14 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     sin, cos = rope_freqs(torch.arange(s, device=tokens.device), cfg.head_dim,
                           cfg.rope_theta)
     cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    m = None
     for i, p in enumerate(params["layers"]):
-        x, (k, v) = layer_body(p, x, sin, cos, cfg, plain=plain)
+        x, m, (k, v) = layer_body(p, x, m, sin, cos, cfg, plain=plain)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     cache["len"].fill_(s)
     # the norm is per position, so only the last one is computed
-    logits = _unembed(params, _final_norm(params, x[:, -1:], cfg), cfg)
+    logits = _unembed(params, _final_norm(params, x[:, -1:], m[:, -1:], cfg, plain), cfg)
     return logits, cache
 
 
@@ -231,9 +238,10 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfi
     sin, cos = rope_freqs(pos[:, None], cfg.head_dim, cfg.rope_theta)
     write_pos = pos.clamp(max=cache["k"].shape[2] - 1).long()
     lengths = pos + 1
+    m = None
     for i, p in enumerate(params["layers"]):
-        x, _ = layer_body(p, x, sin, cos, cfg, plain=plain,
-                          cache=(cache["k"][i], cache["v"][i], write_pos, lengths))
+        x, m, _ = layer_body(p, x, m, sin, cos, cfg, plain=plain,
+                             cache=(cache["k"][i], cache["v"][i], write_pos, lengths))
     cache["len"].add_(1)
-    logits = _unembed(params, _final_norm(params, x, cfg), cfg)
+    logits = _unembed(params, _final_norm(params, x, m, cfg, plain), cfg)
     return logits, cache

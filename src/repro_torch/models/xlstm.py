@@ -9,8 +9,11 @@ The mLSTM cell has no kernel in the reference either: it is plain torch
 (einsums, ``torch.cummax`` and a loop over chunks).  The sLSTM time
 recurrence goes through the sLSTM scan kernel
 (:func:`repro_torch.kernels.slstm_scan.ops.slstm_scan`) in prefill and in
-decode, as the reference's TPU branch does in prefill; ``plain=True``
-takes its plain version instead.
+decode, as the reference's TPU branch does in prefill.  Both blocks' inner
+norms go through the fused residual-add + RMSNorm kernel
+(:func:`repro_torch.kernels.rmsnorm.ops.fused_rmsnorm`), the mLSTM's with
+its ``hcell + conv * skip`` add fused in.  ``plain=True`` takes the
+kernels' plain versions instead.
 """
 
 from __future__ import annotations
@@ -18,9 +21,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 from repro_torch.kernels.slstm_scan.ops import slstm_scan, slstm_scan_ref
 
-from .common import ModelConfig, dense_init, rms_norm
+from .common import ModelConfig, dense_init
 
 __all__ = [
     "init_mlstm", "mlstm_block", "mlstm_decode", "init_mlstm_state", "mlstm_shapes",
@@ -152,7 +156,15 @@ def _mlstm_cell_chunked(q, k, v, i_gate, f_gate, chunk: int):
     return hcell, {"C": C, "n": n, "m": m}
 
 
-def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
+def _inner_norm(p: dict, y: torch.Tensor, r: torch.Tensor | None, cfg: ModelConfig,
+                plain: bool) -> torch.Tensor:
+    """rms_norm(y + r, norm_inner) (y alone when ``r`` is None), one kernel call."""
+    norm = rmsnorm_ref if plain else fused_rmsnorm
+    return norm(y, r, p["norm_inner"], eps=cfg.norm_eps, want_residual=False)[0]
+
+
+def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False,
+                plain: bool = False):
     """x: (B,S,D) -> (B,S,D) [, final recurrent state (C, n, m, conv)]."""
     b, s, d = x.shape
     di, h, dh = xlstm_dims(cfg)
@@ -165,8 +177,10 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: boo
     gates = conv.float() @ p["w_gates"]
     ig, fg = gates.split(h, dim=-1)
     hcell, st = _mlstm_cell_chunked(q, k, v, ig, fg, cfg.ssm_chunk)
-    y = hcell.reshape(b, s, di).to(x.dtype) + conv * p["skip"]
-    y = rms_norm(y, p["norm_inner"], cfg.norm_eps)
+    # hcell is a view of the chunk-padded cell output: its rows, the fused
+    # norm's input, are made contiguous (the bf16 cast already does that)
+    hc = hcell.reshape(b, s, di).to(x.dtype).contiguous()
+    y = _inner_norm(p, hc, conv * p["skip"], cfg, plain)
     y = y * F.silu(gate)
     out = y @ p["w_out"]
     if not return_state:
@@ -189,14 +203,16 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *,
     }
 
 
-def mlstm_decode(p: dict, x1: torch.Tensor, state: dict, cfg: ModelConfig):
+def mlstm_decode(p: dict, x1: torch.Tensor, state: dict, cfg: ModelConfig, *,
+                 plain: bool = False):
     """x1: (B,1,D).  O(1) recurrent step; returns (out (B,1,D), new state)."""
     b = x1.shape[0]
     di, h, dh = xlstm_dims(cfg)
     up = x1[:, 0] @ p["w_in"]
     gate, inner = up.split(di, dim=-1)
     win = torch.cat([state["conv"], inner[:, None].to(state["conv"].dtype)], 1)
-    conv = F.silu(torch.einsum("bkc,kc->bc", win, p["conv_w"]) + p["conv_b"])
+    # einsum leaves (B, C) transposed in memory; the fused norm reads rows
+    conv = F.silu(torch.einsum("bkc,kc->bc", win, p["conv_w"]) + p["conv_b"]).contiguous()
     q = _proj(conv, p["wq"]).float() * (dh ** -0.5)
     k = _proj(conv, p["wk"]).float()
     v = _proj(inner, p["wv"]).float()
@@ -213,8 +229,7 @@ def mlstm_decode(p: dict, x1: torch.Tensor, state: dict, cfg: ModelConfig):
     den = torch.maximum(torch.einsum("bhk,bhk->bh", q, n).abs(),
                         torch.exp(torch.clamp(-m_new, -60.0, 60.0)))
     hcell = num / den[..., None]
-    y = hcell.reshape(b, di).to(x1.dtype) + conv * p["skip"]
-    y = rms_norm(y, p["norm_inner"], cfg.norm_eps)
+    y = _inner_norm(p, hcell.reshape(b, di).to(x1.dtype), conv * p["skip"], cfg, plain)
     y = y * F.silu(gate)
     out = (y @ p["w_out"])[:, None]
     return out, {"C": C, "n": n, "m": m_new, "conv": win[:, 1:]}
@@ -271,7 +286,7 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, return_state: boo
     st0 = init_slstm_state(cfg, b, device=x.device)
     scan = slstm_scan_ref if plain else slstm_scan
     hs, (h, c, n, m) = scan(xg, p["w_hh"], p["b_ih"], st0["h"], st0["c"], st0["n"], st0["m"])
-    y = rms_norm(hs.to(x.dtype), p["norm_inner"], cfg.norm_eps)
+    y = _inner_norm(p, hs.to(x.dtype), None, cfg, plain)
     if not return_state:
         return y
     return y, {"h": h, "c": c, "n": n, "m": m}
@@ -293,5 +308,5 @@ def slstm_decode(p: dict, x1: torch.Tensor, state: dict, cfg: ModelConfig, *,
     scan = slstm_scan_ref if plain else slstm_scan
     _, (h, c, n, m) = scan(xg, p["w_hh"], p["b_ih"], state["h"], state["c"], state["n"],
                            state["m"])
-    y = rms_norm(h.to(x1.dtype), p["norm_inner"], cfg.norm_eps)
+    y = _inner_norm(p, h.to(x1.dtype), None, cfg, plain)
     return y[:, None], {"h": h, "c": c, "n": n, "m": m}

@@ -16,8 +16,14 @@ versions instead):
 * the sLSTM time recurrence -> the sLSTM scan kernel, once per sLSTM block
   in prefill (S = the prompt length) and in decode (S = 1, resuming from
   the slot states);
-* ``x = x + slstm_out; rms_norm(x, ln_s2)`` -> one fused residual-add +
-  RMSNorm kernel call.
+* every RMSNorm, each with the residual add in front of it -> one fused
+  residual-add + RMSNorm kernel call: each block's pre-norm (``ln_m``,
+  ``ln_s``) takes the previous block's output (block 0's is the norm
+  alone), ``ln_s2`` the sLSTM output and ``final_norm`` the last block's
+  output, so the stack carries each block's output into the next one
+  un-added; the blocks' inner norms go through the same kernel
+  (``xlstm.py``).  At full width a call is 103 launches: 48 pre-norms, 6
+  ``ln_s2``, the final norm and 48 inner norms.
 
 ``decode_step`` writes the new states into ``cache`` in place (where the
 reference's jit donates it) and returns the same dict.
@@ -29,7 +35,7 @@ import torch
 
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 
-from .common import ModelConfig, dense_init, rms_norm
+from .common import ModelConfig, dense_init
 from .mlp import gated_mlp
 from .xlstm import (
     init_mlstm,
@@ -138,68 +144,67 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return params
 
 
-def _slstm_tail(ps: dict, lns2: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
-                cfg: ModelConfig, plain: bool) -> torch.Tensor:
-    """``x = x + h; x = x + mlp(rms_norm(x, ln_s2))`` with the add and the
-    norm fused into one kernel call."""
-    norm = rmsnorm_ref if plain else fused_rmsnorm
-    h2, x = norm(h, x, lns2, eps=cfg.norm_eps)
-    return x + gated_mlp(ps["mlp"], h2, act="geglu")
-
-
 def _stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | None = None,
            collect: bool = False, plain: bool = False):
-    """Run all groups.  Decode (``cache`` given): each block steps its slot
-    states and writes them back into ``cache`` in place; returns (x, None).
-    Prefill with ``collect``: also returns every block's final recurrent
-    state, stacked into the ``init_cache`` layout (mlstm, slstm)."""
+    """Run all groups on the residual stream ``x``.  Each block's output is
+    carried un-added into the next norm, which adds it: returns (x, h,
+    states) with the last block's output ``h`` not yet added to ``x``.
+    Decode (``cache`` given): each block steps its slot states and writes
+    them back into ``cache`` in place; states is None.  Prefill with
+    ``collect``: states are every block's final recurrent state, stacked
+    into the ``init_cache`` layout (mlstm, slstm)."""
     ng, nm = _layout(cfg)
     has_s = cfg.slstm_every > 0
     b = x.shape[0]
     eps = cfg.norm_eps
+    norm = rmsnorm_ref if plain else fused_rmsnorm
     stm = [[None] * nm for _ in range(ng)]
     sts = [None] * ng
+    h = None
     for g in range(ng):
         for i in range(nm):
-            p, ln = _at(params["mlstm"], g, i), params["ln_m"]["scale"][g, i]
+            p = _at(params["mlstm"], g, i)
+            xn, x = norm(x, h, params["ln_m"]["scale"][g, i], eps=eps)
             if cache is not None:
                 leaves = cache["mlstm"]
-                h, st = mlstm_decode(p, rms_norm(x, ln, eps),
-                                     {k: v[g, i] for k, v in leaves.items()}, cfg)
+                h, st = mlstm_decode(p, xn, {k: v[g, i] for k, v in leaves.items()}, cfg,
+                                     plain=plain)
                 for k, v in st.items():
                     leaves[k][g, i].copy_(v)
             elif collect:
-                h, stm[g][i] = mlstm_block(p, rms_norm(x, ln, eps), cfg, return_state=True)
+                h, stm[g][i] = mlstm_block(p, xn, cfg, return_state=True, plain=plain)
             else:
-                h = mlstm_block(p, rms_norm(x, ln, eps), cfg)
-            x = x + h
+                h = mlstm_block(p, xn, cfg, plain=plain)
         if not has_s:
             sts[g] = init_slstm_state(cfg, b, device=x.device)
             continue
         ps = _at(params["slstm"], g)
-        lns, lns2 = params["ln_s"]["scale"][g], params["ln_s2"]["scale"][g]
+        xn, x = norm(x, h, params["ln_s"]["scale"][g], eps=eps)
         if cache is not None:
             leaves = cache["slstm"]
-            h, st = slstm_decode(ps, rms_norm(x, lns, eps),
-                                 {k: v[g] for k, v in leaves.items()}, cfg, plain=plain)
+            h, st = slstm_decode(ps, xn, {k: v[g] for k, v in leaves.items()}, cfg, plain=plain)
             for k, v in st.items():
                 leaves[k][g].copy_(v)
         else:
-            h, sts[g] = slstm_block(ps, rms_norm(x, lns, eps), cfg, return_state=True,
-                                    plain=plain)
-        x = _slstm_tail(ps, lns2, x, h, cfg, plain)
+            h, sts[g] = slstm_block(ps, xn, cfg, return_state=True, plain=plain)
+        # x = x + h; h = mlp(rms_norm(x, ln_s2)), the add fused into the norm
+        h2, x = norm(x, h, params["ln_s2"]["scale"][g], eps=eps)
+        h = gated_mlp(ps["mlp"], h2, act="geglu")
     if cache is not None or not collect:
-        return x, None
+        return x, h, None
     mlstm = {k: torch.stack([torch.stack([stm[g][i][k] for i in range(nm)])
                              for g in range(ng)]) for k in stm[0][0]}
     slstm = {k: torch.stack([sts[g][k] for g in range(ng)]) for k in sts[0]}
-    return x, (mlstm, slstm)
+    return x, h, (mlstm, slstm)
 
 
-def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+def _head(params: dict, x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig,
+          plain: bool) -> torch.Tensor:
+    """Logits of rms_norm(x + h): the last block's add fused into the final norm."""
+    norm = rmsnorm_ref if plain else fused_rmsnorm
+    xn, _ = norm(x, h, params["final_norm"]["scale"], eps=cfg.norm_eps, want_residual=False)
     table = params.get("lm_head", params["tok_embed"])
-    return x @ table.T
+    return xn @ table.T
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -246,9 +251,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     grow with the sequence."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
-    x, (mlstm, slstm) = _stack(params, x, cfg, collect=True, plain=plain)
+    x, h, (mlstm, slstm) = _stack(params, x, cfg, collect=True, plain=plain)
     # the norm is per position, so only the last one is computed
-    logits = _head(params, x[:, -1:], cfg)
+    logits = _head(params, x[:, -1:], h[:, -1:], cfg, plain)
     return logits, {"mlstm": mlstm, "slstm": slstm,
                     "len": torch.full((b,), s, dtype=torch.int32, device=tokens.device)}
 
@@ -270,6 +275,6 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfi
     """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache), with
     ``cache`` updated in place and returned."""
     x = _embed(params, tokens, cfg)
-    x, _ = _stack(params, x, cfg, cache=cache, plain=plain)
+    x, h, _ = _stack(params, x, cfg, cache=cache, plain=plain)
     cache["len"].add_(1)
-    return _head(params, x, cfg), cache
+    return _head(params, x, h, cfg, plain), cache

@@ -166,14 +166,82 @@ def test_flash_attention_f32_takes_unaligned_views(dev):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("rows", [4, 384, 37])
-def test_rmsnorm_kernel_matches_plain(dev, rows, dt):
-    x, r = _randn(dev, rows, 1536, dt=dt, seed=7), _randn(dev, rows, 1536, dt=dt, seed=8)
-    sc = _randn(dev, 1536, dt=torch.float32, seed=9)
+@pytest.mark.parametrize("d", [48, 52, 1536, 2048, 4096])
+@pytest.mark.parametrize("rows", [1, 4, 37, 384])
+@pytest.mark.parametrize("residual,gemma,want", [
+    (True, False, True), (False, False, True), (False, True, False), (True, True, True),
+    (True, False, False),
+], ids=["add", "norm", "norm-gemma-no-out", "add-gemma", "add-no-out"])
+def test_rmsnorm_kernel_matches_plain(dev, residual, gemma, want, rows, d, dt):
+    """Every mode the models call (the add + norm; the norm alone, as the
+    blocks' inner norms and layer 0's ln1; Gemma's ``1 + scale``; no
+    residual output, as the final and the mLSTM inner norms) at the paths'
+    widths (1536 qwen2, 2048 xlstm, 4096 the mLSTM's inner norm) and the
+    smoke configs' (48); D = 52 is no multiple of the 16-byte vector and
+    takes the scalar instantiation.  One launch per call."""
+    x = _randn(dev, rows, d, dt=dt, seed=7)
+    r = _randn(dev, rows, d, dt=dt, seed=8) if residual else None
+    sc = _randn(dev, d, dt=torch.float32, seed=9)
+    n = fused_rmsnorm.launches
+    y, h = fused_rmsnorm(x, r, sc, gemma=gemma, want_residual=want)
+    assert fused_rmsnorm.launches == n + 1
+    yr, hr = rmsnorm_ref(x, r, sc, gemma=gemma, want_residual=want)
+    torch.testing.assert_close(y.float(), yr.float(), atol=_tol(dt), rtol=_tol(dt))
+    if not want:
+        assert h is None and hr is None
+    elif not residual:
+        assert h is x
+    else:
+        torch.testing.assert_close(h.float(), hr.float(), atol=_tol(dt), rtol=_tol(dt))
+
+
+def test_device_helpers_follow_the_current_stream(dev):
+    """``stream_of`` reads the raw handle of the current stream (a side
+    stream too), and ``on_device`` leaves the device current."""
+    from repro_torch.kernels._device import on_device, stream_of
+
+    t = torch.zeros(4, device=dev)
+    assert stream_of(t) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert stream_of(t) == side.cuda_stream
+        with on_device(t):
+            assert torch.cuda.current_device() == t.device.index
+        x, r = _randn(dev, 4, 2048, dt=torch.bfloat16, seed=23), t.new_zeros(4, 2048)
+        y, _ = fused_rmsnorm(x, r.bfloat16(), torch.ones(2048, device=dev))
+    side.synchronize()
+    torch.testing.assert_close(y.float(), rmsnorm_ref(x, None, torch.ones(2048, device=dev))[0]
+                               .float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_rmsnorm_kernel_strided_and_unaligned(dev, dt):
+    """Views the model hands over: prefill's last position of (B, S, D)
+    (rows strided by S * D, normed in place of a copy); a view offset by one
+    element (unaligned: the scalar instantiation); a scale that is a row of
+    a stacked (ng, nm, d) leaf with 4 * d not a multiple of 16."""
+    base = _randn(dev, 3, 17, 1536, dt=dt, seed=17)
+    res = _randn(dev, 3, 17, 1536, dt=dt, seed=18)
+    sc = _randn(dev, 1536, dt=torch.float32, seed=19)
+    x, r = base[:, -1:], res[:, -1:]
     y, h = fused_rmsnorm(x, r, sc)
-    yr, hr = rmsnorm_ref(x, r, sc)
+    yr, hr = rmsnorm_ref(x.contiguous(), r.contiguous(), sc)
+    assert y.shape == h.shape == (3, 1, 1536) and y.is_contiguous()
     torch.testing.assert_close(y.float(), yr.float(), atol=_tol(dt), rtol=_tol(dt))
     torch.testing.assert_close(h.float(), hr.float(), atol=_tol(dt), rtol=_tol(dt))
+    flat = _randn(dev, 4 * 2048 + 1, dt=dt, seed=20)
+    xu = flat[1:].view(4, 2048)
+    y, h = fused_rmsnorm(xu, xu.flip(0), sc.repeat(2)[:2048])
+    yr, hr = rmsnorm_ref(xu, xu.flip(0), sc.repeat(2)[:2048])
+    torch.testing.assert_close(y.float(), yr.float(), atol=_tol(dt), rtol=_tol(dt))
+    torch.testing.assert_close(h.float(), hr.float(), atol=_tol(dt), rtol=_tol(dt))
+    stacked = _randn(dev, 2, 3, 50, dt=torch.float32, seed=21)
+    x50 = _randn(dev, 4, 50, dt=dt, seed=22)
+    y, _ = fused_rmsnorm(x50, None, stacked[1, 2])
+    yr, _ = rmsnorm_ref(x50, None, stacked[1, 2])
+    torch.testing.assert_close(y.float(), yr.float(), atol=_tol(dt), rtol=_tol(dt))
+    with pytest.raises(ValueError, match="evenly strided"):
+        fused_rmsnorm(base[:, ::2], None, sc)          # rows of two strides
 
 
 @pytest.mark.parametrize("variants", [{}, dict(qk_norm=True, gemma_norm=True,
@@ -201,7 +269,8 @@ def test_model_kernel_path_matches_plain_path(dev, variants):
         lp, cp = plain.decode_step(params, cp, nxt)
         torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
     assert torch.equal(ck["len"], cp["len"])
-    assert fused_rmsnorm.launches - norms0 == 5 * cfg.num_layers   # prefill + 4 steps
+    # ln1, ln2 and the final norm, each fused with its residual add: 2L + 1 per call
+    assert fused_rmsnorm.launches - norms0 == 5 * (2 * cfg.num_layers + 1)   # prefill + 4 steps
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -394,4 +463,5 @@ def test_xlstm_kernel_path_matches_plain_path(dev, every):
             torch.testing.assert_close(v, cp[part][k], atol=1e-4, rtol=1e-4, msg=k)
     groups = cfg.num_layers // every
     assert slstm_scan.launches - scans0 == 5 * groups      # prefill + 4 steps
-    assert fused_rmsnorm.launches - norms0 == 5 * groups
+    # every block's pre-norm and inner norm, each sLSTM block's ln_s2, the final norm
+    assert fused_rmsnorm.launches - norms0 == 5 * (2 * cfg.num_layers + groups + 1)

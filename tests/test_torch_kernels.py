@@ -4,7 +4,7 @@ held against the JAX reference's Pallas kernels (interpret mode) and its
 ``tests/test_kernels.py``; plus the wrappers' dispatch and input checks.
 
 Tolerances are those of ``tests/test_kernels.py``: 3e-5 for f32, 2e-2 for
-bf16.  The CUDA/Triton kernels themselves run only on the card
+bf16.  The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
 
 from pathlib import Path
@@ -20,6 +20,7 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ops import flash_attention_ref as jax_flash_ref
 from repro.kernels.rmsnorm.ops import fused_rmsnorm as jax_rmsnorm
 from repro.kernels.rmsnorm.ops import rmsnorm_ref as jax_rmsnorm_ref
+from repro.models.common import rms_norm as jax_rms_norm
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
@@ -146,23 +147,55 @@ def test_decode_attention_length_above_cache(dt):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("want", [True, False], ids=["residual-out", "no-residual-out"])
+@pytest.mark.parametrize("residual,gemma", [(True, False), (True, True), (False, False),
+                                            (False, True)],
+                         ids=["add", "add-gemma", "norm", "norm-gemma"])
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("shape", [(2, 37, 64), (1, 256, 128), (5, 3, 32), (4, 1, 1536)])
-def test_rmsnorm_plain_matches_jax(shape, dt):
+@pytest.mark.parametrize("shape", [(2, 37, 64), (1, 256, 128), (5, 3, 32), (4, 1, 1536),
+                                   (3, 5, 48), (3, 5, 52), (3, 5, 2048)])
+def test_rmsnorm_plain_matches_jax(shape, dt, residual, gemma, want):
+    """Every mode the models call: the add + norm (the Pallas kernel's
+    function), the norm alone and Gemma's ``1 + scale`` (the reference's
+    ``rms_norm`` on the f32 sum), with and without the residual output.
+    D = 52 is no multiple of the kernel's 16-byte vector."""
     rng = np.random.default_rng(sum(shape))
     jx, tx = _both(rng.standard_normal(shape, np.float32), dt)
     jr, tr = _both(rng.standard_normal(shape, np.float32), dt)
     sc = rng.standard_normal(shape[-1:], np.float32)
-    y, h = fused_rmsnorm(tx, tr, torch.from_numpy(sc), eps=1e-6)
-    yr, hr = rmsnorm_ref(tx, tr, torch.from_numpy(sc), eps=1e-6)
-    assert torch.equal(y, yr) and torch.equal(h, hr)
-    assert y.dtype == h.dtype == DTYPES[dt][1]
-    jy, jh = jax_rmsnorm(jx, jr, jnp.asarray(sc), block_rows=16)
-    _close(y, jy, dt)
-    _close(h, jh, dt)
-    jy, jh = jax_rmsnorm_ref(jx, jr, jnp.asarray(sc))
-    _close(y, jy, dt)
-    _close(h, jh, dt)
+    r = tr if residual else None
+    kw = dict(eps=1e-6, gemma=gemma, want_residual=want)
+    y, h = fused_rmsnorm(tx, r, torch.from_numpy(sc), **kw)
+    yr, hr = rmsnorm_ref(tx, r, torch.from_numpy(sc), **kw)
+    assert torch.equal(y, yr) and y.dtype == DTYPES[dt][1] and y.shape == shape
+    if not want:
+        assert h is None and hr is None
+    elif not residual:
+        assert h is tx and hr is tx
+    else:
+        assert torch.equal(h, hr) and h.dtype == DTYPES[dt][1]
+    jh = jx.astype(jnp.float32) + jr.astype(jnp.float32) if residual else jx
+    _close(y, jax_rms_norm(jh, jnp.asarray(sc), 1e-6, gemma=gemma).astype(DTYPES[dt][0]), dt)
+    if not residual or gemma:
+        return
+    for jy, jhk in (jax_rmsnorm(jx, jr, jnp.asarray(sc), block_rows=16),
+                    jax_rmsnorm_ref(jx, jr, jnp.asarray(sc))):
+        _close(y, jy, dt)
+        if want:
+            _close(h, jhk, dt)
+
+
+def test_rmsnorm_norm_only_equals_model_rms_norm():
+    """The plain version's norm alone is the port's ``models.common.rms_norm``
+    bit for bit, with and without ``gemma``, which it replaces on the paths."""
+    from repro_torch.models.common import rms_norm
+
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((4, 6, 96), np.float32))
+    sc = torch.from_numpy(np.random.default_rng(2).standard_normal((96,), np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        for gemma in (False, True):
+            y, _ = rmsnorm_ref(x.to(dt), None, sc, gemma=gemma)
+            assert torch.equal(y, rms_norm(x.to(dt), sc, 1e-6, gemma=gemma))
 
 
 # ---------------------------------------------------------------------------
@@ -209,13 +242,19 @@ def test_wrappers_reject_bad_inputs():
         fused_rmsnorm(torch.zeros(2, 8), torch.zeros(3, 8), torch.ones(8))
     with pytest.raises(ValueError, match="scale"):
         fused_rmsnorm(torch.zeros(2, 8), torch.zeros(2, 8), torch.ones(4))
+    with pytest.raises(ValueError, match="scale"):
+        fused_rmsnorm(torch.zeros(2, 8), None, torch.ones(4))
+    with pytest.raises(TypeError, match="the same for both"):
+        fused_rmsnorm(torch.zeros(2, 8), torch.zeros(2, 8, dtype=torch.bfloat16), torch.ones(8))
+    with pytest.raises(TypeError):
+        fused_rmsnorm(torch.zeros(2, 8, dtype=torch.float16), None, torch.ones(8))
 
 
 def test_kernel_build_layout():
     """Each CUDA source builds into its own library under the ignored
     ``build/`` directory, named by a hash of the source and flags."""
     assert _build.sources() == ["decode_attention", "flash_attention", "ragged_concat",
-                                "slstm_scan"]
+                                "rmsnorm", "slstm_scan"]
     for name in _build.sources():
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces the Pallas TPU kernel" in src and "What bounds it" in src

@@ -26,6 +26,7 @@ from repro.models import ModelConfig as JaxModelConfig
 from repro_torch.configs import get_config, get_smoke_config, model_100m
 from repro_torch.models import Model, ModelConfig
 from repro_torch.models.transformer import param_shapes
+from repro_torch.kernels.rmsnorm.ops import _row_stride
 from repro_torch.models.weights import params_from_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -89,6 +90,43 @@ def test_prefill_and_greedy_decode_match_jax(pair):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
         np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(jc["len"]))
     assert int(tc["len"][0]) == 13 + 8
+
+
+@pytest.mark.parametrize("case", ["qwen2-1.5b-smoke", "dense-variants-100m-2L"])
+def test_every_norm_goes_through_fused_rmsnorm(case, monkeypatch):
+    """The fusion plan, pinned on the CPU: one prefill and one decode step
+    each call ``fused_rmsnorm`` 2L + 1 times (ln1, ln2, the final norm; all
+    but layer 0's ln1 with the residual add fused in) and the plain
+    ``rms_norm`` only for the per-head ``qk_norm``."""
+    from repro_torch.models import transformer
+
+    cfg = CASES[case][1]()
+    m = Model(cfg, device="cpu")
+    params = m.init(0)
+    calls = {"fused": [], "rms_norm": 0}
+    fused, plain_norm = transformer.fused_rmsnorm, transformer.rms_norm
+
+    def counted(x, residual, scale, **kw):
+        # every input is rows the kernel reads on the card (raises otherwise)
+        for t in (x, residual) if residual is not None else (x,):
+            _row_stride(t, t.shape[-1], "input")
+        calls["fused"].append(residual is not None)
+        return fused(x, residual, scale, **kw)
+
+    def counted_rms_norm(*args, **kw):
+        calls["rms_norm"] += 1
+        return plain_norm(*args, **kw)
+
+    monkeypatch.setattr(transformer, "fused_rmsnorm", counted)
+    monkeypatch.setattr(transformer, "rms_norm", counted_rms_norm)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9)))
+    logits, cache = m.prefill(params, {"tokens": toks}, max_seq=16)
+    n = cfg.num_layers
+    assert len(calls["fused"]) == 2 * n + 1
+    assert calls["fused"].count(False) == 1           # layer 0's ln1: the norm alone
+    m.decode_step(params, cache, logits[:, -1].argmax(-1, keepdim=True))
+    assert len(calls["fused"]) == 2 * (2 * n + 1)
+    assert calls["rms_norm"] == (4 * n if cfg.qk_norm else 0)
 
 
 def test_config_mirrors_reference():
@@ -160,7 +198,8 @@ def test_model_without_device_does_not_fall_back_to_cpu():
 
 
 def test_port_sources_import_no_jax_or_reference():
-    """No file of the port, nor chip_smoke.py, imports jax or ``repro``."""
+    """No file of the port, nor chip_smoke.py, imports jax or ``repro``; nor,
+    since every kernel is CUDA C++, ``triton``."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     for path in files:
@@ -168,7 +207,7 @@ def test_port_sources_import_no_jax_or_reference():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1]
-                assert mod.split(".")[0] not in ("jax", "jaxlib", "repro", "flax"), \
+                assert mod.split(".")[0] not in ("jax", "jaxlib", "repro", "flax", "triton"), \
                     f"{path.relative_to(ROOT)}: {s}"
 
 

@@ -29,6 +29,7 @@ from repro.models import xlstm_model as jxm
 from repro_torch.configs import get_config, get_smoke_config, model_100m
 from repro_torch.models import Model
 from repro_torch.models import xlstm_model as xm
+from repro_torch.kernels.rmsnorm.ops import _row_stride
 from repro_torch.models.weights import params_from_numpy
 from repro_torch.runtime import InferenceServer, Request
 
@@ -115,6 +116,48 @@ def test_parallel_prefill_matches_sequential_replay(pair):
     torch.testing.assert_close(lp, ls, atol=1e-4, rtol=1e-4)
     for k, v in _leaves(cp).items():
         torch.testing.assert_close(v, _leaves(cs)[k], atol=1e-4, rtol=1e-4, msg=k)
+
+
+def _norm_calls(cfg) -> int:
+    """K1 calls per prefill or decode step: each block's pre-norm and inner
+    norm, each sLSTM block's ln_s2, and the final norm."""
+    ng, nm = xm._layout(cfg)
+    n_slstm = ng if cfg.slstm_every > 0 else 0
+    return 2 * cfg.num_layers + n_slstm + 1
+
+
+@pytest.mark.parametrize("overrides", list(CASES.values()), ids=list(CASES))
+def test_every_norm_goes_through_fused_rmsnorm(overrides, monkeypatch):
+    """The fusion plan, pinned on the CPU: one prefill and one decode step
+    each call ``fused_rmsnorm`` blocks + sLSTM blocks + 1 + inner norms
+    times, 103 at full width; no other RMSNorm runs."""
+    from repro_torch.models import xlstm as xl
+
+    cfg = get_smoke_config(ARCH).scaled(**overrides)
+    m = Model(cfg, device="cpu")
+    params = m.init(0)
+    calls = []
+    fused = xm.fused_rmsnorm
+
+    def counted(x, residual, scale, **kw):
+        # every input is rows the kernel reads on the card (raises otherwise)
+        for t in (x, residual) if residual is not None else (x,):
+            _row_stride(t, t.shape[-1], "input")
+        calls.append(residual is not None)
+        return fused(x, residual, scale, **kw)
+
+    monkeypatch.setattr(xm, "fused_rmsnorm", counted)
+    monkeypatch.setattr(xl, "fused_rmsnorm", counted)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9)))
+    logits, cache = m.prefill(params, {"tokens": toks})
+    ng, _ = xm._layout(cfg)
+    assert len(calls) == _norm_calls(cfg)
+    # the norm alone: block 0's pre-norm and each sLSTM block's inner norm
+    assert calls.count(False) == 1 + ng
+    m.decode_step(params, cache, logits[:, -1].argmax(-1, keepdim=True))
+    assert len(calls) == 2 * _norm_calls(cfg)
+    assert not hasattr(xm, "rms_norm") and not hasattr(xl, "rms_norm")
+    assert _norm_calls(get_config(ARCH)) == 103
 
 
 def test_config_mirrors_reference():
