@@ -5,7 +5,7 @@
 
 Drives the port's main paths (the serving plane's model step, for the
 dense and the xLSTM families) on the GPU, never the JAX reference
-package, in seven phases; any failed phase exits non-zero before the
+package, in eight phases; any failed phase exits non-zero before the
 final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
@@ -41,6 +41,15 @@ final line:
 7. full-width xlstm-1.3b in bf16: serve unsized requests, as in 5 (103
    fused norms a call), and check that the sLSTM scan and the fused norm
    ran in prefill and decode.
+8. the serving fleet (``repro_torch.launch.fleet``): two replica processes
+   of full-width qwen2-1.5b in bf16 on the one card, fed 16 unsized
+   request messages through the shared-memory planes, once as they are and
+   once with replica 1 killed after its first result chunk; each run must
+   complete every request exactly once with whole streams and the tokens
+   of one in-process server on the same weights, and every replica must
+   report, through the metrics plane, a ``cuda`` device and launches of
+   the fused norm, flash attention and decode attention (its counts zeroed
+   after its prewarm, so they count the fleet's requests only).
 
 It prints a ``{"kernels": [...]}`` line and ends with one JSON line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -864,6 +873,76 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
     return {n: launches[n] for n in names}, path_ms
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serving fleet
+# ---------------------------------------------------------------------------
+
+FLEET_ARCH, FLEET_REPLICAS, FLEET_REQUESTS = "qwen2-1.5b", 2, 16
+
+
+def phase_fleet(dev) -> dict:
+    """Two fleet runs (no fault, then one replica killed) against one
+    in-process server; returns the first run's launches summed over the
+    replicas."""
+    from repro_torch.launch import fleet
+    from repro_torch.serving.replica import model_config
+
+    names = PATH_KERNELS[FLEET_ARCH]
+    model_kwargs = dict(arch=FLEET_ARCH, size="full", device=dev.type)
+    cfg, _ = model_config(model_kwargs)
+    reqs = fleet.fleet_requests(cfg, FLEET_REQUESTS, max_new=MAX_NEW, max_seq=MAX_SEQ,
+                                seed=SEED)
+    prompts = {r.rid: r.tokens for r in reqs}
+    t0 = time.monotonic()
+    want = fleet.serve_in_process(model_kwargs, prompts, max_new=MAX_NEW, slots=SLOTS,
+                                  max_seq=MAX_SEQ)
+    log(f"fleet: in-process server, {len(want)} requests, in {time.monotonic() - t0:.1f} s")
+    launches = None
+    for kill in (False, True):
+        what = "kill-one run" if kill else "run"
+        out = fleet.run(arch=FLEET_ARCH, size="full", replicas=FLEET_REPLICAS,
+                        requests=FLEET_REQUESTS, max_new=MAX_NEW, slots=SLOTS, max_seq=MAX_SEQ,
+                        seed=SEED, kill_one=kill, device=dev.type)
+        if not fleet.exactly_once(out):
+            fail(f"fleet {what}: not exactly once: missing {out['missing']}, bad streams "
+                 f"{out['bad_streams']}, completions {out['completions']}, "
+                 f"collector {out['collector']}")
+        bad = sorted(rid for rid in want if out["tokens"].get(rid) != want[rid])
+        if bad:
+            fail(f"fleet {what}: tokens differ from the in-process server for {bad}")
+        if kill and (out["killed"] is None or not out["replays"]
+                     or out["dead"] != [out["killed"]]):
+            fail(f"fleet {what}: killed {out['killed']}, dead {out['dead']}, "
+                 f"replays {out['replays']}")
+        metrics = out["replica_metrics"]
+        if sorted(metrics) != list(range(FLEET_REPLICAS)):
+            fail(f"fleet {what}: metrics from replicas {sorted(metrics)}")
+        for shard, m in sorted(metrics.items()):
+            if not str(m["device"]).startswith("cuda") or \
+                    any(m["launches"].get(n, 0) <= 0 for n in names):
+                fail(f"fleet {what}: replica {shard} reports device {m['device']}, "
+                     f"launches {m['launches']}")
+        log(f"fleet {what}: {FLEET_REPLICAS} replicas of {FLEET_ARCH} (full, bf16), "
+            f"{out['requests']} requests, prompts {fleet.PROMPT_MIN}-{fleet.PROMPT_MAX}, max_new "
+            f"{MAX_NEW}, slots {SLOTS}, round tick {out['round_period_s']} s: every rid "
+            f"once, streams whole, tokens equal to the in-process server; replicas ready "
+            f"in {out['ready_s']:.1f} s; killed {out['killed']}, replays {out['replays']}, "
+            f"collector {out['collector']}, declared dead {out['death_evidence']}")
+        log(f"fleet {what}: {out['generated_tokens']} tokens in {out['wall_s']:.3f} s = "
+            f"{out['tokens_per_s']:.2f} tok/s")
+        log(f"fleet {what}: client TTFT ms by prompt length: "
+            + json.dumps([[n, round(ms, 3)] for n, ms in out["ttft_ms"]]))
+        log(f"fleet {what}: publish-to-take us by request message bytes: "
+            + json.dumps([[b, round(us, 1)] for b, us in out["pub_take_us"]]))
+        for shard, m in sorted(metrics.items()):
+            log(f"fleet {what}: replica {shard} on {m['device']}: launches {m['launches']}, "
+                f"peak device memory {m['peak_mem_bytes'] / 2**30:.3f} GiB")
+        if launches is None:
+            launches = {n: sum(m["launches"].get(n, 0) for m in metrics.values())
+                        for n in names}
+    return launches
+
+
 # the CUDA kernels each wrapper launches, by name as the profiler shows them
 KERNEL_NAMES = {"rmsnorm": ("rmsnorm_fwd",), "flash_attention": ("flash_fwd",),
                 "decode_attention": ("decode_fwd",),
@@ -1030,6 +1109,9 @@ def main() -> None:
         if out is not None:
             launches[arch], path_ms[arch] = out
         log(f"phase {n} ({what}, {arch}) done in {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    launches[f"fleet {FLEET_ARCH}"] = phase_fleet(dev)
+    log(f"phase 8 (serving fleet, {FLEET_ARCH}) done in {time.monotonic() - t0:.1f} s")
 
     kernels = []
     for name, (route, source, replaces) in REPLACES.items():

@@ -16,10 +16,10 @@ from .common import ModelConfig
 __all__ = ["Model", "resolve_device"]
 
 _NOT_PORTED = {
-    "moe": "ROADMAP.md Queue 1 item 5 (MoE family)",
-    "zamba2": "ROADMAP.md Queue 1 item 7 (Mamba2 / Zamba2)",
-    "whisper": "ROADMAP.md Queue 1 item 8 (Whisper and mLLaMA)",
-    "mllama": "ROADMAP.md Queue 1 item 8 (Whisper and mLLaMA)",
+    "moe": "ROADMAP.md Queue 1 item 4 (MoE family)",
+    "zamba2": "ROADMAP.md Queue 1 item 5 (Mamba2 / Zamba2)",
+    "whisper": "ROADMAP.md Queue 1 item 6 (Whisper and mLLaMA)",
+    "mllama": "ROADMAP.md Queue 1 item 6 (Whisper and mLLaMA)",
 }
 _FAMILIES = {"dense": transformer, "xlstm": xlstm_model}
 

@@ -1,3 +1,3 @@
-from .server import InferenceServer, Request, Result
+from .server import InferenceServer, Request, Result, attach_serving_executor
 
-__all__ = ["InferenceServer", "Request", "Result"]
+__all__ = ["InferenceServer", "Request", "Result", "attach_serving_executor"]
