@@ -5,15 +5,17 @@
 
 Drives the port's main paths (the serving plane's model step, for the
 dense and the xLSTM families) on the GPU, never the JAX reference
-package, in eight phases; any failed phase exits non-zero before the
+package, in fourteen phases; any failed phase exits non-zero before the
 final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together), report the build time and each kernel's
-   registers, shared memory and spills (the fused norm's instantiations
-   must spill nothing), and count the tensor-core instructions (``HMMA``)
-   in the built flash-attention library: the bf16 kernels must have some;
+   registers, shared memory and spills (the fused norm's instantiations,
+   and the head-dim-256 ones of flash and decode attention, must spill
+   nothing), and count the tensor-core instructions (``HMMA``) in the
+   built flash-attention library: the bf16 kernels must have some,
+   ``flash_fwd_mma<256>`` included;
 3. hold each kernel (K1-K5) against its plain PyTorch version on the card
    at the main paths' shapes plus ragged ones and the attention kernels'
    tile and split edges, in f32 and bf16 (K1 in every mode the models call:
@@ -21,7 +23,10 @@ final line:
    without the residual output, on strided and unaligned rows), and time
    kernel, plain version and the nearest PyTorch library call (flash
    attention at S = 16, 100, 384 and 1024), and each wrapper's host time
-   per call (K1's beside one ``torch.add``); the K4 and K5 windows are
+   per call (K1's beside one ``torch.add``); K2 and K3 also at head dim
+   256 with G = 8 over KV = 1 (gemma-2b: the tile and split edges, prefill
+   S = 16, 100 and 384, decode over 4 slots), and K1 on qk_norm's rows of
+   128 beside ``F.rms_norm``; the K4 and K5 windows are
    also printed by kernel name,
    K4 must be one kernel per call, and K5 is timed at the admission
    path's S = 16, 100 and 384, at decode's B = 4 S = 1 warm and with L2
@@ -49,7 +54,10 @@ final line:
    of one in-process server on the same weights, and every replica must
    report, through the metrics plane, a ``cuda`` device and launches of
    the fused norm, flash attention and decode attention (its counts zeroed
-   after its prewarm, so they count the fleet's requests only).
+   after its prewarm, so they count the fleet's requests only);
+9-14. full-width gemma-2b, llama3-8b and qwen3-8b, each in f32 (kernel
+   path against plain path, as in 4) and in bf16 (served as in 5: 37, 65
+   and 145 fused norms a call, qwen3's qk_norm included).
 
 It prints a ``{"kernels": [...]}`` line and ends with one JSON line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -67,6 +75,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.monotonic()
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the least-time bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -443,9 +452,104 @@ def phase_kernels(dev) -> dict:
     log_timings(f"decode_attention bf16 B=4 H=12 KV=2 S=512 hd=128 lens={lens}", t, "SDPA")
     report["decode_attention"] = {"max_abs_err": errs[("bfloat16", tuple(lens))],
                                   "shape": f"B=4 H=12 KV=2 S=512 hd=128 lens={lens} bf16", **t}
+    flash256, decode256 = phase_attention_hd256(dev, rnd, dts)
+    report["flash_attention"]["hd256"] = flash256
+    report["decode_attention"]["hd256"] = decode256
     report.update(phase_slstm_scan(dev, rnd, dts))
     report.update(phase_ragged_concat(dev, gen))
     return report
+
+
+def phase_attention_hd256(dev, rnd, dts) -> tuple[dict, dict]:
+    """K2 and K3 at gemma-2b's head dim 256, G = 8 query heads over KV = 1,
+    in f32 and bf16 against their plain versions: every tile edge
+    (causal or not) and the prefill path's S = 16, 100 and 384; every split
+    edge and decode's 4 slots at lengths 397/250/130/17 over a 512-position
+    cache.  Timed in bf16 beside SDPA (``enable_gqa``; with a mask for
+    decode) and the bound.  Returns the bf16 timings, by shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from _attention_edges import (DECODE_SHAPES_GEMMA, GEMMA_G, GEMMA_HD, GEMMA_KV,
+                                  decode_edge_lens, flash_edge_cases_gemma)
+
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_attention_ref,
+                                                          decode_split_plan)
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
+
+    g, kv, hd = GEMMA_G, GEMMA_KV, GEMMA_HD
+    h = g * kv
+
+    def qkv(b, sq, sk, dt):
+        return (rnd(b, sq, h, hd, dt=dt).transpose(1, 2), rnd(b, sk, kv, hd, dt=dt).transpose(1, 2),
+                rnd(b, sk, kv, hd, dt=dt).transpose(1, 2))
+
+    worst = {}
+    for dname, dt in dts.items():
+        cases = [(sq, sk, b, c) for sq, sk, _, b, _ in flash_edge_cases_gemma()
+                 for c in (True, False)] + [(s, s, 1, True) for s in (16, 100, 384)]
+        for sq, sk, b, causal in cases:
+            q, k, v = qkv(b, sq, sk, dt)
+            e = check_close(f"flash {dname} hd=256 G=8 KV=1 B={b} Sq={sq} Sk={sk} "
+                            f"causal={causal}", flash_attention(q, k, v, causal=causal),
+                            flash_attention_ref(q, k, v, causal=causal), dname)
+            worst[("flash", dname)] = max(worst.get(("flash", dname), 0.0), e)
+        log(f"flash_attention {dname} hd=256 G=8 KV=1: {len(cases)} cases (tile edges causal "
+            f"or not, S = 16/100/384): max_abs_err {worst[('flash', dname)]:.3e}")
+    flash = {}
+    for s_ in (16, 100, 384):
+        q, k, v = qkv(1, s_, s_, torch.bfloat16)
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        t = timings(lambda: flash_attention(q, k, v, causal=True),
+                    lambda: flash_attention_ref(q, k, v, causal=True),
+                    lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                                           enable_gqa=True))
+        t["bound_ms"], t["bound_by"] = bound_ms(2 * (2 * s_ * h * hd + 2 * s_ * kv * hd),
+                                                4 * hd * h * (s_ * (s_ + 1) // 2), "bfloat16")
+        log_timings(f"flash_attention bf16 B=1 H=8 KV=1 S={s_} hd=256", t, "SDPA")
+        flash[f"S={s_}"] = {**{k_: v_ for k_, v_ in t.items() if k_ != "wall_ms"},
+                            "max_abs_err": worst[("flash", "bfloat16")]}
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    path_lens = [397, 250, 130, 17]
+    for dname, dt in dts.items():
+        for b, kvv, s_ in DECODE_SHAPES_GEMMA:
+            per, ns = decode_split_plan(s_, b, kvv, sms)
+            qd = rnd(b, 1, g * kvv, hd, dt=dt)[:, 0]
+            kc4, vc4 = rnd(b, s_, kvv, hd, dt=dt), rnd(b, s_, kvv, hd, dt=dt)
+            rows = decode_edge_lens(per, s_, b) + ([path_lens] if b == 4 else [])
+            for lens in rows:
+                lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+                o = decode_attention(qd, kc4.transpose(1, 2), vc4.transpose(1, 2), lt)
+                e = check_close(f"decode {dname} hd=256 G=8 B={b} KV={kvv} S={s_} lens={lens}",
+                                o, decode_attention_ref(qd, kc4.transpose(1, 2),
+                                                        vc4.transpose(1, 2), lt), dname)
+                if 0 in lens and o[lt == 0].abs().max() != 0:
+                    fail(f"decode {dname} hd=256 lens={lens}: a length-0 row is not 0")
+                worst[("decode", dname)] = max(worst.get(("decode", dname), 0.0), e)
+            log(f"decode_attention {dname} hd=256 G=8 B={b} KV={kvv} S={s_}: P={per}, {ns} "
+                f"split(s), {len(rows)} length rows: max_abs_err so far "
+                f"{worst[('decode', dname)]:.3e}")
+    b, s_ = 4, 512
+    qd = rnd(b, 1, h, hd, dt=torch.bfloat16)[:, 0]
+    kc4, vc4 = rnd(b, s_, kv, hd, dt=torch.bfloat16), rnd(b, s_, kv, hd, dt=torch.bfloat16)
+    kt, vt = kc4.transpose(1, 2), vc4.transpose(1, 2)
+    lt = torch.tensor(path_lens, dtype=torch.int32, device=dev)
+    mask = (torch.arange(s_, device=dev)[None, :] < lt[:, None])[:, None, None, :]
+    q4, kct, vct = qd[:, :, None], kt.contiguous(), vt.contiguous()
+    t = timings(lambda: decode_attention(qd, kt, vt, lt),
+                lambda: decode_attention_ref(qd, kt, vt, lt),
+                lambda: F.scaled_dot_product_attention(q4, kct, vct, attn_mask=mask,
+                                                       enable_gqa=True))
+    n_valid = sum(path_lens)
+    t["bound_ms"], t["bound_by"] = bound_ms(2 * (2 * b * h * hd + 2 * n_valid * kv * hd) + 4 * b,
+                                            4 * hd * h * n_valid, "bfloat16")
+    log_timings(f"decode_attention bf16 B=4 H=8 KV=1 S=512 hd=256 lens={path_lens}", t, "SDPA")
+    decode = {k_: v_ for k_, v_ in t.items() if k_ != "wall_ms"}
+    decode.update(shape=f"B=4 H=8 KV=1 S=512 hd=256 lens={path_lens} bf16",
+                  max_abs_err=worst[("decode", "bfloat16")])
+    return flash, decode
 
 
 def phase_rmsnorm(dev, gen, rnd, dts) -> dict:
@@ -501,6 +605,31 @@ def phase_rmsnorm(dev, gen, rnd, dts) -> dict:
         log(f"rmsnorm {dname} strided last-position rows and a view offset by one element "
             f"(scalar instantiation): max_abs_err {e:.3e}")
 
+    # qk_norm: the norm alone, no residual out, on rows of head_dim 128: a
+    # qwen3-8b call's q (B*S*32 rows) and k (B*S*8 rows) at prefill and decode
+    for dname, dt in dts.items():
+        worst = 0.0
+        for rows in (12288, 3072, 128, 32, 37):
+            x, sc = rnd(rows, 128, dt=dt), torch.randn(128, generator=gen, device=dev)
+            worst = max(worst, cmp(f"rmsnorm {dname} qk_norm R={rows} D=128",
+                                   fused_rmsnorm(x, None, sc, want_residual=False),
+                                   rmsnorm_ref(x, None, sc, want_residual=False), dname))
+            errs[(dname, rows, 128, "qk_norm")] = worst
+        log(f"rmsnorm {dname} qk_norm D=128 R=12288/3072/128/32/37: max_abs_err {worst:.3e}")
+    qk_times = {}
+    for rows in (12288, 128):
+        x, sc = rnd(rows, 128, dt=torch.bfloat16), torch.randn(128, generator=gen, device=dev)
+        sc16 = sc.to(torch.bfloat16)
+        t = timings(lambda: fused_rmsnorm(x, None, sc, eps=1e-6, want_residual=False),
+                    lambda: rmsnorm_ref(x, None, sc, eps=1e-6, want_residual=False),
+                    lambda: F.rms_norm(x, (128,), sc16, 1e-6))
+        # x read once, y written once, the f32 scale read once
+        t["bound_ms"], t["bound_by"] = bound_ms(2 * rows * 128 * 2 + 128 * 4, 4 * rows * 128,
+                                                "bfloat16")
+        log_timings(f"rmsnorm bf16 qk_norm R={rows} D=128 (norm alone, no residual out)", t,
+                    "F.rms_norm")
+        qk_times[f"qk_norm R={rows} D=128 bf16"] = {k: v for k, v in t.items() if k != "wall_ms"}
+
     times = {}
     for rows, d in ((4, 1536), (384, 1536), (4, 2048), (4, 4096)):
         x, r = rnd(rows, d, dt=torch.bfloat16), rnd(rows, d, dt=torch.bfloat16)
@@ -524,6 +653,7 @@ def phase_rmsnorm(dev, gen, rnd, dts) -> dict:
             f"{t['torch_add_host_ms']:.5f} (ratio {t['host_ms'] / t['torch_add_host_ms']:.2f})")
     shapes = {f"R={rows} D={d} bf16": {k: v for k, v in t.items() if k != "wall_ms"}
               for (rows, d), t in times.items()}
+    shapes.update(qk_times)
     return {"max_abs_err": errs[("bfloat16", 4, 1536, "add")], "shape": "R=4 D=1536 bf16",
             **times[(4, 1536)], "shapes": shapes}
 
@@ -670,8 +800,12 @@ def phase_ragged_concat(dev, gen) -> dict:
 # ---------------------------------------------------------------------------
 
 # the kernels each family's path goes through, by wrapper
-PATH_KERNELS = {"qwen2-1.5b": ("rmsnorm", "flash_attention", "decode_attention"),
-                "xlstm-1.3b": ("rmsnorm", "slstm_scan")}
+DENSE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+PATH_KERNELS = {"qwen2-1.5b": DENSE_KERNELS, "xlstm-1.3b": ("rmsnorm", "slstm_scan"),
+                "gemma-2b": DENSE_KERNELS, "llama3-8b": DENSE_KERNELS,
+                "qwen3-8b": DENSE_KERNELS}
+# the dense siblings served after the fleet (phases 9-14), smallest first
+SIBLINGS = ("gemma-2b", "llama3-8b", "qwen3-8b")
 
 
 def wrappers() -> dict:
@@ -766,17 +900,20 @@ def count_by_stage(model, names: tuple, ws: dict) -> dict:
 
 
 def norms_per_call(cfg) -> int:
-    """K1 launches one prefill or decode step makes: every full-width
-    RMSNorm, its residual add fused in.  Dense: ln1 and ln2 of each layer
-    and the final norm (2L + 1); xLSTM: each block's pre-norm and inner
-    norm, each sLSTM block's ln_s2 and the final norm (103 at full width)."""
+    """K1 launches one prefill or decode step makes: every RMSNorm, its
+    residual add fused in.  Dense: ln1 and ln2 of each layer and the final
+    norm (2L + 1), and with ``qk_norm`` the q and k norms of each layer (2L
+    more): gemma-2b 37, llama3-8b 65, qwen3-8b 145; xLSTM: each block's
+    pre-norm and inner norm, each sLSTM block's ln_s2 and the final norm
+    (103 at full width)."""
     if cfg.family == "xlstm":
         n_slstm = cfg.num_layers // cfg.slstm_every if cfg.slstm_every > 0 else 0
         return 2 * cfg.num_layers + n_slstm + 1
-    return 2 * cfg.num_layers + 1
+    return 2 * cfg.num_layers + 1 + (2 * cfg.num_layers if cfg.qk_norm else 0)
 
 
 def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
+    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
@@ -855,7 +992,8 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
 
     path_ms = profile_rounds(srv, cfg, {n: ws[n] for n in names})
 
-    plain_srv = serve(Model(cfg, device=dev, plain=True))
+    plain_model = Model(cfg, device=dev, plain=True)
+    plain_srv = serve(plain_model)
     plain_out = run(plain_srv, requests("req"))
     same_seq = same_first = same_tok = total = 0
     for rid, r in out["results"].items():
@@ -868,7 +1006,18 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
         f"{same_seq}/{N_REQUESTS} identical sequences, {same_first}/{N_REQUESTS} first tokens "
         f"(from prefill), {same_tok}/{total} tokens; plain path "
         f"{plain_out['tokens_per_s']:.2f} tok/s, decode step {plain_out['decode_step_ms']:.3f} ms")
-    del srv, plain_srv, params, model
+    # how far bf16 rounding moves one prefill's logits between the two paths,
+    # beside the gap between the plain logits' two largest (a greedy token
+    # flips where that gap is below the paths' difference)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                                 (1, PROMPT_MAX)), device=dev)
+    lk = model.prefill(params, {"tokens": toks})[0][0, -1].float()
+    lp = plain_model.prefill(params, {"tokens": toks})[0][0, -1].float()
+    top2 = lp.topk(2).values
+    log(f"{arch} bf16 prefill logits at S={PROMPT_MAX}, kernel path vs plain path "
+        f"(information): max abs {max_err(lk, lp):.4e}, logit scale "
+        f"{float(lp.abs().max()):.4e}, plain top-2 gap {float(top2[0] - top2[1]):.4e}")
+    del srv, plain_srv, params, model, plain_model
     torch.cuda.empty_cache()
     return {n: launches[n] for n in names}, path_ms
 
@@ -1088,30 +1237,46 @@ def main() -> None:
                if re.search(r"[1-9]\d* bytes spill", spill)]
     if not ptxas.get("rmsnorm") or spilled:
         fail(f"rmsnorm: no ptxas report, or instantiations that spill: {spilled}")
+    # the head-dim-256 instantiations: flash_fwd<float, 256>, flash_fwd_mma<256>
+    # and decode_fwd<T, 256, G> for every built G
+    hd256 = [(k, spill) for n in ("flash_attention", "decode_attention")
+             for k, _, spill in ptxas.get(n, ()) if re.search(r"\b256\b", k)]
+    spilled = [k for k, spill in hd256 if re.search(r"[1-9]\d* bytes spill", spill)]
+    if len(hd256) != 12 or spilled:
+        fail(f"head dim 256: {len(hd256)} instantiations reported (expected 2 flash + 10 "
+             f"decode), spilling: {spilled}")
+    log(f"head dim 256: {len(hd256)} instantiations of flash and decode attention, no spills")
     hmma = sass_counts("flash_attention", "HMMA")
     for fn, count in hmma.items():
         log(f"SASS flash_attention {fn}: {count} HMMA")
     mma_kernels = {fn: c for fn, c in hmma.items() if "flash_fwd_mma" in fn}
-    if not mma_kernels or not all(mma_kernels.values()):
-        fail(f"the bf16 flash-attention kernels have no tensor-core instructions: {hmma}")
+    if not mma_kernels or not all(mma_kernels.values()) or \
+            not any("flash_fwd_mma<256>" in fn for fn in mma_kernels):
+        fail(f"the bf16 flash-attention kernels (hd 256 included) have no tensor-core "
+             f"instructions: {hmma}")
 
     t0 = time.monotonic()
     report = phase_kernels(dev)
     log(f"phase 3 (kernels vs plain) done in {time.monotonic() - t0:.1f} s")
     launches, path_ms = {}, {}
-    for n, (what, fn, arch) in enumerate((("f32 model", phase_model_f32, "qwen2-1.5b"),
-                                          ("bf16 serving", phase_serve_bf16, "qwen2-1.5b"),
-                                          ("f32 model", phase_model_f32, "xlstm-1.3b"),
-                                          ("bf16 serving", phase_serve_bf16, "xlstm-1.3b")),
-                                         start=4):
-        t0 = time.monotonic()
-        out = fn(dev, arch)
-        if out is not None:
-            launches[arch], path_ms[arch] = out
-        log(f"phase {n} ({what}, {arch}) done in {time.monotonic() - t0:.1f} s")
+
+    def model_phases(archs: tuple, first: int) -> None:
+        """Each arch's f32 model phase, then its bf16 serving phase."""
+        steps = [(arch, what, fn) for arch in archs for what, fn in
+                 (("f32 model", phase_model_f32), ("bf16 serving", phase_serve_bf16))]
+        for n, (arch, what, fn) in enumerate(steps, start=first):
+            t0 = time.monotonic()
+            out = fn(dev, arch)
+            if out is not None:
+                launches[arch], path_ms[arch] = out
+            log(f"phase {n} ({what}, {arch}) done in {time.monotonic() - t0:.1f} s")
+
+    model_phases(("qwen2-1.5b", "xlstm-1.3b"), 4)
     t0 = time.monotonic()
     launches[f"fleet {FLEET_ARCH}"] = phase_fleet(dev)
     log(f"phase 8 (serving fleet, {FLEET_ARCH}) done in {time.monotonic() - t0:.1f} s")
+    model_phases(SIBLINGS, 9)
+    log(f"all phases done in {time.monotonic() - T_START:.1f} s")
 
     kernels = []
     for name, (route, source, replaces) in REPLACES.items():
@@ -1127,7 +1292,7 @@ def main() -> None:
                         "host_ms": r["host_ms"],
                         "path_device_ms_per_launch": {a: p[name] for a, p in path_ms.items()
                                                       if name in p},
-                        **{k: r[k] for k in ("by_seq", "shapes", "variant", "cluster",
+                        **{k: r[k] for k in ("by_seq", "hd256", "shapes", "variant", "cluster",
                                              "torch_add_host_ms")
                            if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)

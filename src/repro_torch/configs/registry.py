@@ -16,10 +16,10 @@ __all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "model_100m"]
 _MODULES: dict[str, str | None] = {
     "qwen2-moe-a2.7b": None,
     "qwen3-moe-235b-a22b": None,
-    "qwen3-8b": None,
+    "qwen3-8b": "qwen3_8b",
     "qwen2-1.5b": "qwen2_1_5b",
-    "gemma-2b": None,
-    "llama3-8b": None,
+    "gemma-2b": "gemma_2b",
+    "llama3-8b": "llama3_8b",
     "xlstm-1.3b": "xlstm_1_3b",
     "whisper-small": None,
     "llama-3.2-vision-90b": None,

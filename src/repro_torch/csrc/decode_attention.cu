@@ -18,13 +18,16 @@
 // Design, and what it does about that:
 //  * every load is 16 bytes a lane (8 bf16 or 4 f32): hd/8 (bf16) lanes
 //    cover a cache row, so at hd 128 bf16 one warp instruction reads two
-//    whole rows, and each lane issues U = 2-4 such rows of K and of V
+//    whole rows, and each lane issues U = 1-4 such rows of K and of V
 //    before it uses any, so a block has all of its bytes in flight at once;
-//  * each lane keeps its 8 (or 4) columns of the G query rows in
+//    a row wider than a warp's 32 loads (f32 at hd 256: 64 chunks) gives
+//    each lane C = 2 chunks of it, 128 elements apart, so every shuffle
+//    stays within the warp;
+//  * each lane keeps its C x 8 (or 4) columns of the G query rows in
 //    registers; a row's dot products are reduced over its lanes with xor
 //    shuffles and scaled by scale*log2(e), the online softmax (exp2)
 //    runs per row slot, and P.V reuses the same lane-to-columns map, so
-//    each lane accumulates G x 8 f32; G is a template parameter, so every
+//    each lane accumulates G x C x 8 f32; G is a template parameter, so every
 //    loop runs over the actual G: 1, 2, 4, 6 and 8 are built, and an odd
 //    G of 3, 5 or 7 runs in the next even build with its last row slot's
 //    q read as 0 and its output never written (20 instantiations, not 32);
@@ -34,7 +37,8 @@
 //    gives about one block per SM over the whole grid; at B=4 KV=2 S=512 on
 //    132 SMs that is P = 32, 16 splits, 128 blocks, of which 54 hold valid
 //    positions at lengths 397/250/130/17 (the valid positions are only 1588
-//    rows of 512 bytes, 27 blocks of 32 per KV head).  Splits past a
+//    rows of 512 bytes, 27 blocks of 32 per KV head; gemma-2b's B=4 KV=1
+//    hd 256 also gets P = 32 and 16 splits).  Splits past a
 //    request's length exit at once, so the bytes moved follow the data;
 //  * the warps of a block merge their (m, l, acc) in shared memory; when a
 //    request uses one split the block writes the output itself, otherwise
@@ -91,9 +95,12 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            int Gq, int S, int P, int NS, Strides qs, Strides ks, Strides vs,
            long long osb, long long osh, float scale_log2) {
   constexpr int E = 16 / sizeof(T);           // elements per 16-byte lane load
-  constexpr int LPR = HD / E;                 // lanes per cache row
+  constexpr int LPR = HD / E < 32 ? HD / E : 32;   // lanes per cache row
+  constexpr int C = HD / (E * LPR);           // 16-byte chunks of a row per lane
+  constexpr int EL = C * E;                   // elements of a row per lane
   constexpr int RPW = 32 / LPR;               // rows per warp load instruction
-  constexpr int U = G * E <= 48 ? 4 : 2;      // rows each lane has in flight
+  static_assert(LPR * EL == HD && RPW * LPR == 32, "a warp's lanes cover whole rows");
+  constexpr int U = G * EL <= 48 ? 4 : (C == 1 ? 2 : 1);   // rows each lane has in flight
   constexpr int PB = kWarps * RPW * U;        // positions per block iteration
   __shared__ float sM[kWarps][G], sL[kWarps][G];
   __shared__ float sAcc[kWarps][G][HD];
@@ -112,48 +119,56 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int s0 = split * P;
   if (s0 >= n) return;                        // past the length: never read
   const int used = (n + P - 1) / P, send = min(s0 + P, n);
+  // chunk c of this lane holds columns col + c * LPR * E .. + E - 1
   const int slot = lane / LPR, col = (lane % LPR) * E;
 
-  float qv[G][E];
+  float qv[G][EL];
   const T* qb = q + b * qs.b + (long long)kvh * Gq * qs.h + col;
 #pragma unroll
   for (int g = 0; g < G; ++g)
-    widen<T>(g < Gq ? __ldg(reinterpret_cast<const uint4*>(qb + g * qs.h))
-                    : make_uint4(0u, 0u, 0u, 0u), qv[g]);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      widen<T>(g < Gq ? __ldg(reinterpret_cast<const uint4*>(qb + g * qs.h + c * LPR * E))
+                      : make_uint4(0u, 0u, 0u, 0u), qv[g] + c * E);
 
-  float m[G], l[G], acc[G][E];
+  float m[G], l[G], acc[G][EL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = kNeg;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < EL; ++e) acc[g][e] = 0.f;
   }
 
   const T* kb = k + b * ks.b + kvh * ks.h + col;
   const T* vb = v + b * vs.b + kvh * vs.h + col;
   // warp-uniform loop: the shuffles below need every lane of the warp
   for (int base = s0 + warp * RPW * U; base < send; base += PB) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][C], vr[U][C];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {             // all of this lane's loads first
       const int pos = base + u * RPW + slot;
       ok[u] = pos < send;
       const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      kr[u] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(kb + pos * ks.s)) : zero;
-      vr[u] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(vb + pos * vs.s)) : zero;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int at = c * LPR * E;
+        kr[u][c] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(kb + pos * ks.s + at)) : zero;
+        vr[u][c] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(vb + pos * vs.s + at)) : zero;
+      }
     }
     float s[U][G];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[E];
-      widen<T>(kr[u], kf);
+      float kf[EL];
+#pragma unroll
+      for (int c = 0; c < C; ++c) widen<T>(kr[u][c], kf + c * E);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < E; ++e) d += qv[g][e] * kf[e];
+        for (int e = 0; e < EL; ++e) d += qv[g][e] * kf[e];
 #pragma unroll
         for (int off = LPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
         s[u][g] = ok[u] ? d * scale_log2 : kNeg;
@@ -168,18 +183,19 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       m[g] = mx;
       l[g] *= alpha;
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+      for (int e = 0; e < EL; ++e) acc[g][e] *= alpha;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float vf[E];
-      widen<T>(vr[u], vf);
+      float vf[EL];
+#pragma unroll
+      for (int c = 0; c < C; ++c) widen<T>(vr[u][c], vf + c * E);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = ok[u] ? exp2f(s[u][g] - m[g]) : 0.f;
         l[g] += p;
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] += p * vf[e];
+        for (int e = 0; e < EL; ++e) acc[g][e] += p * vf[e];
       }
     }
   }
@@ -194,7 +210,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       const float mx = fmaxf(m[g], mo), e1 = exp2f(m[g] - mx), e2 = exp2f(mo - mx);
       l[g] = l[g] * e1 + lo * e2;
 #pragma unroll
-      for (int e = 0; e < E; ++e)
+      for (int e = 0; e < EL; ++e)
         acc[g][e] = acc[g][e] * e1 + __shfl_xor_sync(0xffffffffu, acc[g][e], off) * e2;
       m[g] = mx;
     }
@@ -203,7 +219,9 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) sAcc[warp][g][col + e] = acc[g][e];
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int e = 0; e < E; ++e) sAcc[warp][g][col + c * LPR * E + e] = acc[g][c * E + e];
       if (lane == 0) {
         sM[warp][g] = m[g];
         sL[warp][g] = l[g];
@@ -352,10 +370,14 @@ extern "C" int decode_attention_fwd(
     err = launch_g<float, 64>(a, st);
   else if (dtype == 0 && hd == 128)
     err = launch_g<float, 128>(a, st);
+  else if (dtype == 0 && hd == 256)
+    err = launch_g<float, 256>(a, st);
   else if (dtype == 1 && hd == 64)
     err = launch_g<__nv_bfloat16, 64>(a, st);
   else if (dtype == 1 && hd == 128)
     err = launch_g<__nv_bfloat16, 128>(a, st);
+  else if (dtype == 1 && hd == 256)
+    err = launch_g<__nv_bfloat16, 256>(a, st);
   else
     return -1;
   return static_cast<int>(err);

@@ -12,7 +12,8 @@
 // What bounds it on the H100: at the main path's prefill shapes (one
 // prompt of 16-384 tokens, 12 heads over 2 KV heads, head_dim 128) a call
 // is at most 0.45 GFLOP over about 2.8 MB, so the least time is set by the
-// bytes (0.8 us) and the tensor cores could do the products in 0.5 us.
+// bytes (0.8 us) and the tensor cores could do the products in 0.5 us
+// (gemma-2b, 8 heads over 1 KV head at head_dim 256: 0.6 GFLOP over 1.8 MB).
 // What binds in practice is each block's serial walk over its key tiles
 // (load, two products, the softmax), the K/V tiles every block re-reads
 // from L2 (each query tile and each head reads its own copy), and the
@@ -22,11 +23,20 @@
 //  * one block of 8 warps per (64-query tile, head, batch), the heaviest
 //    (last) query tiles first; each warp owns 16 query rows, and the
 //    Pallas grid's sequential K axis becomes a loop inside the block;
-//  * the warps form two sets of 4 that take every other 64-key tile, so
-//    each warp's serial chain is half the tiles; the two softmax states of
-//    each row merge once, at the end, through shared memory;
+//  * at head_dim <= 128 the warps form two sets of 4 that take every
+//    other 64-key tile, so each warp's serial chain is half the tiles; the
+//    two softmax states of each row merge once, at the end, through shared
+//    memory;
 //  * the Q tile is copied once with 16-byte `cp.async` and moved with
 //    `ldmatrix` into A fragments that stay in registers for the key loop;
+//  * at head_dim 256 that plan needs 288 KB of shared memory (above the
+//    227 KB a block may have) and 16 x 256 f32 of O per warp, 128
+//    registers a lane on top of Q's 64: so one set walks every key tile
+//    (Q + 2 stages x (K + V) = 160 KB), the two groups of 4 warps split
+//    the O columns of the same query rows (each computes the rows' whole
+//    S = Q.K^T and the same softmax, bit for bit, and multiplies P by its
+//    half of V), and Q's fragments are read from shared memory at each
+//    k-step instead of held in registers;
 //  * each set streams its K and V tiles through its own 2-stage
 //    `cp.async` ring, so its next tile loads while this one is multiplied;
 //    rows past Sq / Sk are zero-filled by the copy (source size 0), so
@@ -34,7 +44,7 @@
 //  * shared memory rows are XOR-swizzled in 16-byte chunks (mma.cuh), so
 //    `ldmatrix` (K) and `ldmatrix.trans` (V) are free of bank conflicts;
 //    Q + 2 sets x 2 stages x (K + V) is 144 KB at hd 128, dynamic shared
-//    memory, one block per SM;
+//    memory, one block per SM (see MmaPlan);
 //  * S = Q.K^T and O += P.V are `mma.sync` m16n8k16 bf16 -> f32; the
 //    online softmax runs on the accumulator fragments (row max and sum
 //    over the 4 lanes of a quad, `ex2.approx` with scale*log2(e) folded
@@ -49,7 +59,9 @@
 // cores an f32 product is TF32 (10-bit mantissa) and would miss the 3e-5
 // f32 bound, so f32 keeps a CUDA-core kernel: 16 query rows per block,
 // 32-key tiles staged in shared memory as f32, lane j scoring key j, the
-// P.V product reading V rows coalesced, each lane owning hd/32 columns.
+// P.V product reading V rows coalesced, each lane owning hd/32 columns;
+// the tiles sit in dynamic shared memory (84 KB at hd 256, above the 48 KB
+// a static array may take).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -62,16 +74,23 @@ constexpr int kBK = 32;                       // keys per tile: one per lane
 constexpr int kWarps = 4;
 constexpr int kRows = kBQ / kWarps;           // query rows per warp
 
+// Dynamic shared memory of the f32 kernel: sQ[kBQ][HD], sK[kBK][HD + 1]
+// (padded: lane j reads row j), sV[kBK][HD], sP[kBQ][kBK], all f32.
+template <int HD>
+constexpr int f32_smem() { return (kBQ * HD + kBK * (HD + 1) + kBK * HD + kBQ * kBK) * 4; }
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int G, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
           Strides os, int causal, float scale) {
   constexpr int DPL = HD / 32;                // output columns per lane
-  __shared__ float sQ[kBQ][HD];
-  __shared__ float sK[kBK][HD + 1];
-  __shared__ float sV[kBK][HD];
-  __shared__ float sP[kBQ][kBK];
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* const base = reinterpret_cast<float*>(smem);
+  auto sQ = reinterpret_cast<float (*)[HD]>(base);
+  auto sK = reinterpret_cast<float (*)[HD + 1]>(base + kBQ * HD);
+  auto sV = reinterpret_cast<float (*)[HD]>(base + kBQ * HD + kBK * (HD + 1));
+  auto sP = reinterpret_cast<float (*)[kBK]>(base + kBQ * HD + kBK * (HD + 1) + kBK * HD);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z, kvh = h / G;
@@ -157,12 +176,30 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device: above 48 KB a block gets it only through the opt-in attribute,
+// set once per device (`ready`, one array per kernel).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&ready)[64]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && ready[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) ready[dev] = true;
+  return err;
+}
+
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
                        int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
                        int causal, float scale, cudaStream_t stream) {
+  constexpr int kSmem = f32_smem<HD>();
+  static bool ready[64] = {};
+  const cudaError_t err = allow_smem(flash_fwd<float, HD>, kSmem, ready);
+  if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd<float, HD><<<grid, kWarps * 32, 0, stream>>>(
+  flash_fwd<float, HD><<<grid, kWarps * 32, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H / KV, Sq, Sk, qs, ks, vs, os,
       causal, scale);
@@ -173,9 +210,21 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
 
 constexpr int kQ = 16 * kWarps;               // query rows per block, 16 per warp
 constexpr int kK = 64;                        // keys per tile
-constexpr int kSets = 2;                      // warp sets, each on every other key tile
-constexpr int kThreads = kSets * kWarps * 32;
+constexpr int kThreads = 2 * kWarps * 32;     // two groups of 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
+
+// What the two groups of 4 warps share out, by head dim.  hd <= 128: two
+// warp sets on every other key tile, each warp with all of O's columns, Q's
+// fragments in registers.  hd 256: one set on every tile, O's columns split
+// over the two groups, Q's fragments read from shared memory per k-step.
+template <int HD>
+struct MmaPlan {
+  static constexpr int kSets = HD > 128 ? 1 : 2;       // warp sets over the key tiles
+  static constexpr int kCols = 3 - kSets;              // groups sharing O's columns
+  static constexpr bool kQRegs = kSets == 2;
+  static constexpr int kSmem = (kQ + kSets * 4 * kK) * HD * 2;   // Q + each set's ring
+  static_assert(kSmem <= 232448, "a block's shared memory on the H100");
+};
 
 // Copy rows [r0, r0 + R) of one (S, HD) bf16 matrix (row stride `rs`
 // elements) into a swizzled tile at `dst`, with the NT threads of index
@@ -192,29 +241,42 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
   }
 }
 
-// Barrier over the 128 threads of one warp set (ids 1, 2; 0 is __syncthreads).
+// Barrier over the threads of one warp set: the 128 of the set (ids 1, 2;
+// 0 is __syncthreads) with two sets, the whole block with one.
+template <int SETS>
 __device__ __forceinline__ void set_sync(int set) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + set), "r"(kWarps * 32) : "memory");
+  if constexpr (SETS == 1)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + set), "r"(kWarps * 32) : "memory");
 }
 
-// Warp w of set `set` owns query rows 16 w .. 16 w + 15 of the block over
-// the set's key tiles (set, set + 2, ...); the two sets' softmax states of
-// each row merge once, at the end.
+// Warp w of each group of 4 owns query rows 16 w .. 16 w + 15 of the block.
+// Two sets (hd <= 128): group `set` walks key tiles set, set + 2, ... and
+// the two sets' softmax states of each row merge once, at the end.  One set
+// (hd 256): both groups walk every tile, group c owning O's columns
+// c HD/2 .. (c + 1) HD/2 - 1.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int G,
               int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, int causal,
               float scale_log2) {
+  using Plan = MmaPlan<HD>;
+  constexpr int SETS = Plan::kSets;
   constexpr int RB = HD * 2;                  // bytes per tile row
   constexpr int TB = kK * RB;                 // bytes per Q, K or V tile (kQ == kK)
   constexpr int KS = HD / 16;                 // k-steps of Q.K^T over head_dim
-  constexpr int NO = HD / 8;                  // 8-column n-tiles of O
+  constexpr int OC = HD / Plan::kCols;        // O columns per warp
+  constexpr int NO = OC / 8;                  // 8-column n-tiles of O
+  constexpr int LT = kThreads / SETS;         // threads loading one set's tiles
   const float kInf = __int_as_float(0x7f800000);
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & (kWarps - 1);
-  const int set = tid >> 7, stid = tid & 127;
-  // Q | set 0: K0 K1 V0 V1 | set 1: K0 K1 V0 V1
+  const int group = tid >> 7;                 // 0 or 1
+  const int set = SETS == 2 ? group : 0, stid = tid % LT;
+  const int c0 = Plan::kCols == 2 ? group * OC : 0;   // this warp's first O column
+  // Q | set 0: K0 K1 V0 V1 | set 1: K0 K1 V0 V1 (with two sets)
   const uint32_t sQ = smem_u32(smem), sS = sQ + TB + set * 4 * TB;
   auto sK = [&](int st) { return sS + TB * st; };
   auto sV = [&](int st) { return sS + TB * (2 + st); };
@@ -230,21 +292,26 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   // top-left causal: the block's last row sees keys up to itself
   const int kend = causal ? min(Sk, min(Sq, q0 + kQ)) : Sk;
   const int ntiles = (kend + kK - 1) / kK;
-  const int nloc = (ntiles - set + 1) / 2;   // this set's tiles
+  const int nloc = (ntiles - set + SETS - 1) / SETS;   // this set's tiles
 
   load_tile<HD, kQ, kThreads>(sQ, qb, qs.s, q0, Sq, tid);
   cp_async_commit();
   if (nloc > 0) {
-    load_tile<HD, kK, kWarps * 32>(sK(0), kb, ks.s, set * kK, Sk, stid);
-    load_tile<HD, kK, kWarps * 32>(sV(0), vb, vs.s, set * kK, Sk, stid);
+    load_tile<HD, kK, LT>(sK(0), kb, ks.s, set * kK, Sk, stid);
+    load_tile<HD, kK, LT>(sV(0), vb, vs.s, set * kK, Sk, stid);
   }
   cp_async_commit();                          // possibly empty: keeps the group count
   cp_async_wait<1>();                         // this thread's share of Q
   __syncthreads();
-  uint32_t qf[KS][4];
+  // Q's A fragment of k-step ks_: held in registers, or read again each time
+  auto q_frag = [&](uint32_t (&a)[4], int ks_) {
+    ldmatrix_x4(a, sQ + swz(16 * warp + (lane & 15), 2 * ks_ + (lane >> 4), RB));
+  };
+  uint32_t qf[Plan::kQRegs ? KS : 1][4];
+  if constexpr (Plan::kQRegs) {
 #pragma unroll
-  for (int ks_ = 0; ks_ < KS; ++ks_)
-    ldmatrix_x4(qf[ks_], sQ + swz(16 * warp + (lane & 15), 2 * ks_ + (lane >> 4), RB));
+    for (int ks_ = 0; ks_ < KS; ++ks_) q_frag(qf[ks_], ks_);
+  }
 
   // rows g and g + 8 of the warp: m in log2 units (-inf before any key), l
   // this lane's share of the row sum
@@ -254,16 +321,16 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int row0 = q0 + 16 * warp + g;
 
   for (int i = 0; i < nloc; ++i) {
-    const int st = i & 1, k0 = (set + 2 * i) * kK;
+    const int st = i & 1, k0 = (set + SETS * i) * kK;
     if (i + 1 < nloc) {                       // this set's next tile into the other stage
-      load_tile<HD, kK, kWarps * 32>(sK(st ^ 1), kb, ks.s, k0 + 2 * kK, Sk, stid);
-      load_tile<HD, kK, kWarps * 32>(sV(st ^ 1), vb, vs.s, k0 + 2 * kK, Sk, stid);
+      load_tile<HD, kK, LT>(sK(st ^ 1), kb, ks.s, k0 + SETS * kK, Sk, stid);
+      load_tile<HD, kK, LT>(sV(st ^ 1), vb, vs.s, k0 + SETS * kK, Sk, stid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    set_sync(set);
+    set_sync<SETS>(set);
 
     // S = Q.K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
     float s[8][4];
@@ -271,13 +338,22 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int ks_ = 0; ks_ < KS; ++ks_) {
+      uint32_t qa[4];
+      if constexpr (Plan::kQRegs) {
+        qa[0] = qf[ks_][0];
+        qa[1] = qf[ks_][1];
+        qa[2] = qf[ks_][2];
+        qa[3] = qf[ks_][3];
+      } else {
+        q_frag(qa, ks_);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4];
         ldmatrix_x4(bk, sK(st) + swz(16 * np + (lane & 7) + ((lane >> 4) << 3),
                                      2 * ks_ + ((lane >> 3) & 1), RB));
-        mma_bf16_16816(s[2 * np], qf[ks_], bk[0], bk[1]);
-        mma_bf16_16816(s[2 * np + 1], qf[ks_], bk[2], bk[3]);
+        mma_bf16_16816(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16_16816(s[2 * np + 1], qa, bk[2], bk[3]);
       }
     }
     // mask (to -inf) only a tile that straddles the diagonal or the Sk edge
@@ -318,7 +394,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
         acc[n][2 * r + 1] *= alpha;
       }
     }
-    // O += P.V: P (16 x 64) in bf16 as the A operand, V through ldmatrix.trans
+    // O += P.V: P (16 x 64) in bf16 as the A operand, V (this warp's OC
+    // columns) through ldmatrix.trans
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
@@ -326,21 +403,39 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
                               pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
                               pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
+      for (int dp = 0; dp < OC / 16; ++dp) {
         uint32_t bv[4];
         ldmatrix_x4_trans(bv, sV(st) + swz(16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                           2 * dp + (lane >> 4), RB));
+                                           c0 / 8 + 2 * dp + (lane >> 4), RB));
         mma_bf16_16816(acc[2 * dp], pa, bv[0], bv[1]);
         mma_bf16_16816(acc[2 * dp + 1], pa, bv[2], bv[3]);
       }
     }
-    set_sync(set);                            // this stage is refilled two tiles on
+    set_sync<SETS>(set);                      // this stage is refilled two tiles on
+  }
+
+  if constexpr (SETS == 1) {                  // no second state: normalise and store
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      const float inv = 1.f / fmaxf(lr, 1e-30f);
+      __nv_bfloat16* orow = ob + row * os.s + c0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+            __floats2bfloat162_rn(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    }
+    return;
   }
 
   // set 1 hands its (m, l, acc) to the thread of set 0 that owns the same
   // rows and columns, through set 1's own (now idle) stages
   constexpr int NX = 4 + 4 * NO;              // floats per thread
-  static_assert(NX * 128 * 4 <= 4 * TB, "the exchange fits in a set's stages");
+  static_assert(SETS == 1 || NX * 128 * 4 <= 4 * TB, "the exchange fits in a set's stages");
   float* xch = reinterpret_cast<float*>(smem + 5 * TB) + stid;
   if (set == 1) {
     xch[0] = m[0];
@@ -380,17 +475,10 @@ template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
                         int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
                         Strides os, int causal, float scale, cudaStream_t stream) {
-  constexpr int kSmem = (kQ + kSets * 4 * kK) * HD * 2;   // Q + each set's ring
+  constexpr int kSmem = MmaPlan<HD>::kSmem;
   static bool ready[64] = {};                 // attribute set, per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(flash_fwd_mma<HD>, kSmem, ready);
   if (err != cudaSuccess) return err;
-  if (dev < 64 && !ready[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_mma<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-    ready[dev] = true;
-  }
   const dim3 grid((Sq + kQ - 1) / kQ, H, B);
   flash_fwd_mma<HD><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -423,8 +511,12 @@ extern "C" int flash_attention_fwd(
     err = launch_f32<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 1 && hd == 64)
     err = launch_bf16<64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+  else if (dtype == 0 && hd == 256)
+    err = launch_f32<256>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 1 && hd == 128)
     err = launch_bf16<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+  else if (dtype == 1 && hd == 256)
+    err = launch_bf16<256>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else
     return -1;
   return static_cast<int>(err);

@@ -28,7 +28,7 @@ from .ref import decode_attention_ref
 __all__ = ["decode_attention", "decode_attention_ref", "decode_split_plan",
            "KERNEL_HEAD_DIMS", "KERNEL_MAX_GROUP"]
 
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_MAX_GROUP = 8
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}     # (device, stream) -> int32 counters

@@ -8,7 +8,10 @@ random weights drawn from ``--seed``) on the GPU, through the port's flash
 attention, decode attention and fused RMSNorm kernels.  ``--arch
 xlstm-1.3b`` serves full-width xlstm-1.3b (48 blocks [7 mLSTM : 1 sLSTM],
 d_model 2048, bf16, 3.61 B parameters) through the sLSTM scan and fused
-RMSNorm kernels.  ``--size smoke`` or ``100m`` give the reduced configs;
+RMSNorm kernels; ``--arch llama3-8b``, ``qwen3-8b`` or ``gemma-2b`` serve
+those dense models at full width through the same kernels as qwen2-1.5b
+(gemma-2b's attention at head dim 256).  ``--size smoke`` or ``100m`` give
+the reduced configs;
 ``--device cpu`` runs the kernels' plain versions on the CPU.
 """
 

@@ -17,8 +17,9 @@ plain versions instead):
   layer's MLP output (layer 0's is the norm alone), ``ln2`` the attention
   output, and the final norm the last layer's MLP output, so a call is
   2L + 1 launches.  The layer loop therefore carries each layer's MLP
-  output into the next one un-added.  The per-head ``qk_norm`` stays the
-  plain ``rms_norm``.
+  output into the next one un-added.  With ``qk_norm`` the per-head norms
+  of q and k go through the same kernel, norm alone, one call each over
+  rows of ``head_dim``: 2L more launches a call.
 
 Serving state is updated in place where the reference's jit donates it:
 ``decode_step`` writes the new token's k/v into ``cache`` and bumps
@@ -32,7 +33,7 @@ import torch
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 
 from .attention import attention, decode_attention_append
-from .common import ModelConfig, apply_rope, dense_init, rms_norm, rope_freqs
+from .common import ModelConfig, apply_rope, dense_init, rope_freqs
 from .mlp import gated_mlp, init_mlp
 
 __all__ = ["init_params", "param_shapes", "prefill", "decode_step", "init_cache",
@@ -128,9 +129,10 @@ def attn_block(p: dict, x: torch.Tensor, sin, cos, cfg: ModelConfig, *, cache=No
     v = _proj(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.qk_norm:   # per head: rows of hd, the norm alone (no gemma flag, as the reference)
+        norm = rmsnorm_ref if plain else fused_rmsnorm
+        q = norm(q, None, p["q_norm"], eps=cfg.norm_eps, want_residual=False)[0]
+        k = norm(k, None, p["k_norm"], eps=cfg.norm_eps, want_residual=False)[0]
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
 

@@ -5,7 +5,8 @@ kernel phase, so a change to the tiling updates both.
 Flash attention (K2) works in 64-row query tiles and 64-key tiles; decode
 attention (K3) splits the cache into blocks of ``decode_split_plan``
 positions and builds 1, 2, 4, 6 and 8 query rows per KV head (an odd
-count runs padded to the next even one)."""
+count runs padded to the next even one).  Both build head dims 64, 128
+and 256; the 256 cases are gemma-2b's G = 8 over KV = 1."""
 
 EDGES = [1, 15, 63, 64, 65, 127, 383, 384, 385]
 EDGE_PAIRS = [(n, n) for n in EDGES] + [(n, m) for n, m in zip(EDGES, reversed(EDGES)) if n != m]
@@ -20,8 +21,19 @@ def flash_edge_cases() -> list[tuple[int, int, int, int, int]]:
             for i, (sq, sk) in enumerate(EDGE_PAIRS)]
 
 
+# gemma-2b's attention at head_dim 256: G = 8 query heads over KV = 1
+GEMMA_G, GEMMA_KV, GEMMA_HD = 8, 1, 256
+
+
+def flash_edge_cases_gemma() -> list[tuple[int, int, int, int, int]]:
+    """The same (Sq, Sk) edges and batches with G = 8 over KV = 1."""
+    return [(sq, sk, GEMMA_G, b, GEMMA_KV) for sq, sk, _, b, _ in flash_edge_cases()]
+
+
 # (B, KV, S): one split (S = 16, 32 on 132 SMs) and many (16, 64)
 DECODE_SHAPES = [(4, 2, 512), (1, 1, 2048), (2, 2, 32), (3, 1, 16)]
+# gemma-2b's serving cache, KV = 1: 16 splits of 32 (4, 1, 512), one split, many
+DECODE_SHAPES_GEMMA = [(4, 1, 512), (2, 1, 32), (1, 1, 2048)]
 DECODE_GROUPS = (1, 3, 6, 7, 8)
 
 

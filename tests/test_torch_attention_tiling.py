@@ -5,7 +5,8 @@ The CUDA kernels (``csrc/flash_attention.cu``, ``csrc/decode_attention.cu``)
 run only on the card.  What they do differently from a one-shot softmax is
 the order of the work: key tiles with an online softmax, tiles past the
 causal diagonal skipped, even and odd tiles taken by two warp sets whose
-states merge at the end (K2);
+states merge at the end, or at head_dim 256 one set over every tile with
+O's columns split over two groups of warps (K2);
 the cache split into blocks of ``decode_split_plan`` positions, a partial
 (m, l, acc) per split and a merge (K3).  The models below follow that order
 step by step, in f32, with p rounded to v's dtype before P.V as K2 does, so
@@ -26,7 +27,9 @@ from repro.kernels.decode_attention.ops import decode_attention_ref as jax_decod
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ops import flash_attention_ref as jax_flash_ref
 from repro_torch.kernels._device import check_aligned
+from repro_torch.kernels.decode_attention.ops import KERNEL_HEAD_DIMS as DECODE_HEAD_DIMS
 from repro_torch.kernels.decode_attention.ops import decode_attention_ref, decode_split_plan
+from repro_torch.kernels.flash_attention.ops import KERNEL_HEAD_DIMS as FLASH_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_attention_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -34,6 +37,15 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 NEG = -2.0e38
 Q_ROWS, K_TILE = 64, 64          # the bf16 K2 kernel's query rows per block, keys per tile
 H100_SMS = 132
+H100_SMEM_PER_BLOCK = 232_448    # bytes a block may opt into
+
+
+def mma_plan(hd: int) -> tuple[int, int, int]:
+    """K2's bf16 plan (``MmaPlan`` in ``csrc/flash_attention.cu``): warp sets
+    over the key tiles, groups of warps sharing O's columns, and the
+    dynamic shared memory (Q, then each set's two stages of K and V)."""
+    sets = 1 if hd > 128 else 2
+    return sets, 3 - sets, (Q_ROWS + sets * 4 * K_TILE) * hd * 2
 
 
 def _tol(dt: str) -> float:
@@ -70,11 +82,16 @@ def _merge(a, b):
 def tiled_flash(q, k, v, *, causal, tiles_seen=None):
     """The kernel's order of work for one (batch, head) at a time: blocks of
     ``Q_ROWS`` query rows; for each, key tiles of ``K_TILE`` up to the
-    block's diagonal (top-left causal), tile j going to warp set j % 2 with
-    its own (m, l, acc), the two sets' states merged at the end."""
+    block's diagonal (top-left causal).  With two warp sets (hd <= 128)
+    tile j goes to set j % 2 with its own (m, l, acc) and the two sets'
+    states merge at the end; with one (hd 256) every tile goes to both
+    groups of warps, each of which computes the rows' whole S and keeps
+    (m, l, acc) over its own half of O's columns."""
     b, h, sq, hd = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     g = h // kvh
+    n_sets, n_cols, _ = mma_plan(hd)
+    oc = hd // n_cols
     scale = hd ** -0.5
     out = torch.zeros(b, h, sq, hd)
     for bi in range(b):
@@ -83,19 +100,22 @@ def tiled_flash(q, k, v, *, causal, tiles_seen=None):
             for q0 in range(0, sq, Q_ROWS):
                 rows = torch.arange(q0, min(q0 + Q_ROWS, sq))
                 kend = min(sk, sq, q0 + Q_ROWS) if causal else sk
-                sets = [(torch.full((len(rows),), NEG), torch.zeros(len(rows)),
-                         torch.zeros(len(rows), hd)) for _ in range(2)]
-                for j, k0 in enumerate(range(0, kend, K_TILE)):
-                    if tiles_seen is not None:
-                        tiles_seen.append((q0, k0))
-                    keys = torch.arange(k0, min(k0 + K_TILE, sk))
-                    s = (qh[rows] @ kk[keys].float().T) * scale
-                    if causal:
-                        s = torch.where(keys[None, :] <= rows[:, None], s,
-                                        torch.full_like(s, NEG))
-                    sets[j % 2] = _online(sets[j % 2], s, vv[keys], v.dtype)
-                m, l, acc = _merge(*sets)
-                out[bi, hi, rows] = acc / torch.clamp(l, min=1e-30)[:, None]
+                for c in range(n_cols):
+                    cols = slice(c * oc, (c + 1) * oc)
+                    sets = [(torch.full((len(rows),), NEG), torch.zeros(len(rows)),
+                             torch.zeros(len(rows), oc)) for _ in range(n_sets)]
+                    for j, k0 in enumerate(range(0, kend, K_TILE)):
+                        if tiles_seen is not None and c == 0:
+                            tiles_seen.append((q0, k0, j % n_sets))
+                        keys = torch.arange(k0, min(k0 + K_TILE, sk))
+                        s = (qh[rows] @ kk[keys].float().T) * scale
+                        if causal:
+                            s = torch.where(keys[None, :] <= rows[:, None], s,
+                                            torch.full_like(s, NEG))
+                        sets[j % n_sets] = _online(sets[j % n_sets], s, vv[keys, cols],
+                                                   v.dtype)
+                    m, l, acc = sets[0] if n_sets == 1 else _merge(*sets)
+                    out[bi, hi, rows, cols] = acc / torch.clamp(l, min=1e-30)[:, None]
     return out.to(q.dtype)
 
 
@@ -106,6 +126,8 @@ FLASH_CASES = [
     (1, 2, 1, 200, 200, 16, True),     # four key tiles: both sets take two
     (1, 8, 2, 63, 129, 16, False),     # non-causal, ragged tiles
     (1, 2, 2, 1, 1, 8, True),          # a single query and key
+    (1, 8, 1, 130, 130, 256, True),    # hd 256 (gemma-2b's G = 8, KV = 1): one set, split O
+    (2, 8, 1, 65, 200, 256, False),    # the same, non-causal, ragged tiles
 ]
 
 
@@ -127,15 +149,31 @@ def test_tiled_flash_matches_plain_and_jax(b, h, kv, sq, sk, hd, causal, dt):
 def test_tiled_flash_skips_exactly_the_tiles_past_the_diagonal():
     """Causal, S = 384: the block of rows q0..q0+63 walks key tiles
     0..q0/64 and no further; non-causal walks every tile."""
-    q = torch.zeros(1, 1, 384, 8)
-    kv = torch.zeros(1, 1, 384, 8)
-    seen = []
-    tiled_flash(q, kv, kv, causal=True, tiles_seen=seen)
-    want = [(q0, k0) for q0 in range(0, 384, 64) for k0 in range(0, q0 + 64, 64)]
-    assert seen == want and len(seen) == 21
-    seen = []
-    tiled_flash(q, kv, kv, causal=False, tiles_seen=seen)
-    assert len(seen) == 6 * 6
+    for hd, n_sets in ((8, 2), (256, 1)):
+        q = torch.zeros(1, 1, 384, hd)
+        kv = torch.zeros(1, 1, 384, hd)
+        seen = []
+        tiled_flash(q, kv, kv, causal=True, tiles_seen=seen)
+        want = [(q0, k0, (k0 // 64) % n_sets) for q0 in range(0, 384, 64)
+                for k0 in range(0, q0 + 64, 64)]
+        assert seen == want and len(seen) == 21
+        seen = []
+        tiled_flash(q, kv, kv, causal=False, tiles_seen=seen)
+        assert len(seen) == 6 * 6
+
+
+def test_mma_plans_fit_a_block():
+    """Every head dim K2 builds has a bf16 plan within the 227 KB of shared
+    memory a block may have on the H100: two sets at hd 64 and 128 (147,456
+    B at 128), one set with O's columns split over two groups at hd 256
+    (163,840 B; two sets would need 294,912).  Each warp keeps at most 128
+    columns of O (64 f32 accumulators a lane)."""
+    assert FLASH_HEAD_DIMS == (64, 128, 256)
+    for hd in FLASH_HEAD_DIMS:
+        sets, cols, smem = mma_plan(hd)
+        assert smem <= H100_SMEM_PER_BLOCK and hd // cols <= 128, hd
+    assert mma_plan(128) == (2, 1, 147_456) and mma_plan(256) == (1, 2, 163_840)
+    assert (Q_ROWS + 2 * 4 * K_TILE) * 256 * 2 > H100_SMEM_PER_BLOCK
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +241,7 @@ DECODE_CASES = [
     (4, 6, 2, 128, 16, H100_SMS, [33, 127, 128, 200]),
     (2, 8, 1, 300, 32, 8, [299, 65]),                        # few SMs: P = 160, 2 splits
     (1, 4, 4, 16, 8, H100_SMS, [16]),                        # one split
+    (4, 8, 1, 512, 256, H100_SMS, [397, 250, 130, 17]),      # gemma-2b: G = 8 at hd 256
 ]
 
 
@@ -236,6 +275,32 @@ def test_decode_split_plan_rule():
                 assert per % 32 == 0 and per >= 32
                 assert per * ns >= s > per * (ns - 1)
                 assert ns <= max(1, -(-sms // (b * kv)))          # about one block per SM
+
+
+def decode_lane_map(hd: int, elem_bytes: int) -> tuple[int, int, int]:
+    """K3's lanes for one cache row (``decode_fwd``): 16-byte chunks of E =
+    16 / elem_bytes elements, LPR lanes a row (at most a warp), C chunks a
+    lane (chunk c of lane i at element (c * LPR + i) * E) and RPW rows a
+    warp load instruction."""
+    e = 16 // elem_bytes
+    lpr = min(hd // e, 32)
+    return lpr, hd // (e * lpr), 32 // lpr
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", DECODE_HEAD_DIMS)
+def test_decode_lanes_cover_each_row_once(hd, elem_bytes):
+    """Every built head dim in both types: the lanes of one row slot read
+    each column of the row exactly once, the row slots fill the warp, and a
+    row's lanes sit within one warp (its shuffles never leave it).  f32 at
+    hd 256 is the one case with two chunks a lane."""
+    lpr, c, rpw = decode_lane_map(hd, elem_bytes)
+    e = 16 // elem_bytes
+    assert rpw * lpr == 32 and lpr <= 32
+    cols = sorted((ci * lpr + lane) * e + i for lane in range(lpr) for ci in range(c)
+                  for i in range(e))
+    assert cols == list(range(hd))
+    assert (c == 2) == (hd == 256 and elem_bytes == 4)
 
 
 def test_check_aligned_names_the_unaligned_view():

@@ -10,7 +10,9 @@ products run in full f32 (TF32 off)."""
 
 import pytest
 import torch
-from _attention_edges import DECODE_GROUPS, DECODE_SHAPES, decode_edge_lens, flash_edge_cases
+from _attention_edges import (DECODE_GROUPS, DECODE_SHAPES, DECODE_SHAPES_GEMMA, GEMMA_G,
+                              GEMMA_KV, decode_edge_lens, flash_edge_cases,
+                              flash_edge_cases_gemma)
 
 from repro_torch.configs import model_100m
 from repro_torch.kernels.decode_attention.ops import (decode_attention, decode_attention_ref,
@@ -49,6 +51,7 @@ def _randn(dev, *shape, dt, seed):
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", [
     (1, 12, 2, 384, 384, 128, True), (2, 8, 2, 50, 130, 64, True), (1, 4, 4, 33, 47, 64, False),
+    (1, 8, 1, 384, 384, 256, True), (1, 8, 1, 100, 100, 256, True),   # gemma-2b prefill
 ])
 def test_flash_attention_kernel_matches_plain(dev, b, h, kv, sq, sk, hd, causal, dt):
     q = _randn(dev, b, sq, h, hd, dt=dt, seed=1).transpose(1, 2)
@@ -75,12 +78,14 @@ def test_decode_attention_kernel_matches_plain(dev, lens, dt):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_tile_edges(dev, hd, causal, dt):
     """Sq and Sk over the 64-row tile edges, equal and unequal both ways,
-    with G = H / KV cycling through 1, 4, 6 and 8."""
-    for i, (sq, sk, g, b, kv) in enumerate(flash_edge_cases()):
+    with G = H / KV cycling through 1, 4, 6 and 8; at hd 256 (one warp set,
+    O split over two groups) also every edge at gemma-2b's G = 8, KV = 1."""
+    cases = flash_edge_cases() + (flash_edge_cases_gemma() if hd == 256 else [])
+    for i, (sq, sk, g, b, kv) in enumerate(cases):
         q = _randn(dev, b, sq, g * kv, hd, dt=dt, seed=20 + i).transpose(1, 2)
         k = _randn(dev, b, sk, kv, hd, dt=dt, seed=40 + i).transpose(1, 2)
         v = _randn(dev, b, sk, kv, hd, dt=dt, seed=60 + i).transpose(1, 2)
@@ -108,7 +113,7 @@ def _check_decode(q, kc, vc, lens, dt, what):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("g", DECODE_GROUPS)
 @pytest.mark.parametrize("b,kv,s", DECODE_SHAPES)
 def test_decode_attention_kernel_split_edges(dev, b, kv, s, g, hd, dt):
@@ -120,6 +125,34 @@ def test_decode_attention_kernel_split_edges(dev, b, kv, s, g, hd, dt):
     q, kc, vc = _decode_case(dev, b, g * kv, kv, s, hd, dt, seed=80 + s + g)
     for lens in decode_edge_lens(per, s, b):
         _check_decode(q, kc, vc, lens, dt, f"P={per} NS={ns} lens={lens}")
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,kv,s", DECODE_SHAPES_GEMMA)
+def test_decode_attention_kernel_split_edges_gemma(dev, b, kv, s, dt):
+    """gemma-2b's decode attention: G = 8 over KV = 1 at hd 256 (bf16: a
+    lane's one 16-byte chunk a row, the row over all 32 lanes; f32: two
+    chunks a lane), lengths at the split edges."""
+    per, ns = decode_split_plan(s, b, kv, torch.cuda.get_device_properties(dev)
+                                .multi_processor_count)
+    q, kc, vc = _decode_case(dev, b, GEMMA_G * kv, kv, s, 256, dt, seed=100 + s)
+    for lens in decode_edge_lens(per, s, b) + [[397, 250, 130, 17][:b]]:
+        _check_decode(q, kc, vc, lens, dt, f"hd 256 P={per} NS={ns} lens={lens}")
+
+
+def test_attention_kernels_reject_unbuilt_head_dim(dev):
+    """A head dim outside the built set (80: zamba2-2.7b's) raises on the
+    card instead of launching or falling back to the plain version."""
+    for dt in DTYPES:
+        q = _randn(dev, 1, 4, 2, 80, dt=dt, seed=3).transpose(1, 2)
+        kv = _randn(dev, 1, 4, 2, 80, dt=dt, seed=4).transpose(1, 2)
+        n = flash_attention.launches
+        with pytest.raises(ValueError, match="head_dim 80"):
+            flash_attention(q, kv, kv)
+        lt = torch.tensor([3], dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="head_dim 80"):
+            decode_attention(q[:, :, 0], kv, kv, lt)
+        assert flash_attention.launches == n
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -166,7 +199,7 @@ def test_flash_attention_f32_takes_unaligned_views(dev):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("d", [48, 52, 1536, 2048, 4096])
+@pytest.mark.parametrize("d", [48, 52, 128, 1536, 2048, 4096])
 @pytest.mark.parametrize("rows", [1, 4, 37, 384])
 @pytest.mark.parametrize("residual,gemma,want", [
     (True, False, True), (False, False, True), (False, True, False), (True, True, True),
@@ -176,9 +209,10 @@ def test_rmsnorm_kernel_matches_plain(dev, residual, gemma, want, rows, d, dt):
     """Every mode the models call (the add + norm; the norm alone, as the
     blocks' inner norms and layer 0's ln1; Gemma's ``1 + scale``; no
     residual output, as the final and the mLSTM inner norms) at the paths'
-    widths (1536 qwen2, 2048 xlstm, 4096 the mLSTM's inner norm) and the
-    smoke configs' (48); D = 52 is no multiple of the 16-byte vector and
-    takes the scalar instantiation.  One launch per call."""
+    widths (1536 qwen2, 2048 xlstm and gemma, 4096 the mLSTM's inner norm
+    and the 8B models, 128 qk_norm's rows of head_dim) and the smoke
+    configs' (48); D = 52 is no multiple of the 16-byte vector and takes
+    the scalar instantiation.  One launch per call."""
     x = _randn(dev, rows, d, dt=dt, seed=7)
     r = _randn(dev, rows, d, dt=dt, seed=8) if residual else None
     sc = _randn(dev, d, dt=torch.float32, seed=9)
@@ -244,17 +278,22 @@ def test_rmsnorm_kernel_strided_and_unaligned(dev, dt):
         fused_rmsnorm(base[:, ::2], None, sc)          # rows of two strides
 
 
-@pytest.mark.parametrize("variants", [{}, dict(qk_norm=True, gemma_norm=True,
-                                                embed_scale=True, mlp_act="geglu",
-                                                tie_embeddings=False)],
-                         ids=["qwen2", "dense-variants"])
+@pytest.mark.parametrize("variants", [
+    {}, dict(qk_norm=True, gemma_norm=True, embed_scale=True, mlp_act="geglu",
+             tie_embeddings=False),
+    dict(arch="llama3-8b"), dict(arch="qwen3-8b"),
+    dict(arch="gemma-2b", head_dim=256, num_heads=8, num_kv_heads=1),
+], ids=["qwen2", "dense-variants", "llama3-8b", "qwen3-8b", "gemma-2b-hd256"])
 def test_model_kernel_path_matches_plain_path(dev, variants):
-    """f32, 2 layers of the 100m config (head_dim 64): prefill and 4 decode
-    steps through the kernels agree with the plain path.  1e-4, looser than
-    the per-kernel 3e-5, because each layer adds the kernels' own
+    """f32, 2 layers of the 100m config (head_dim 64; gemma-2b's case at its
+    full 8 heads over 1 KV head of 256): prefill and 4 decode steps through
+    the kernels agree with the plain path.  1e-4, looser than the
+    per-kernel 3e-5, because each layer adds the kernels' own
     summation-order differences to logits of scale ~1-10.  The variant case
-    sends gemma's ``1 + scale`` norm through the fused kernel too."""
-    cfg = model_100m("qwen2-1.5b").scaled(num_layers=2, **variants)
+    sends gemma's ``1 + scale`` norm through the fused kernel too, and
+    qwen3's ``qk_norm`` adds 2L norm-only launches a call."""
+    variants = dict(variants)
+    cfg = model_100m(variants.pop("arch", "qwen2-1.5b")).scaled(num_layers=2, **variants)
     fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
     params = fast.init(0)
     norms0 = fused_rmsnorm.launches
@@ -269,8 +308,10 @@ def test_model_kernel_path_matches_plain_path(dev, variants):
         lp, cp = plain.decode_step(params, cp, nxt)
         torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
     assert torch.equal(ck["len"], cp["len"])
-    # ln1, ln2 and the final norm, each fused with its residual add: 2L + 1 per call
-    assert fused_rmsnorm.launches - norms0 == 5 * (2 * cfg.num_layers + 1)   # prefill + 4 steps
+    # ln1, ln2 and the final norm, each fused with its residual add: 2L + 1
+    # per call, and with qk_norm the q and k norms of each layer: 2L more
+    per_call = 2 * cfg.num_layers + 1 + (2 * cfg.num_layers if cfg.qk_norm else 0)
+    assert fused_rmsnorm.launches - norms0 == 5 * per_call              # prefill + 4 steps
 
 
 @pytest.mark.parametrize("dt", DTYPES)

@@ -59,6 +59,8 @@ def _close(got: torch.Tensor, want, dt: str) -> None:
         (1, 2, 2, 128, 256, 128, False), # long kv, MXU-aligned head
         (1, 16, 2, 8, 8, 8, True),       # tiny
         (1, 4, 2, 20, 47, 16, True),     # causal Sq != Sk: top-left mask
+        (1, 8, 1, 65, 65, 256, True),    # gemma-2b's heads: G = 8 over KV = 1 at hd 256
+        (2, 8, 1, 20, 47, 256, False),   # the same, non-causal ragged tiles
     ],
 )
 def test_flash_attention_plain_matches_jax(b, h, kv, sq, sk, hd, causal, dt):
@@ -103,7 +105,8 @@ def _decode_inputs(b, h, kv, s, hd, lens, dt, seed):
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize(
     "b,h,kv,s,hd",
-    [(3, 8, 2, 512, 64), (1, 4, 4, 128, 32), (2, 8, 1, 1024, 128)],
+    [(3, 8, 2, 512, 64), (1, 4, 4, 128, 32), (2, 8, 1, 1024, 128),
+     (2, 8, 1, 300, 256)],            # gemma-2b's heads: G = 8 over KV = 1 at hd 256
 )
 def test_decode_attention_plain_matches_jax(b, h, kv, s, hd, dt):
     lens = np.linspace(1, s, b).astype(np.int32)
@@ -153,7 +156,8 @@ def test_decode_attention_length_above_cache(dt):
                          ids=["add", "add-gemma", "norm", "norm-gemma"])
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("shape", [(2, 37, 64), (1, 256, 128), (5, 3, 32), (4, 1, 1536),
-                                   (3, 5, 48), (3, 5, 52), (3, 5, 2048)])
+                                   (3, 5, 48), (3, 5, 52), (3, 5, 2048),
+                                   (2, 9, 4, 128)])      # qk_norm: (B, S, heads, head_dim)
 def test_rmsnorm_plain_matches_jax(shape, dt, residual, gemma, want):
     """Every mode the models call: the add + norm (the Pallas kernel's
     function), the norm alone and Gemma's ``1 + scale`` (the reference's
