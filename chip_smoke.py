@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout, on a machine with one GPU
 
 Drives the port's main paths (the serving plane's model step, for the
-dense and the xLSTM families) on the GPU, never the JAX reference
-package, in fourteen phases; any failed phase exits non-zero before the
+dense, xLSTM and MoE families) on the GPU, never the JAX reference
+package, in nineteen phases; any failed phase exits non-zero before the
 final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
@@ -15,7 +15,8 @@ final line:
    and the head-dim-256 ones of flash and decode attention, must spill
    nothing), and count the tensor-core instructions (``HMMA``) in the
    built flash-attention library: the bf16 kernels must have some,
-   ``flash_fwd_mma<256>`` included;
+   ``flash_fwd_mma<256>`` included; the decode-attention instantiations
+   that G = 16 runs (``decode_fwd<T, 128, 8, 2>``) must spill nothing;
 3. hold each kernel (K1-K5) against its plain PyTorch version on the card
    at the main paths' shapes plus ragged ones and the attention kernels'
    tile and split edges, in f32 and bf16 (K1 in every mode the models call:
@@ -24,9 +25,10 @@ final line:
    kernel, plain version and the nearest PyTorch library call (flash
    attention at S = 16, 100, 384 and 1024), and each wrapper's host time
    per call (K1's beside one ``torch.add``); K2 and K3 also at head dim
-   256 with G = 8 over KV = 1 (gemma-2b: the tile and split edges, prefill
-   S = 16, 100 and 384, decode over 4 slots), and K1 on qk_norm's rows of
-   128 beside ``F.rms_norm``; the K4 and K5 windows are
+   256 with G = 8 over KV = 1 (gemma-2b) and at head dim 128 with G = 16
+   over KV = 4 (qwen3-moe: K3 as two row groups): the tile and split
+   edges, prefill S = 16, 100 and 384, decode over 4 slots; K1 on
+   qk_norm's rows of 128 beside ``F.rms_norm``; the K4 and K5 windows are
    also printed by kernel name,
    K4 must be one kernel per call, and K5 is timed at the admission
    path's S = 16, 100 and 384, at decode's B = 4 S = 1 warm and with L2
@@ -57,7 +59,17 @@ final line:
    after its prewarm, so they count the fleet's requests only);
 9-14. full-width gemma-2b, llama3-8b and qwen3-8b, each in f32 (kernel
    path against plain path, as in 4) and in bf16 (served as in 5: 37, 65
-   and 145 fused norms a call, qwen3's qk_norm included).
+   and 145 fused norms a call, qwen3's qk_norm included);
+15. the MoE layer at qwen2-moe-a2.7b's width on 1024 tokens: the capacity
+   path with nothing dropped against the dropless path in f32, the pairs
+   the config's capacity drops, and each path's device and host ms beside
+   its bound, in f32 and bf16;
+16-19. full-width qwen2-moe-a2.7b (24 layers) and qwen3-moe-235b-a22b at
+   full width cut to 4 of its 94 layers, each in f32 (as in 4, under the
+   route rule: a route that differs between the paths must be a near tie,
+   and at most one call may be exempted for it) and in bf16 (served as in
+   5: 49 and 17 fused norms a call; the decode rounds' routed experts and
+   the bound they give).
 
 It prints a ``{"kernels": [...]}`` line and ends with one JSON line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -327,7 +339,9 @@ def phase_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from _attention_edges import DECODE_SHAPES, decode_edge_lens, flash_edge_cases
+    from _attention_edges import (DECODE_SHAPES, DECODE_SHAPES_GEMMA, DECODE_SHAPES_MOE, GEMMA_G,
+                                  GEMMA_HD, GEMMA_KV, MOE_G, MOE_HD, MOE_KV, decode_edge_lens,
+                                  flash_edge_cases, flash_edge_cases_gemma, flash_edge_cases_moe)
 
     from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
@@ -452,34 +466,44 @@ def phase_kernels(dev) -> dict:
     log_timings(f"decode_attention bf16 B=4 H=12 KV=2 S=512 hd=128 lens={lens}", t, "SDPA")
     report["decode_attention"] = {"max_abs_err": errs[("bfloat16", tuple(lens))],
                                   "shape": f"B=4 H=12 KV=2 S=512 hd=128 lens={lens} bf16", **t}
-    flash256, decode256 = phase_attention_hd256(dev, rnd, dts)
-    report["flash_attention"]["hd256"] = flash256
-    report["decode_attention"]["hd256"] = decode256
+    # gemma-2b (hd 256, G = 8 over 1) and qwen3-moe (hd 128, G = 16 over 4)
+    for key, (g, kvn, hdn, edges, shapes, what) in {
+            "hd256": (GEMMA_G, GEMMA_KV, GEMMA_HD, flash_edge_cases_gemma(), DECODE_SHAPES_GEMMA,
+                      "gemma-2b"),
+            "g16": (MOE_G, MOE_KV, MOE_HD, flash_edge_cases_moe(), DECODE_SHAPES_MOE,
+                    "qwen3-moe-235b-a22b")}.items():
+        flash_r, decode_r = phase_attention_shape(dev, rnd, dts, g=g, kv=kvn, hd=hdn,
+                                                  flash_edges=edges, decode_shapes=shapes,
+                                                  what=what)
+        report["flash_attention"][key] = flash_r
+        report["decode_attention"][key] = decode_r
     report.update(phase_slstm_scan(dev, rnd, dts))
     report.update(phase_ragged_concat(dev, gen))
     return report
 
 
-def phase_attention_hd256(dev, rnd, dts) -> tuple[dict, dict]:
-    """K2 and K3 at gemma-2b's head dim 256, G = 8 query heads over KV = 1,
-    in f32 and bf16 against their plain versions: every tile edge
-    (causal or not) and the prefill path's S = 16, 100 and 384; every split
-    edge and decode's 4 slots at lengths 397/250/130/17 over a 512-position
-    cache.  Timed in bf16 beside SDPA (``enable_gqa``; with a mask for
-    decode) and the bound.  Returns the bf16 timings, by shape."""
+def phase_attention_shape(dev, rnd, dts, *, g: int, kv: int, hd: int, flash_edges: list,
+                          decode_shapes: list, what: str) -> tuple[dict, dict]:
+    """K2 and K3 at one served model's attention shape (G query heads over
+    KV heads of ``hd``), in f32 and bf16 against their plain versions:
+    every tile edge of ``flash_edges`` (causal or not) and the prefill
+    path's S = 16, 100 and 384; every split edge of ``decode_shapes`` and
+    decode's 4 slots at lengths 397/250/130/17 over a 512-position cache.
+    Timed in bf16 beside SDPA (``enable_gqa``; with a mask for decode) and
+    the bound.  Returns the bf16 timings, by shape."""
     import torch
     import torch.nn.functional as F
 
-    from _attention_edges import (DECODE_SHAPES_GEMMA, GEMMA_G, GEMMA_HD, GEMMA_KV,
-                                  decode_edge_lens, flash_edge_cases_gemma)
+    from _attention_edges import decode_edge_lens
 
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                           decode_attention_ref,
+                                                          decode_row_groups,
                                                           decode_split_plan)
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
 
-    g, kv, hd = GEMMA_G, GEMMA_KV, GEMMA_HD
     h = g * kv
+    shape = f"hd={hd} G={g} KV={kv}"
 
     def qkv(b, sq, sk, dt):
         return (rnd(b, sq, h, hd, dt=dt).transpose(1, 2), rnd(b, sk, kv, hd, dt=dt).transpose(1, 2),
@@ -487,15 +511,15 @@ def phase_attention_hd256(dev, rnd, dts) -> tuple[dict, dict]:
 
     worst = {}
     for dname, dt in dts.items():
-        cases = [(sq, sk, b, c) for sq, sk, _, b, _ in flash_edge_cases_gemma()
+        cases = [(sq, sk, b, c) for sq, sk, _, b, _ in flash_edges
                  for c in (True, False)] + [(s, s, 1, True) for s in (16, 100, 384)]
         for sq, sk, b, causal in cases:
             q, k, v = qkv(b, sq, sk, dt)
-            e = check_close(f"flash {dname} hd=256 G=8 KV=1 B={b} Sq={sq} Sk={sk} "
+            e = check_close(f"flash {dname} {shape} B={b} Sq={sq} Sk={sk} "
                             f"causal={causal}", flash_attention(q, k, v, causal=causal),
                             flash_attention_ref(q, k, v, causal=causal), dname)
             worst[("flash", dname)] = max(worst.get(("flash", dname), 0.0), e)
-        log(f"flash_attention {dname} hd=256 G=8 KV=1: {len(cases)} cases (tile edges causal "
+        log(f"flash_attention {dname} {shape} ({what}): {len(cases)} cases (tile edges causal "
             f"or not, S = 16/100/384): max_abs_err {worst[('flash', dname)]:.3e}")
     flash = {}
     for s_ in (16, 100, 384):
@@ -507,29 +531,30 @@ def phase_attention_hd256(dev, rnd, dts) -> tuple[dict, dict]:
                                                            enable_gqa=True))
         t["bound_ms"], t["bound_by"] = bound_ms(2 * (2 * s_ * h * hd + 2 * s_ * kv * hd),
                                                 4 * hd * h * (s_ * (s_ + 1) // 2), "bfloat16")
-        log_timings(f"flash_attention bf16 B=1 H=8 KV=1 S={s_} hd=256", t, "SDPA")
+        log_timings(f"flash_attention bf16 B=1 H={h} KV={kv} S={s_} hd={hd}", t, "SDPA")
         flash[f"S={s_}"] = {**{k_: v_ for k_, v_ in t.items() if k_ != "wall_ms"},
                             "max_abs_err": worst[("flash", "bfloat16")]}
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = decode_row_groups(g)[0]
     path_lens = [397, 250, 130, 17]
     for dname, dt in dts.items():
-        for b, kvv, s_ in DECODE_SHAPES_GEMMA:
-            per, ns = decode_split_plan(s_, b, kvv, sms)
+        for b, kvv, s_ in decode_shapes:
+            per, ns = decode_split_plan(s_, b, kvv, sms, groups)
             qd = rnd(b, 1, g * kvv, hd, dt=dt)[:, 0]
             kc4, vc4 = rnd(b, s_, kvv, hd, dt=dt), rnd(b, s_, kvv, hd, dt=dt)
             rows = decode_edge_lens(per, s_, b) + ([path_lens] if b == 4 else [])
             for lens in rows:
                 lt = torch.tensor(lens, dtype=torch.int32, device=dev)
                 o = decode_attention(qd, kc4.transpose(1, 2), vc4.transpose(1, 2), lt)
-                e = check_close(f"decode {dname} hd=256 G=8 B={b} KV={kvv} S={s_} lens={lens}",
+                e = check_close(f"decode {dname} {shape} B={b} KV={kvv} S={s_} lens={lens}",
                                 o, decode_attention_ref(qd, kc4.transpose(1, 2),
                                                         vc4.transpose(1, 2), lt), dname)
                 if 0 in lens and o[lt == 0].abs().max() != 0:
-                    fail(f"decode {dname} hd=256 lens={lens}: a length-0 row is not 0")
+                    fail(f"decode {dname} {shape} lens={lens}: a length-0 row is not 0")
                 worst[("decode", dname)] = max(worst.get(("decode", dname), 0.0), e)
-            log(f"decode_attention {dname} hd=256 G=8 B={b} KV={kvv} S={s_}: P={per}, {ns} "
-                f"split(s), {len(rows)} length rows: max_abs_err so far "
+            log(f"decode_attention {dname} {shape} B={b} KV={kvv} S={s_}: {groups} row "
+                f"group(s), P={per}, {ns} split(s), {len(rows)} length rows: max_abs_err so far "
                 f"{worst[('decode', dname)]:.3e}")
     b, s_ = 4, 512
     qd = rnd(b, 1, h, hd, dt=torch.bfloat16)[:, 0]
@@ -545,9 +570,10 @@ def phase_attention_hd256(dev, rnd, dts) -> tuple[dict, dict]:
     n_valid = sum(path_lens)
     t["bound_ms"], t["bound_by"] = bound_ms(2 * (2 * b * h * hd + 2 * n_valid * kv * hd) + 4 * b,
                                             4 * hd * h * n_valid, "bfloat16")
-    log_timings(f"decode_attention bf16 B=4 H=8 KV=1 S=512 hd=256 lens={path_lens}", t, "SDPA")
+    log_timings(f"decode_attention bf16 B=4 H={h} KV={kv} S=512 hd={hd} lens={path_lens}", t,
+                "SDPA")
     decode = {k_: v_ for k_, v_ in t.items() if k_ != "wall_ms"}
-    decode.update(shape=f"B=4 H=8 KV=1 S=512 hd=256 lens={path_lens} bf16",
+    decode.update(shape=f"B=4 H={h} KV={kv} S=512 hd={hd} lens={path_lens} bf16",
                   max_abs_err=worst[("decode", "bfloat16")])
     return flash, decode
 
@@ -803,9 +829,79 @@ def phase_ragged_concat(dev, gen) -> dict:
 DENSE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 PATH_KERNELS = {"qwen2-1.5b": DENSE_KERNELS, "xlstm-1.3b": ("rmsnorm", "slstm_scan"),
                 "gemma-2b": DENSE_KERNELS, "llama3-8b": DENSE_KERNELS,
-                "qwen3-8b": DENSE_KERNELS}
+                "qwen3-8b": DENSE_KERNELS, "qwen2-moe-a2.7b": DENSE_KERNELS,
+                "qwen3-moe-235b-a22b": DENSE_KERNELS}
 # the dense siblings served after the fleet (phases 9-14), smallest first
 SIBLINGS = ("gemma-2b", "llama3-8b", "qwen3-8b")
+# the MoE family (phases 16-19), after its layer phase (15)
+MOE_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
+# depth cuts: qwen3-moe's 94 layers hold 470 GB in bf16; 4 of its identical
+# layers run every module and kernel shape that 94 would (PERF.md section 4)
+DEPTH = {"qwen3-moe-235b-a22b": 4}
+# a route that differs between the two f32 paths must be a near tie in the
+# plain path: its k-th and (k+1)-th router probabilities this close
+ROUTE_TIE = 1e-5
+
+
+def arch_config(arch: str, dtype: str | None = None):
+    """``arch``'s full config at its served depth (``DEPTH``), in ``dtype``
+    when given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch in DEPTH:
+        log(f"{arch}: depth cut from {cfg.num_layers} to {DEPTH[arch]} layers, widths as "
+            f"published")
+        cfg = cfg.scaled(num_layers=DEPTH[arch])
+    return cfg if dtype is None else cfg.scaled(param_dtype=dtype, compute_dtype=dtype)
+
+
+class RouteLog:
+    """The MoE layer's routes, recorded by wrapping the port's routing step
+    (``repro_torch.models.mlp._route``) from here: every call appends its
+    router probabilities and top-k experts.  ``close`` restores it."""
+
+    def __init__(self):
+        from repro_torch.models import mlp
+
+        self.mlp, self.route, self.calls = mlp, mlp._route, []
+
+        def recorded(x2d, router, k, e_valid):
+            out = self.route(x2d, router, k, e_valid)
+            self.calls.append((out[0], out[2]))
+            return out
+
+        mlp._route = recorded
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+    def close(self) -> None:
+        self.mlp._route = self.route
+        self.calls = []
+
+
+def route_flips(fast: list, plain: list, k: int, what: str) -> int:
+    """Tokens whose experts differ between the kernel path's and the plain
+    path's routes, layer by layer; 0 when every route agrees.  At the first
+    layer that differs, each differing token must be a near tie in the plain
+    path (k-th and (k+1)-th probabilities within ``ROUTE_TIE``), else the
+    run fails; later layers take that layer's output and are not held."""
+    if len(fast) != len(plain):
+        fail(f"{what}: {len(fast)} routed layers on the kernel path, {len(plain)} on plain")
+    for layer, ((_, ef), (pp, ep)) in enumerate(zip(fast, plain)):
+        differ = (ef.sort(-1).values != ep.sort(-1).values).any(-1)
+        n = int(differ.sum())
+        if n:
+            top = pp[differ].topk(k + 1, dim=-1).values
+            gaps = (top[:, k - 1] - top[:, k]).tolist()
+            log(f"{what}: routes of {n} token(s) differ at layer {layer}; plain path's k-th "
+                f"minus (k+1)-th probability {gaps} (near tie: <= {ROUTE_TIE})")
+            if max(gaps) > ROUTE_TIE:
+                fail(f"{what}: routes differ beyond a near tie at layer {layer}: gaps {gaps}")
+            return n
+    return 0
 
 
 def wrappers() -> dict:
@@ -821,16 +917,42 @@ def wrappers() -> dict:
 
 
 def phase_model_f32(dev, arch: str) -> None:
+    """Kernel path against plain path in f32 at full width: 4 prefills of
+    ragged prompts spliced into 4 slots, then 4 decode steps.  MoE archs
+    (routing is discontinuous): each call's routes are recorded on both
+    paths; a call whose routes all agree is held to ``MODEL_F32_REL_TOL``,
+    one whose routes differ must differ only at near ties (``route_flips``)
+    and is exempt, at most once in the 8 calls, after which the kernel path
+    carries on from the plain path's cache."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import Model
 
-    cfg = get_config(arch).scaled(param_dtype="float32", compute_dtype="float32")
+    cfg = arch_config(arch, "float32")
     fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
     params = fast.init(SEED)
     rng = np.random.default_rng(SEED)
+    routes = RouteLog() if cfg.family == "moe" else None
+    exempt = []
+
+    def both(what, fast_call, plain_call):
+        """Run a call on both paths; True when the logits are to be held
+        (no route differs)."""
+        out_k = fast_call()
+        rk = routes.take() if routes else []
+        out_p = plain_call()
+        rp = routes.take() if routes else []
+        n = route_flips(rk, rp, cfg.top_k, f"f32 {arch} {what}") if routes else 0
+        if n:
+            exempt.append(what)
+            log(f"f32 {arch} {what}: exempt from the logit bound (near-tie route flip; "
+                f"{len(exempt)} of at most 1 calls)")
+            if len(exempt) > 1:
+                fail(f"f32 {arch}: more than one call with a route flip: {exempt}")
+        elif routes:
+            log(f"f32 {arch} {what}: routes agree in all {len(rk)} MoE layers")
+        return out_k, out_p, not n
 
     def cmp(what, a, b):
         if not torch.isfinite(a).all():
@@ -849,23 +971,34 @@ def phase_model_f32(dev, arch: str) -> None:
     first = []
     for slot, n in enumerate(lens):
         tt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)), device=dev)
-        lk, k1 = fast.prefill(params, {"tokens": tt})
-        lp, p1 = plain.prefill(params, {"tokens": tt})
-        cmp(f"prefill S={n}", lk, lp)
-        fast.splice_cache(ck, k1, slot, n)
+        what = f"prefill S={n}"
+        (lk, k1), (lp, p1), held = both(what, lambda: fast.prefill(params, {"tokens": tt}),
+                                        lambda: plain.prefill(params, {"tokens": tt}))
+        if held:
+            cmp(what, lk, lp)
+        fast.splice_cache(ck, k1 if held else p1, slot, n)
         plain.splice_cache(cp, p1, slot, n)
         first.append(lp[0, -1].argmax())
         del k1, p1
     nxt = torch.stack(first)[:, None]
     for i in range(4):
-        lk, ck = fast.decode_step(params, ck, nxt)
-        lp, cp = plain.decode_step(params, cp, nxt)
-        cmp(f"decode step {i + 1}, 4 slots at lengths {[n + i for n in lens]}", lk, lp)
+        what = f"decode step {i + 1}, 4 slots at lengths {[n + i for n in lens]}"
+        (lk, ck), (lp, cp), held = both(what, lambda: fast.decode_step(params, ck, nxt),
+                                        lambda: plain.decode_step(params, cp, nxt))
+        if held:
+            cmp(what, lk, lp)
+        else:
+            for key in ("k", "v", "len"):
+                ck[key].copy_(cp[key])
         nxt = lp[:, -1].argmax(-1, keepdim=True)
     want = [n + 4 for n in lens]
     if ck["len"].tolist() != want or cp["len"].tolist() != want:
         fail(f"f32 {arch}: cache len {ck['len'].tolist()} / {cp['len'].tolist()}, "
              f"expected {want}")
+    if routes:
+        routes.close()
+        log(f"f32 {arch}: {8 - len(exempt)} of 8 calls held to the logit bound, exempt "
+            f"(near-tie route flips): {exempt or 'none'}")
     del params, ck, cp, lk, lp
     torch.cuda.empty_cache()
 
@@ -903,7 +1036,8 @@ def norms_per_call(cfg) -> int:
     """K1 launches one prefill or decode step makes: every RMSNorm, its
     residual add fused in.  Dense: ln1 and ln2 of each layer and the final
     norm (2L + 1), and with ``qk_norm`` the q and k norms of each layer (2L
-    more): gemma-2b 37, llama3-8b 65, qwen3-8b 145; xLSTM: each block's
+    more): gemma-2b 37, llama3-8b 65, qwen3-8b 145, qwen2-moe 49, qwen3-moe
+    at 4 layers 17 (the MoE layer norms nothing); xLSTM: each block's
     pre-norm and inner norm, each sLSTM block's ln_s2 and the final norm
     (103 at full width)."""
     if cfg.family == "xlstm":
@@ -916,14 +1050,13 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_requests, run, warmup
     from repro_torch.models import Model
     from repro_torch.runtime.server import InferenceServer
 
     ws = wrappers()
     names = PATH_KERNELS[arch]
-    cfg = get_config(arch)
+    cfg = arch_config(arch)
     model = Model(cfg, device=dev)
     params = model.init(SEED)
     n_params = sum(t.numel() for t in _leaves(params))
@@ -974,9 +1107,22 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
                 if stages[stage][name] <= 0:
                     fail(f"{arch}: kernel {name} was not launched in {stage}")
         log(f"{arch}: state cache {state_bytes / 1e9:.3f} GB for {SLOTS} slots")
-    bound_step = 1e3 * (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S
-    log(f"{arch} decode-round bound {bound_step:.3f} ms ((weights {weight_bytes / 1e9:.3f} GB "
-        f"+ 2 x state {state_bytes / 1e9:.3f} GB) / 3.35 TB/s)")
+    if cfg.family == "moe":
+        # a round reads the experts its SLOTS tokens route to, expected
+        # E * (1 - (1 - k/E)^(SLOTS)) of E per layer, and every other weight
+        e, k = cfg.num_experts, cfg.top_k
+        expert_bytes = sum(t.numel() * t.element_size() for p in params["layers"]
+                           for n, t in p["moe"].items() if n.startswith("e_"))
+        active = e * (1 - (1 - k / e) ** SLOTS)
+        read = weight_bytes - expert_bytes * (1 - active / e)
+        log(f"{arch} decode-round bound {1e3 * read / HBM_BYTES_PER_S:.3f} ms ({read / 1e9:.3f} "
+            f"GB: {SLOTS * k} routes a layer reach {active:.1f} of {e} experts in expectation, "
+            f"{expert_bytes / 1e9:.3f} GB of experts in all) / 3.35 TB/s)")
+        moe_bytes = (weight_bytes, expert_bytes, e)
+    else:
+        bound_step = 1e3 * (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S
+        log(f"{arch} decode-round bound {bound_step:.3f} ms ((weights {weight_bytes / 1e9:.3f} "
+            f"GB + 2 x state {state_bytes / 1e9:.3f} GB) / 3.35 TB/s)")
     again = run(srv, requests("again"))      # the same prompts again: run-to-run spread
     for i, o in enumerate((out, again)):
         log(f"{arch} serve run {i + 1}: {o['completed']} requests, prompts "
@@ -991,6 +1137,12 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
         fail(f"{arch}: second serve run did not complete cleanly")
 
     path_ms = profile_rounds(srv, cfg, {n: ws[n] for n in names})
+    if cfg.family == "moe":      # the bound for the experts the profiled rounds reached
+        weight_bytes, expert_bytes, e = moe_bytes
+        read = weight_bytes - expert_bytes * (1 - path_ms["moe"]["active_experts"] / e)
+        log(f"{arch} decode-round bound for the profiled rounds' routes: "
+            f"{1e3 * read / HBM_BYTES_PER_S:.3f} ms ({read / 1e9:.3f} GB, "
+            f"{path_ms['moe']['active_experts']:.2f} of {e} experts a layer)")
 
     plain_model = Model(cfg, device=dev, plain=True)
     plain_srv = serve(plain_model)
@@ -1011,15 +1163,93 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
     # flips where that gap is below the paths' difference)
     toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab_size,
                                                                  (1, PROMPT_MAX)), device=dev)
+    routes = RouteLog() if cfg.family == "moe" else None
     lk = model.prefill(params, {"tokens": toks})[0][0, -1].float()
+    rk = routes.take() if routes else []
     lp = plain_model.prefill(params, {"tokens": toks})[0][0, -1].float()
     top2 = lp.topk(2).values
     log(f"{arch} bf16 prefill logits at S={PROMPT_MAX}, kernel path vs plain path "
         f"(information): max abs {max_err(lk, lp):.4e}, logit scale "
         f"{float(lp.abs().max()):.4e}, plain top-2 gap {float(top2[0] - top2[1]):.4e}")
+    if routes:      # bf16 rounding moves routes at near ties, and each move compounds
+        rp = routes.take()
+        routes.close()
+        moved = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                 for (_, a), (_, b) in zip(rk, rp)]
+        log(f"{arch} bf16 prefill at S={PROMPT_MAX} (information): tokens whose experts "
+            f"differ between the paths, by layer: {moved}")
     del srv, plain_srv, params, model, plain_model
     torch.cuda.empty_cache()
     return {n: launches[n] for n in names}, path_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the MoE layer at qwen2-moe's width
+# ---------------------------------------------------------------------------
+
+MOE_LAYER_TOKENS = 1024
+
+
+def phase_moe_layer(dev) -> None:
+    """``moe_ffn`` at qwen2-moe-a2.7b's layer width (d 2048, 60 experts of
+    1408 top-4, 4 shared experts fused to 5632) on T = 1024 tokens, whose
+    4096 (token, expert) pairs give the experts about 68 rows each: the
+    capacity path at the config's factor of 1.25.  In f32 the capacity path
+    at factor 4.0 (nothing dropped) must match the dropless path within
+    3e-5 of the output's scale; the pairs dropped at 1.25 are counted.
+    Each path's device ms (torch.profiler) and host wall ms per call, in
+    f32 and bf16, beside the bound: every expert's weights and the shared
+    ones read once (all 60 experts are routed to at this T), x read and
+    the output written once; the GEMMs' operations over the dtype's peak."""
+    import torch
+
+    from repro_torch.models import mlp
+
+    base = arch_config("qwen2-moe-a2.7b").scaled(num_layers=1)
+    e, k, t = base.num_experts, base.top_k, MOE_LAYER_TOKENS
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        cfg = base.scaled(param_dtype=dname, compute_dtype=dname)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        p = mlp.init_moe(gen, cfg)
+        x = torch.randn(1, t, cfg.d_model, generator=gen, device=dev).to(dt)
+        args = (x[0], p["router"], p["e_gate"], p["e_up"], p["e_down"])
+        if dname == "float32":
+            drop = mlp._moe_local(*args, cfg=cfg, n_local=e, aux=False)[0]
+            cap = mlp._moe_local_capacity(*args, cfg=cfg.scaled(moe_capacity_factor=4.0),
+                                          n_local=e, aux=False)[0]
+            scale = float(drop.abs().max())
+            rel = max_err(cap, drop) / scale
+            log(f"moe layer f32 T={t}: capacity path (factor 4.0, no drops) vs dropless: "
+                f"max_abs_err {max_err(cap, drop):.3e}, output scale {scale:.3e}, rel "
+                f"{rel:.3e} (bound 3e-5)")
+            if not torch.isfinite(cap).all() or rel > 3e-5:
+                fail(f"moe layer: capacity path differs from dropless by {rel:.3e} relative")
+        se = mlp._dispatch(args[0], p["router"], cfg=cfg, n_local=e, offset=0, e_valid=None)[3]
+        sizes = torch.bincount(se, minlength=e + 1)[:e]
+        rows = -(-(int(cfg.moe_capacity_factor * t * k / e) + 1) // 128) * 128
+        dropped = int((sizes - rows).clamp(min=0).sum())
+        log(f"moe layer {dname} T={t}: at the config's factor {cfg.moe_capacity_factor} each "
+            f"expert gets {rows} rows; {dropped} of {t * k} pairs dropped; rows per expert "
+            f"{int(sizes.min())}-{int(sizes.max())}, {int((sizes > 0).sum())} of {e} experts "
+            f"routed to")
+        nbytes = sum(w.numel() * w.element_size() for w in _leaves(p)) + \
+            2 * x.numel() * x.element_size()
+        fs = cfg.d_ff_shared
+        flops = 2 * t * cfg.d_model * (3 * k * cfg.d_ff + 3 * fs + e + 1)
+        bound, by = bound_ms(nbytes, flops, dname)
+        for path, c in (("capacity", cfg), ("dropless", cfg.scaled(moe_capacity_factor=0.0))):
+            fn = lambda c=c: mlp.moe_ffn(p, x, cfg=c)  # noqa: E731
+            by_kernel = device_breakdown(fn, iters=10)
+            dev_ms = sum(ms for ms, _ in by_kernel.values())
+            launches = sum(n for _, n in by_kernel.values())
+            log(f"moe layer {dname} T={t} {path} path: device {dev_ms:.5f} ms per call "
+                f"({launches:g} device activities), host wall {cuda_ms(fn, iters=10):.5f} ms; "
+                f"bound {bound:.5f} ms ({by}: {nbytes / 1e9:.3f} GB, "
+                f"{flops / 1e9:.1f} GFLOP)")
+            log_breakdown(f"moe layer {dname} {path}", by_kernel)
+        del p, x, args
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1116,6 +1346,7 @@ def profile_rounds(srv, cfg, wrappers: dict, rounds: int = 4) -> dict:
     windows = []
     for n_rounds in (1, rounds):
         before = {k: w.launches for k, w in wrappers.items()}
+        routes = RouteLog() if cfg.family == "moe" and n_rounds == rounds else None
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
@@ -1125,6 +1356,14 @@ def profile_rounds(srv, cfg, wrappers: dict, rounds: int = 4) -> dict:
             wall = time.monotonic() - t0
         windows.append((prof, wall, n_rounds,
                         {k: w.launches - before[k] for k, w in wrappers.items()}))
+        if routes:
+            calls = routes.take()
+            routes.close()
+            active = [int(top_e.unique().numel()) for _, top_e in calls]
+            moe = {"active_experts": sum(active) / len(active), "layer_calls": len(active)}
+            log(f"profile, decode rounds: {len(active)} MoE layer calls routed "
+                f"{calls[0][1].numel()} pairs each to {min(active)}-{max(active)} "
+                f"experts, mean {moe['active_experts']:.2f} of {cfg.num_experts}")
     srv.serve()
 
     path_ms = {}
@@ -1161,6 +1400,8 @@ def profile_rounds(srv, cfg, wrappers: dict, rounds: int = 4) -> dict:
                 path_ms.setdefault(name, {})[label] = us / 1e3 / calls[name]
                 log(f"profile, {label}: {name} {calls[name]} launches, device "
                     f"{us / 1e3 / calls[name]:.5f} ms per launch")
+    if cfg.family == "moe":
+        path_ms["moe"] = moe
     return path_ms
 
 
@@ -1238,14 +1479,23 @@ def main() -> None:
     if not ptxas.get("rmsnorm") or spilled:
         fail(f"rmsnorm: no ptxas report, or instantiations that spill: {spilled}")
     # the head-dim-256 instantiations: flash_fwd<float, 256>, flash_fwd_mma<256>
-    # and decode_fwd<T, 256, G> for every built G
+    # and decode_fwd<T, 256, G, RG> for every built G and row-group count
     hd256 = [(k, spill) for n in ("flash_attention", "decode_attention")
              for k, _, spill in ptxas.get(n, ()) if re.search(r"\b256\b", k)]
     spilled = [k for k, spill in hd256 if re.search(r"[1-9]\d* bytes spill", spill)]
-    if len(hd256) != 12 or spilled:
-        fail(f"head dim 256: {len(hd256)} instantiations reported (expected 2 flash + 10 "
+    if len(hd256) != 16 or spilled:
+        fail(f"head dim 256: {len(hd256)} instantiations reported (expected 2 flash + 14 "
              f"decode), spilling: {spilled}")
     log(f"head dim 256: {len(hd256)} instantiations of flash and decode attention, no spills")
+    # G = 16 (qwen3-moe) runs two row groups of 8 through decode_fwd<T, 128, 8, 2>
+    g16 = [(k, spill) for k, _, spill in ptxas.get("decode_attention", ())
+           if re.search(r", 128, 8, 2>$", k)]
+    spilled = [k for k, spill in g16 if re.search(r"[1-9]\d* bytes spill", spill)]
+    if len(g16) != 2 or spilled:
+        fail(f"G = 16: {len(g16)} decode_fwd<T, 128, 8, 2> instantiations reported (expected "
+             f"2), spilling: {spilled}")
+    log(f"G = 16 at hd 128: the 2 decode_fwd<T, 128, 8, 2> instantiations its row groups run "
+        f"spill nothing")
     hmma = sass_counts("flash_attention", "HMMA")
     for fn, count in hmma.items():
         log(f"SASS flash_attention {fn}: {count} HMMA")
@@ -1276,6 +1526,10 @@ def main() -> None:
     launches[f"fleet {FLEET_ARCH}"] = phase_fleet(dev)
     log(f"phase 8 (serving fleet, {FLEET_ARCH}) done in {time.monotonic() - t0:.1f} s")
     model_phases(SIBLINGS, 9)
+    t0 = time.monotonic()
+    phase_moe_layer(dev)
+    log(f"phase 15 (MoE layer, qwen2-moe-a2.7b width) done in {time.monotonic() - t0:.1f} s")
+    model_phases(MOE_ARCHS, 16)
     log(f"all phases done in {time.monotonic() - T_START:.1f} s")
 
     kernels = []
@@ -1292,7 +1546,8 @@ def main() -> None:
                         "host_ms": r["host_ms"],
                         "path_device_ms_per_launch": {a: p[name] for a, p in path_ms.items()
                                                       if name in p},
-                        **{k: r[k] for k in ("by_seq", "hd256", "shapes", "variant", "cluster",
+                        **{k: r[k] for k in ("by_seq", "hd256", "g16", "shapes", "variant",
+                                             "cluster",
                                              "torch_add_host_ms")
                            if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,8 +14,8 @@ from repro_torch.models.common import ModelConfig
 __all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "model_100m"]
 
 _MODULES: dict[str, str | None] = {
-    "qwen2-moe-a2.7b": None,
-    "qwen3-moe-235b-a22b": None,
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "qwen3-8b": "qwen3_8b",
     "qwen2-1.5b": "qwen2_1_5b",
     "gemma-2b": "gemma_2b",

@@ -27,25 +27,39 @@
 //    registers; a row's dot products are reduced over its lanes with xor
 //    shuffles and scaled by scale*log2(e), the online softmax (exp2)
 //    runs per row slot, and P.V reuses the same lane-to-columns map, so
-//    each lane accumulates G x C x 8 f32; G is a template parameter, so every
-//    loop runs over the actual G: 1, 2, 4, 6 and 8 are built, and an odd
+//    each lane accumulates G x C x 8 f32; G is a template parameter, so
+//    every loop runs over the actual G: 1, 2, 4, 6 and 8 are built, and an odd
 //    G of 3, 5 or 7 runs in the next even build with its last row slot's
-//    q read as 0 and its output never written (20 instantiations, not 32);
-//  * the sequence is split among blocks of 4 warps: one block per
-//    (split, KV head, request).  The wrapper chooses the positions per
-//    block P (a multiple of 32): P = 32 * ceil(S / (32 * ceil(SMs / (B*KV))))
-//    gives about one block per SM over the whole grid; at B=4 KV=2 S=512 on
-//    132 SMs that is P = 32, 16 splits, 128 blocks, of which 54 hold valid
-//    positions at lengths 397/250/130/17 (the valid positions are only 1588
-//    rows of 512 bytes, 27 blocks of 32 per KV head; gemma-2b's B=4 KV=1
-//    hd 256 also gets P = 32 and 16 splits).  Splits past a
+//    q read as 0 and its output never written (20 instantiations of one
+//    row group, not 32);
+//  * more than 8 query rows per KV head (qwen3-moe: 64 heads over 4, G =
+//    16) would need 2 x G x EL f32 of a lane's registers for q and acc
+//    alone (256 at hd 128 bf16), so such a G runs as RG = ceil(G / 8) row
+//    groups of Gr = ceil(G / RG) rows (the last may hold fewer), each a
+//    block of its own on the grid's y axis beside its KV head, running the
+//    6- or 8-slot build for Gr rows.  The row groups of a KV head read the
+//    same cache rows (the second read mostly from L2) and keep their own
+//    partials and ticket counter.  RG is a template parameter: the RG = 1
+//    builds (G <= 8) compute the block's rows as a kernel without row
+//    groups would (Gr, last among the parameters, unread), and RG = 2 is
+//    built for 6 and 8 slots only;
+//  * the sequence is split among blocks of 4 warps: one block per (split,
+//    KV head and row group, request).  The wrapper chooses the positions
+//    per block P (a multiple of 32): P = 32 * ceil(S / (32 * ceil(SMs /
+//    (B*KV*RG)))) gives about one block per SM over the whole grid; at
+//    B=4 KV=2 S=512 on 132 SMs that is P = 32, 16 splits, 128 blocks, of
+//    which 54 hold valid positions at lengths 397/250/130/17 (the valid
+//    positions are only 1588 rows of 512 bytes, 27 blocks of 32 per KV
+//    head; gemma-2b's B=4 KV=1 hd 256 also gets P = 32 and 16 splits;
+//    qwen3-moe's B=4 KV=4 RG=2 gets P = 128 and 4 splits).  Splits past a
 //    request's length exit at once, so the bytes moved follow the data;
 //  * the warps of a block merge their (m, l, acc) in shared memory; when a
 //    request uses one split the block writes the output itself, otherwise
 //    each working split writes its partial to scratch, fences, and takes a
-//    ticket from a per-(request, KV head) counter; the block that takes the
-//    last ticket merges the used splits, writes the G output rows and sets
-//    the counter back to 0.  One launch per call, no combine kernel;
+//    ticket from a per-(request, KV head, row group) counter; the block
+//    that takes the last ticket merges the used splits, writes the group's
+//    output rows and sets the counter back to 0.  One launch per call, no
+//    combine kernel;
 //  * a length-0 request has no working split: split 0 writes its zeros;
 //  * the cache is read in place through its strides: the model passes one
 //    layer of its (B, Smax, KV, hd) cache viewed as (B, KV, Smax, hd).
@@ -54,11 +68,12 @@
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kMaxG = 8;                      // query rows per KV head
+constexpr int kMaxG = 8;                      // query rows a block runs
+constexpr int kMaxGroups = 2;                 // row groups per KV head: G <= 16
 constexpr int kMaxSplits = 256;               // splits one request may use
 
-// Row slots the kernel runs for Gq query rows per KV head: Gq when it is 1
-// or even, else Gq + 1 (the wrapper sizes the scratch by the same rule).
+// Row slots the kernel runs for Gq query rows of a row group: Gq when it is
+// 1 or even, else Gq + 1 (the wrapper sizes the scratch by the same rule).
 __host__ __device__ constexpr int row_slots(int Gq) { return Gq == 1 ? 1 : Gq + Gq % 2; }
 
 __device__ __forceinline__ int valid_len(const int* lengths, int b, int S) {
@@ -83,17 +98,25 @@ template <> __device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& u,
   }
 }
 
-// One block per (split, KV head, request); G row slots, of which the
-// first Gq (G or G - 1) are query rows.  Scratch, used only when a request
-// spans several splits: m/l (B, KV, NS, G) and acc (B, KV, NS, G, HD),
-// f32; tickets (B, KV) int32, all 0 between calls.
-template <typename T, int HD, int G>
+// The row groups for Gt query rows per KV head: RG = ceil(Gt / kMaxG)
+// groups of Gr = ceil(Gt / RG) rows, the last holding Gt - (RG - 1) * Gr.
+__host__ __device__ constexpr int row_groups(int Gt) { return (Gt + kMaxG - 1) / kMaxG; }
+__host__ __device__ constexpr int group_rows(int Gt) {
+  return (Gt + row_groups(Gt) - 1) / row_groups(Gt);
+}
+
+// One block per (split, unit, request), unit = KV head * RG + row group;
+// G row slots, of which the first Gq (at most Gr) are the group's query
+// rows.  Scratch, used only when a request spans several splits: m/l (B,
+// units, NS, G) and acc (B, units, NS, G, HD), f32, units = KV * RG;
+// tickets (B, units) int32, all 0 between calls.
+template <typename T, int HD, int G, int RG>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const int* __restrict__ lengths, T* __restrict__ o, float* __restrict__ pm,
-           float* __restrict__ pl, float* __restrict__ pacc, int* __restrict__ tickets, int KV,
-           int Gq, int S, int P, int NS, Strides qs, Strides ks, Strides vs,
-           long long osb, long long osh, float scale_log2) {
+           float* __restrict__ pl, float* __restrict__ pacc, int* __restrict__ tickets,
+           int units, int Gt, int S, int P, int NS, Strides qs, Strides ks, Strides vs,
+           long long osb, long long osh, float scale_log2, int Gr) {
   constexpr int E = 16 / sizeof(T);           // elements per 16-byte lane load
   constexpr int LPR = HD / E < 32 ? HD / E : 32;   // lanes per cache row
   constexpr int C = HD / (E * LPR);           // 16-byte chunks of a row per lane
@@ -106,10 +129,13 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   __shared__ float sAcc[kWarps][G][HD];
   __shared__ bool sLast;
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, unit = blockIdx.y, b = blockIdx.z;
+  const int kvh = unit / RG, rg = unit % RG;  // RG is 1 or 2: no division
+  const long long head0 = (long long)kvh * Gt + rg * Gr;   // this block's first query row
+  const int Gq = RG == 1 ? Gt : min(Gr, Gt - rg * Gr);   // and its query rows
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = valid_len(lengths, b, S);
-  T* ob = o + b * osb + (long long)kvh * Gq * osh;
+  T* ob = o + b * osb + head0 * osh;
   if (n == 0) {                               // no keys: the output is 0
     if (split == 0)
       for (int i = tid; i < Gq * HD; i += kWarps * 32)
@@ -123,7 +149,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int slot = lane / LPR, col = (lane % LPR) * E;
 
   float qv[G][EL];
-  const T* qb = q + b * qs.b + (long long)kvh * Gq * qs.h + col;
+  const T* qb = q + b * qs.b + head0 * qs.h + col;
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -230,7 +256,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
   __syncthreads();
 
-  const long long row0 = ((long long)(b * KV + kvh) * NS + split) * G;
+  const long long row0 = ((long long)(b * units + unit) * NS + split) * G;
   for (int i = tid; i < G * HD; i += kWarps * 32) {
     const int g = i / HD, d = i % HD;
     float mx = kNeg;
@@ -258,7 +284,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   // the block that draws the last ticket merges the used splits
   __threadfence();
   __syncthreads();
-  int* ticket = tickets + b * KV + kvh;
+  int* ticket = tickets + b * units + unit;
   if (tid == 0) sLast = atomicAdd(ticket, 1) == used - 1;
   __syncthreads();
   if (!sLast) return;
@@ -267,7 +293,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   // in parallel; then 1 / l per row; then the weighted sums of acc, 16
   // bytes a thread and several splits in flight
   __shared__ float sW[kMaxSplits * G], sInv[G];
-  const long long base0 = (long long)(b * KV + kvh) * NS * G;
+  const long long base0 = (long long)(b * units + unit) * NS * G;
   for (int i = tid; i < used * G; i += kWarps * 32) sW[i] = __ldcg(pm + base0 + i);
   __syncthreads();
   for (int g = warp; g < G; g += kWarps) {
@@ -312,41 +338,44 @@ struct Args {
   void* o;
   float *pm, *pl, *pacc;
   int* tickets;
-  int B, KV, Gq, S, P, NS;
+  int B, units, Gt, Gr, S, P, NS;
   Strides qs, ks, vs;
   long long osb, osh;
   float scale_log2;
 };
 
-template <typename T, int HD, int G>
+template <typename T, int HD, int G, int RG>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  decode_fwd<T, HD, G><<<dim3(a.NS, a.KV, a.B), kWarps * 32, 0, stream>>>(
+  decode_fwd<T, HD, G, RG><<<dim3(a.NS, a.units, a.B), kWarps * 32, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.lengths, static_cast<T*>(a.o), a.pm, a.pl, a.pacc, a.tickets, a.KV, a.Gq, a.S, a.P,
-      a.NS,
-      a.qs, a.ks, a.vs, a.osb, a.osh, a.scale_log2);
+      a.lengths, static_cast<T*>(a.o), a.pm, a.pl, a.pacc, a.tickets, a.units, a.Gt, a.S,
+      a.P, a.NS, a.qs, a.ks, a.vs, a.osb, a.osh, a.scale_log2, a.Gr);
   return cudaGetLastError();
 }
 
-// the build for a.Gq query rows: Gq itself, or the next even G
+// the build for a row group of a.Gr query rows: Gr itself, or the next even
+// G; two row groups (G of 9-16) run in 5-8 rows, the 6- or 8-slot build
 template <typename T, int HD>
 cudaError_t launch_g(const Args& a, cudaStream_t st) {
-  switch (row_slots(a.Gq)) {
-    case 1: return launch<T, HD, 1>(a, st);
-    case 2: return launch<T, HD, 2>(a, st);
-    case 4: return launch<T, HD, 4>(a, st);
-    case 6: return launch<T, HD, 6>(a, st);
-    default: return launch<T, HD, 8>(a, st);
+  if (a.Gt > kMaxG)
+    return row_slots(a.Gr) == 6 ? launch<T, HD, 6, 2>(a, st) : launch<T, HD, 8, 2>(a, st);
+  switch (row_slots(a.Gr)) {
+    case 1: return launch<T, HD, 1, 1>(a, st);
+    case 2: return launch<T, HD, 2, 1>(a, st);
+    case 4: return launch<T, HD, 4, 1>(a, st);
+    case 6: return launch<T, HD, 6, 1>(a, st);
+    default: return launch<T, HD, 8, 1>(a, st);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  P: cache positions per block, a
-// multiple of 32; the grid has NS = ceil(S / P) <= 256 splits.  Scratch the
-// caller allocates, with R = row_slots(H / KV): acc of B*KV*NS*R*hd floats
-// (16-byte aligned), m and l of B*KV*NS*R floats each,
-// and B*KV int32 tickets that are 0 before the first call (each call leaves
+// dtype: 0 = float32, 1 = bfloat16.  H / KV <= 16 query rows per KV head.
+// P: cache positions per block, a multiple of 32; the grid has NS =
+// ceil(S / P) <= 256 splits.  Scratch the caller allocates, with N = KV *
+// row_groups(H / KV) units and R = row_slots(group_rows(H / KV)): acc of
+// B*N*NS*R*hd floats (16-byte aligned), m and l of B*N*NS*R floats each,
+// and B*N int32 tickets that are 0 before the first call (each call leaves
 // them 0).  q, the caches and their strides must be 16-byte aligned.
 // Returns 0, a cudaError_t from the launch, or -1 when the arguments are
 // outside what the kernel takes.
@@ -356,12 +385,14 @@ extern "C" int decode_attention_fwd(
     int P, long long qsb, long long qsh, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb, long long osh, float scale,
     void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxG || B > 65535 ||
-      KV > 65535 || P < 32 || P % 32 != 0)
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxG * kMaxGroups ||
+      B > 65535 || KV * kMaxGroups > 65535 || P < 32 || P % 32 != 0)
     return -1;
   const int NS = (S + P - 1) / P;
   if (NS > kMaxSplits) return -1;
-  const Args a{q, k, v, lengths, o, pm, pl, pacc, tickets, B, KV, H / KV, S, P, NS,
+  const int Gt = H / KV, RG = row_groups(Gt);
+  const Args a{q, k, v, lengths, o, pm, pl, pacc, tickets, B, KV * RG, Gt, group_rows(Gt),
+               S, P, NS,
                Strides{qsb, qsh, 0}, Strides{ksb, ksh, kss}, Strides{vsb, vsh, vss},
                osb, osh, scale * 1.4426950408889634f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

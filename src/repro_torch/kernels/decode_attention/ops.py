@@ -9,7 +9,9 @@ strides: the model passes one layer of its (B, Smax, KV, hd) cache as a
 
 The sequence is split among blocks of :func:`decode_split_plan` positions;
 the splits of one request merge inside the same launch through a ticket
-counter per (request, KV head).  The counters live in one int32 buffer per
+counter per (request, KV head, row group).  Up to 8 query heads per KV head
+run in one block; more (at most 16) run as :func:`decode_row_groups`, each
+its own block.  The counters live in one int32 buffer per
 (device, stream), zeroed when it is allocated; every call leaves them 0.
 """
 
@@ -25,29 +27,42 @@ from .._device import (KERNEL_DTYPES, check_aligned, check_launch, device_kind,
                        on_device, stream_of)
 from .ref import decode_attention_ref
 
-__all__ = ["decode_attention", "decode_attention_ref", "decode_split_plan",
-           "KERNEL_HEAD_DIMS", "KERNEL_MAX_GROUP"]
+__all__ = ["decode_attention", "decode_attention_ref", "decode_row_groups",
+           "decode_split_plan", "KERNEL_HEAD_DIMS", "KERNEL_MAX_GROUP"]
 
 KERNEL_HEAD_DIMS = (64, 128, 256)
-KERNEL_MAX_GROUP = 8
+KERNEL_MAX_GROUP = 16
+_BLOCK_ROWS = 8                 # query rows one block runs (kMaxG in the source)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}     # (device, stream) -> int32 counters
 
 
-def decode_split_plan(s: int, b: int, kv: int, sms: int) -> tuple[int, int]:
+def decode_row_groups(g: int) -> tuple[int, int]:
+    """(row groups, rows per group) for ``g`` query heads per KV head:
+    ``ceil(g / 8)`` groups of ``ceil(g / groups)`` rows, the last holding
+    the rest (``row_groups``/``group_rows`` in ``csrc/decode_attention.cu``).
+    Group ``r`` of KV head ``h`` owns query heads ``h * g + r * rows`` up to
+    ``min(rows, g - r * rows)`` of them."""
+    groups = -(-g // _BLOCK_ROWS)
+    return groups, -(-g // groups)
+
+
+def decode_split_plan(s: int, b: int, kv: int, sms: int, row_groups: int = 1
+                      ) -> tuple[int, int]:
     """(positions per block, splits) for a cache of ``s`` positions.
 
-    The grid is (splits, kv, b).  Aim at ``ceil(sms / (b * kv))`` splits,
-    about one block per SM, and round each split up to a multiple of 32
-    positions (one block iteration of the kernel reads 16-64)."""
-    want = -(-sms // (b * kv))
+    The grid is (splits, kv * row_groups, b).  Aim at ``ceil(sms / (b * kv
+    * row_groups))`` splits, about one block per SM, and round each split
+    up to a multiple of 32 positions (one block iteration of the kernel
+    reads 16-64)."""
+    want = -(-sms // (b * kv * row_groups))
     per = 32 * -(-s // (32 * want))
     return per, -(-s // per)
 
 
 def _row_slots(g: int) -> int:
-    """Row slots the kernel runs for ``g`` query rows per KV head: 1, 2, 4,
-    6 and 8 are built, and an odd ``g`` runs in the next even build
+    """Row slots the kernel runs for ``g`` query rows of a row group: 1, 2,
+    4, 6 and 8 are built, and an odd ``g`` runs in the next even build
     (``row_slots`` in ``csrc/decode_attention.cu``); the scratch is sized
     by it."""
     return g if g == 1 else g + g % 2
@@ -114,14 +129,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     check_aligned("decode_attention", q=q, k_cache=k_cache, v_cache=v_cache)
     lib = _lib()
     dev = q.device
-    per, ns = decode_split_plan(s, b, kvh, _sm_count(dev.index))
-    g = h // kvh
+    groups, group_rows = decode_row_groups(h // kvh)
+    per, ns = decode_split_plan(s, b, kvh, _sm_count(dev.index), groups)
     out = torch.empty((b, h, hd), dtype=q.dtype, device=dev)
-    rows = b * kvh * ns * _row_slots(g)
+    rows = b * kvh * groups * ns * _row_slots(group_rows)
     part = torch.empty((hd + 2) * rows, dtype=torch.float32, device=dev)
     pacc, pm, pl = part.split([rows * hd, rows, rows])    # acc first: 16-byte aligned
     stream = stream_of(q)
-    tickets = _tickets(dev, stream, b * kvh)
+    tickets = _tickets(dev, stream, b * kvh * groups)
     with on_device(q):   # launch on the tensors' card
         code = lib.decode_attention_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),

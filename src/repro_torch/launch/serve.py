@@ -10,8 +10,13 @@ xlstm-1.3b`` serves full-width xlstm-1.3b (48 blocks [7 mLSTM : 1 sLSTM],
 d_model 2048, bf16, 3.61 B parameters) through the sLSTM scan and fused
 RMSNorm kernels; ``--arch llama3-8b``, ``qwen3-8b`` or ``gemma-2b`` serve
 those dense models at full width through the same kernels as qwen2-1.5b
-(gemma-2b's attention at head dim 256).  ``--size smoke`` or ``100m`` give
-the reduced configs;
+(gemma-2b's attention at head dim 256).  ``--arch qwen2-moe-a2.7b``
+serves the MoE family at full width (24 layers, 60 experts top-4 plus 4
+shared, 14.3 B parameters); ``--arch qwen3-moe-235b-a22b --layers 4``
+serves qwen3-moe at full width cut to 4 of its 94 layers (11.2 B
+parameters; the 94 layers, 470 GB in bf16, do not fit one card), with
+decode attention at 16 query heads per KV head.  ``--size smoke`` or
+``100m`` give the reduced configs, ``--layers N`` cuts any config's depth;
 ``--device cpu`` runs the kernels' plain versions on the CPU.
 """
 
@@ -33,8 +38,10 @@ __all__ = ["build_config", "make_requests", "run", "warmup", "main"]
 PROMPT_MIN, PROMPT_MAX = 16, 384     # unsized prompts, drawn uniformly
 
 
-def build_config(arch: str, size: str) -> ModelConfig:
-    return {"smoke": get_smoke_config, "100m": model_100m, "full": get_config}[size](arch)
+def build_config(arch: str, size: str, layers: int | None = None) -> ModelConfig:
+    """``arch`` at ``size``, its depth cut to ``layers`` when given."""
+    cfg = {"smoke": get_smoke_config, "100m": model_100m, "full": get_config}[size](arch)
+    return cfg.scaled(num_layers=layers) if layers else cfg
 
 
 def make_requests(n: int, *, vocab: int, prompt_min: int, prompt_max: int, max_new: int,
@@ -99,6 +106,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=PORTED_ARCH_IDS, default="qwen2-1.5b")
     ap.add_argument("--size", choices=("smoke", "100m", "full"), default="full")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth (default: all)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--slots", type=int, default=4)
@@ -107,7 +115,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args(argv)
 
-    cfg = build_config(args.arch, args.size)
+    cfg = build_config(args.arch, args.size, args.layers)
     model = Model(cfg, device=args.device)
     server = InferenceServer(model, slots=args.slots, max_seq=args.max_seq)
     server.load(model.init(args.seed))

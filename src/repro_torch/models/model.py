@@ -1,7 +1,7 @@
 """Unified model API for the port.
 
-Counterpart of ``repro/models/model.py``.  The ``dense`` and ``xlstm``
-families are ported; the others raise, naming their ROADMAP item.  A
+Counterpart of ``repro/models/model.py``.  The ``dense``, ``moe`` and
+``xlstm`` families are ported; the others raise, naming their ROADMAP item.  A
 ``Model`` lives on one device: ``cuda`` unless the caller passes
 ``device="cpu"``.
 """
@@ -16,12 +16,11 @@ from .common import ModelConfig
 __all__ = ["Model", "resolve_device"]
 
 _NOT_PORTED = {
-    "moe": "ROADMAP.md Queue 1 item 4 (MoE family)",
     "zamba2": "ROADMAP.md Queue 1 item 5 (Mamba2 / Zamba2)",
     "whisper": "ROADMAP.md Queue 1 item 6 (Whisper and mLLaMA)",
     "mllama": "ROADMAP.md Queue 1 item 6 (Whisper and mLLaMA)",
 }
-_FAMILIES = {"dense": transformer, "xlstm": xlstm_model}
+_FAMILIES = {"dense": transformer, "moe": transformer, "xlstm": xlstm_model}
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:

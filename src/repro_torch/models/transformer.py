@@ -1,6 +1,8 @@
-"""Decoder-only LM, dense family: init, prefill and decode.
+"""Decoder-only LM, dense and MoE families: init, prefill and decode.
 
-Counterpart of the dense branch of ``repro/models/transformer.py``.  The
+Counterpart of ``repro/models/transformer.py``.  The MoE family differs
+only in its FFN: each layer holds a ``moe`` subtree in place of ``mlp``
+and runs :func:`.mlp.moe_ffn` (plain torch, as in the reference).  The
 reference stacks layer parameters and runs ``lax.scan``; here ``params
 ["layers"]`` is a list of per-layer dicts walked by a Python loop.  The
 reference's sharding ``constrain`` calls have no counterpart on one card.
@@ -17,9 +19,9 @@ plain versions instead):
   layer's MLP output (layer 0's is the norm alone), ``ln2`` the attention
   output, and the final norm the last layer's MLP output, so a call is
   2L + 1 launches.  The layer loop therefore carries each layer's MLP
-  output into the next one un-added.  With ``qk_norm`` the per-head norms
-  of q and k go through the same kernel, norm alone, one call each over
-  rows of ``head_dim``: 2L more launches a call.
+  (or MoE) output into the next one un-added.  With ``qk_norm`` the
+  per-head norms of q and k go through the same kernel, norm alone, one
+  call each over rows of ``head_dim``: 2L more launches a call.
 
 Serving state is updated in place where the reference's jit donates it:
 ``decode_step`` writes the new token's k/v into ``cache`` and bumps
@@ -34,7 +36,7 @@ from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 
 from .attention import attention, decode_attention_append
 from .common import ModelConfig, apply_rope, dense_init, rope_freqs
-from .mlp import gated_mlp, init_mlp
+from .mlp import gated_mlp, init_mlp, init_moe, moe_ffn
 
 __all__ = ["init_params", "param_shapes", "prefill", "decode_step", "init_cache",
            "splice_cache"]
@@ -53,8 +55,17 @@ def param_shapes(cfg: ModelConfig) -> dict:
         attn.update(bq=(h, hd), bk=(kv, hd), bv=(kv, hd))
     if cfg.qk_norm:
         attn.update(q_norm=(hd,), k_norm=(hd,))
-    layer = {"attn": attn, "ln1": {"scale": (d,)}, "ln2": {"scale": (d,)},
-             "mlp": {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}}
+    layer = {"attn": attn, "ln1": {"scale": (d,)}, "ln2": {"scale": (d,)}}
+    if cfg.family == "moe":
+        e = cfg.num_experts
+        layer["moe"] = {"router": (d, e), "e_gate": (e, d, f), "e_up": (e, d, f),
+                        "e_down": (e, f, d)}
+        if cfg.num_shared_experts:
+            fs = cfg.d_ff_shared
+            layer["moe"]["shared"] = {"w_gate": (d, fs), "w_up": (d, fs), "w_down": (fs, d),
+                                      "shared_gate": (d,)}
+    else:
+        layer["mlp"] = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
     tree = {"tok_embed": (cfg.vocab_size, d), "layers": [layer] * cfg.num_layers,
             "final_norm": {"scale": (d,)}}
     if not cfg.tie_embeddings:
@@ -83,12 +94,12 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
     ones = lambda: torch.ones((cfg.d_model,), dtype=torch.float32, device=gen.device)  # noqa: E731
-    return {
-        "attn": init_attn(gen, cfg),
-        "ln1": {"scale": ones()},
-        "ln2": {"scale": ones()},
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdt),
-    }
+    layer = {"attn": init_attn(gen, cfg), "ln1": {"scale": ones()}, "ln2": {"scale": ones()}}
+    if cfg.family == "moe":
+        layer["moe"] = init_moe(gen, cfg)
+    else:
+        layer["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.pdt)
+    return layer
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -150,13 +161,16 @@ def attn_block(p: dict, x: torch.Tensor, sin, cos, cfg: ModelConfig, *, cache=No
 
 def layer_body(p: dict, x: torch.Tensor, m: torch.Tensor | None, sin, cos, cfg: ModelConfig,
                *, cache=None, plain: bool = False):
-    """One layer on the residual stream ``x`` plus the previous layer's MLP
+    """One layer on the residual stream ``x`` plus the previous layer's FFN
     output ``m``, not yet added (None before layer 0).  Returns (x, m,
-    kv_out): the stream before this layer's MLP output, and that output."""
+    kv_out): the stream before this layer's FFN output, and that output
+    (the dense MLP's, or the MoE layer's without its aux loss)."""
     norm = rmsnorm_ref if plain else fused_rmsnorm
     h1, x = norm(x, m, p["ln1"]["scale"], eps=cfg.norm_eps, gemma=cfg.gemma_norm)
     h, kv_out = attn_block(p["attn"], h1, sin, cos, cfg, cache=cache, plain=plain)
     h2, x = norm(x, h, p["ln2"]["scale"], eps=cfg.norm_eps, gemma=cfg.gemma_norm)
+    if cfg.family == "moe":
+        return x, moe_ffn(p["moe"], h2, cfg=cfg)[0], kv_out
     return x, gated_mlp(p["mlp"], h2, act=cfg.mlp_act), kv_out
 
 

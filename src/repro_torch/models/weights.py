@@ -45,7 +45,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device: torch.device | str) 
     """The reference's parameter tree (numpy leaves) as the port's parameters,
     every leaf mapped by name.
 
-    Dense: the ``layers`` axis is unstacked into a list of per-layer dicts.
+    Dense and MoE: the ``layers`` axis is unstacked into a list of
+    per-layer dicts (an MoE layer's ``moe`` subtree, shared experts
+    included, leaf by leaf).
     xLSTM: the port keeps the reference's stacked leaves as they are — the
     ``(ng, nm)`` axes of ``mlstm``/``ln_m``, the ``(ng,)`` axis of
     ``slstm`` (with its ``mlp``), ``ln_s`` and ``ln_s2``, and an untied

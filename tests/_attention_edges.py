@@ -5,8 +5,10 @@ kernel phase, so a change to the tiling updates both.
 Flash attention (K2) works in 64-row query tiles and 64-key tiles; decode
 attention (K3) splits the cache into blocks of ``decode_split_plan``
 positions and builds 1, 2, 4, 6 and 8 query rows per KV head (an odd
-count runs padded to the next even one).  Both build head dims 64, 128
-and 256; the 256 cases are gemma-2b's G = 8 over KV = 1."""
+count runs padded to the next even one); 9 to 16 run as two row groups of
+at most 8 rows, each its own block.  Both build head dims 64, 128 and 256;
+the 256 cases are gemma-2b's G = 8 over KV = 1, and qwen3-moe's G = 16
+over KV = 4 runs at 128."""
 
 EDGES = [1, 15, 63, 64, 65, 127, 383, 384, 385]
 EDGE_PAIRS = [(n, n) for n in EDGES] + [(n, m) for n, m in zip(EDGES, reversed(EDGES)) if n != m]
@@ -30,11 +32,24 @@ def flash_edge_cases_gemma() -> list[tuple[int, int, int, int, int]]:
     return [(sq, sk, GEMMA_G, b, GEMMA_KV) for sq, sk, _, b, _ in flash_edge_cases()]
 
 
+# qwen3-moe-235b-a22b's attention at head_dim 128: G = 16 query heads over KV = 4
+MOE_G, MOE_KV, MOE_HD = 16, 4, 128
+
+
+def flash_edge_cases_moe() -> list[tuple[int, int, int, int, int]]:
+    """The same (Sq, Sk) edges and batches with G = 16 over KV = 4."""
+    return [(sq, sk, MOE_G, b, MOE_KV) for sq, sk, _, b, _ in flash_edge_cases()]
+
+
 # (B, KV, S): one split (S = 16, 32 on 132 SMs) and many (16, 64)
 DECODE_SHAPES = [(4, 2, 512), (1, 1, 2048), (2, 2, 32), (3, 1, 16)]
 # gemma-2b's serving cache, KV = 1: 16 splits of 32 (4, 1, 512), one split, many
 DECODE_SHAPES_GEMMA = [(4, 1, 512), (2, 1, 32), (1, 1, 2048)]
-DECODE_GROUPS = (1, 3, 6, 7, 8)
+# qwen3-moe's serving cache, KV = 4 at G = 16 (two row groups): 4 splits of
+# 128 (4, 4, 512), one split, many
+DECODE_SHAPES_MOE = [(4, 4, 512), (2, 4, 32), (1, 4, 2048)]
+# 9: two row groups of 5 and 4 rows (the 6-slot build, the last group short)
+DECODE_GROUPS = (1, 3, 6, 7, 8, 9, 16)
 
 
 def decode_edge_lens(per: int, s: int, b: int) -> list[list[int]]:

@@ -8,7 +8,8 @@ causal diagonal skipped, even and odd tiles taken by two warp sets whose
 states merge at the end, or at head_dim 256 one set over every tile with
 O's columns split over two groups of warps (K2);
 the cache split into blocks of ``decode_split_plan`` positions, a partial
-(m, l, acc) per split and a merge (K3).  The models below follow that order
+(m, l, acc) per split and a merge, for each row group of at most 8 query
+heads of a KV head (K3).  The models below follow that order
 step by step, in f32, with p rounded to v's dtype before P.V as K2 does, so
 a fault in the order (a skipped tile that holds a visible key, a
 wrong merge, a length edge) shows here on the CPU.  Each is held against
@@ -28,7 +29,9 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ops import flash_attention_ref as jax_flash_ref
 from repro_torch.kernels._device import check_aligned
 from repro_torch.kernels.decode_attention.ops import KERNEL_HEAD_DIMS as DECODE_HEAD_DIMS
-from repro_torch.kernels.decode_attention.ops import decode_attention_ref, decode_split_plan
+from repro_torch.kernels.decode_attention.ops import (KERNEL_MAX_GROUP, _row_slots,
+                                                      decode_attention_ref, decode_row_groups,
+                                                      decode_split_plan)
 from repro_torch.kernels.flash_attention.ops import KERNEL_HEAD_DIMS as FLASH_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_attention_ref
 
@@ -128,6 +131,7 @@ FLASH_CASES = [
     (1, 2, 2, 1, 1, 8, True),          # a single query and key
     (1, 8, 1, 130, 130, 256, True),    # hd 256 (gemma-2b's G = 8, KV = 1): one set, split O
     (2, 8, 1, 65, 200, 256, False),    # the same, non-causal, ragged tiles
+    (1, 64, 4, 65, 65, 16, True),      # qwen3-moe's G = 16 over KV = 4
 ]
 
 
@@ -181,27 +185,37 @@ def test_mma_plans_fit_a_block():
 # ---------------------------------------------------------------------------
 
 
-def split_decode(q, k_cache, v_cache, lengths, *, sms=H100_SMS):
-    """The kernel's order of work: the cache cut into splits of P positions
-    (``decode_split_plan``); each split of a request's valid prefix makes a
-    partial (m, l, acc) with an online softmax over runs of 32 positions;
-    the used splits merge; a request of length 0 gives zeros."""
+def split_decode(q, k_cache, v_cache, lengths, *, sms=H100_SMS, owners=None):
+    """The kernel's order of work: the G query heads of a KV head cut into
+    row groups (``decode_row_groups``), the cache into splits of P
+    positions (``decode_split_plan``, counting every row group's blocks);
+    each split of a request's valid prefix makes a partial (m, l, acc) for
+    its row group with an online softmax over runs of 32 positions; the
+    used splits merge; a request of length 0 gives zeros.  ``owners``, if
+    given, collects (request, KV head, row group, query heads) per unit."""
     b, h, hd = q.shape
     kvh, s = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh
-    per, ns = decode_split_plan(s, b, kvh, sms)
+    groups, rows = decode_row_groups(g)
+    per, ns = decode_split_plan(s, b, kvh, sms, groups)
     scale = hd ** -0.5
     out = torch.zeros(b, h, hd)
+    units = [(kh, rg) for kh in range(kvh) for rg in range(groups)]   # the grid's y axis
     for bi in range(b):
         n = min(max(int(lengths[bi]), 0), s)
-        for kh in range(kvh):
-            qg = q[bi, kh * g:(kh + 1) * g].float()
+        for kh, rg in units:
+            head0 = kh * g + rg * rows
+            heads = list(range(head0, head0 + min(rows, g - rg * rows)))
+            if owners is not None:
+                owners.append((bi, kh, rg, heads))
+            qg = q[bi, heads].float()
             parts = []
             for split in range(ns):
                 s0 = split * per
                 if s0 >= n:
                     break                           # splits past the length exit
-                state = (torch.full((g,), NEG), torch.zeros(g), torch.zeros(g, hd))
+                state = (torch.full((len(heads),), NEG), torch.zeros(len(heads)),
+                         torch.zeros(len(heads), hd))
                 for r0 in range(s0, min(s0 + per, n), 32):
                     pos = torch.arange(r0, min(r0 + 32, s0 + per, n))
                     sc = (qg @ k_cache[bi, kh, pos].float().T) * scale
@@ -218,7 +232,7 @@ def split_decode(q, k_cache, v_cache, lengths, *, sms=H100_SMS):
             for part in parts[1:]:
                 merged = _merge(merged, part)
             m, l, acc = merged
-            out[bi, kh * g:(kh + 1) * g] = acc / torch.clamp(l, min=1e-30)[:, None]
+            out[bi, heads] = acc / torch.clamp(l, min=1e-30)[:, None]
     return out.to(q.dtype)
 
 
@@ -242,6 +256,8 @@ DECODE_CASES = [
     (2, 8, 1, 300, 32, 8, [299, 65]),                        # few SMs: P = 160, 2 splits
     (1, 4, 4, 16, 8, H100_SMS, [16]),                        # one split
     (4, 8, 1, 512, 256, H100_SMS, [397, 250, 130, 17]),      # gemma-2b: G = 8 at hd 256
+    (4, 64, 4, 512, 128, H100_SMS, [397, 250, 130, 17]),     # qwen3-moe: G = 16, two groups
+    (2, 36, 4, 96, 16, H100_SMS, [0, 95]),                   # G = 9: groups of 5 and 4
 ]
 
 
@@ -275,6 +291,45 @@ def test_decode_split_plan_rule():
                 assert per % 32 == 0 and per >= 32
                 assert per * ns >= s > per * (ns - 1)
                 assert ns <= max(1, -(-sms // (b * kv)))          # about one block per SM
+
+
+def test_decode_row_groups_own_each_query_row_once():
+    """Every G the kernel takes (1-16): ceil(G / 8) row groups of at most 8
+    rows each, a built row-slot count (1, 2, 4, 6, 8) per group, and the
+    groups of each KV head owning its G query heads exactly once; a G up
+    to 8 is one group (the blocks of a kernel without row groups)."""
+    assert KERNEL_MAX_GROUP == 16
+    for g in range(1, KERNEL_MAX_GROUP + 1):
+        groups, rows = decode_row_groups(g)
+        assert groups == -(-g // 8) and rows <= 8 and _row_slots(rows) in (1, 2, 4, 6, 8)
+        assert (groups, rows) == ((1, g) if g <= 8 else (2, -(-g // 2)))
+        kv = 3
+        owners = []
+        split_decode(torch.zeros(2, g * kv, 8), torch.zeros(2, kv, 32, 8),
+                     torch.zeros(2, kv, 32, 8), torch.tensor([5, 0], dtype=torch.int32),
+                     owners=owners)
+        assert len(owners) == 2 * kv * groups
+        for bi in range(2):
+            mine = [heads for b_, _, _, heads in owners if b_ == bi]
+            assert sorted(h for heads in mine for h in heads) == list(range(g * kv))
+            assert all(0 < len(heads) <= rows for heads in mine)
+        for _, kh, _, heads in owners:
+            assert all(h // g == kh for h in heads)          # a group reads its KV head
+
+
+def test_decode_split_plan_counts_row_groups():
+    """With row groups the plan counts B * KV * RG blocks per split: at
+    qwen3-moe's decode (B = 4, KV = 4, G = 16: two groups) over a 512
+    cache that is P = 128 and 4 splits, 128 blocks on 132 SMs; counting
+    only B * KV would give 8 splits of 64 and 256 blocks."""
+    groups, _ = decode_row_groups(16)
+    assert decode_split_plan(512, 4, 4, H100_SMS, groups) == (128, 4)
+    assert decode_split_plan(512, 4, 4, H100_SMS) == (64, 8)
+    for s in (16, 100, 512, 2048):
+        for b, kv in ((1, 4), (4, 4), (8, 1)):
+            per, ns = decode_split_plan(s, b, kv, H100_SMS, groups)
+            assert per % 32 == 0 and per * ns >= s > per * (ns - 1)
+            assert ns <= max(1, -(-H100_SMS // (b * kv * groups)))   # about one block per SM
 
 
 def decode_lane_map(hd: int, elem_bytes: int) -> tuple[int, int, int]:

@@ -10,13 +10,14 @@ products run in full f32 (TF32 off)."""
 
 import pytest
 import torch
-from _attention_edges import (DECODE_GROUPS, DECODE_SHAPES, DECODE_SHAPES_GEMMA, GEMMA_G,
-                              GEMMA_KV, decode_edge_lens, flash_edge_cases,
-                              flash_edge_cases_gemma)
+from _attention_edges import (DECODE_GROUPS, DECODE_SHAPES, DECODE_SHAPES_GEMMA,
+                              DECODE_SHAPES_MOE, GEMMA_G, GEMMA_KV, MOE_G, MOE_HD,
+                              decode_edge_lens, flash_edge_cases, flash_edge_cases_gemma,
+                              flash_edge_cases_moe)
 
 from repro_torch.configs import model_100m
 from repro_torch.kernels.decode_attention.ops import (decode_attention, decode_attention_ref,
-                                                      decode_split_plan)
+                                                      decode_row_groups, decode_split_plan)
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
 from repro_torch.kernels.ragged_concat.ops import ragged_concat, ragged_concat_ref
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
@@ -46,6 +47,39 @@ def _randn(dev, *shape, dt, seed):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     return torch.randn(shape, generator=g, device=dev).to(dt)
+
+
+def _record_routes(monkeypatch) -> list:
+    """Wrap the MoE layer's routing step: every call appends its (probs,
+    top experts) to the returned list."""
+    from repro_torch.models import mlp
+
+    log, route = [], mlp._route
+
+    def recorded(x2d, router, k, e_valid):
+        probs, top_p, top_e = route(x2d, router, k, e_valid)
+        log.append((probs, top_e))
+        return probs, top_p, top_e
+
+    monkeypatch.setattr(mlp, "_route", recorded)
+    return log
+
+
+def _routes_agree(fast: list, plain: list, k: int, tie: float = 1e-5) -> bool:
+    """Whether both paths picked the same experts for every token of every
+    layer.  Where they did not, each token that differs in the first such
+    layer must be a near tie in the plain path (its k-th and (k+1)-th
+    probabilities within ``tie``): a rounding difference at a tie, not a
+    fault.  Later layers take that layer's output, so they are not held."""
+    assert len(fast) == len(plain)
+    for (_, ef), (pp, ep) in zip(fast, plain):
+        differ = (ef.sort(-1).values != ep.sort(-1).values).any(-1)
+        if differ.any():
+            top = pp[differ].topk(k + 1, dim=-1).values
+            gaps = top[:, k - 1] - top[:, k]
+            assert bool((gaps <= tie).all()), f"routes differ beyond a near tie: gaps {gaps}"
+            return False
+    return True
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -83,8 +117,10 @@ def test_decode_attention_kernel_matches_plain(dev, lens, dt):
 def test_flash_attention_kernel_tile_edges(dev, hd, causal, dt):
     """Sq and Sk over the 64-row tile edges, equal and unequal both ways,
     with G = H / KV cycling through 1, 4, 6 and 8; at hd 256 (one warp set,
-    O split over two groups) also every edge at gemma-2b's G = 8, KV = 1."""
-    cases = flash_edge_cases() + (flash_edge_cases_gemma() if hd == 256 else [])
+    O split over two groups) also every edge at gemma-2b's G = 8, KV = 1,
+    and at hd 128 every edge at qwen3-moe's G = 16, KV = 4."""
+    cases = flash_edge_cases() + (flash_edge_cases_gemma() if hd == 256 else []) + \
+        (flash_edge_cases_moe() if hd == MOE_HD else [])
     for i, (sq, sk, g, b, kv) in enumerate(cases):
         q = _randn(dev, b, sq, g * kv, hd, dt=dt, seed=20 + i).transpose(1, 2)
         k = _randn(dev, b, sk, kv, hd, dt=dt, seed=40 + i).transpose(1, 2)
@@ -119,9 +155,10 @@ def _check_decode(q, kc, vc, lens, dt, what):
 def test_decode_attention_kernel_split_edges(dev, b, kv, s, g, hd, dt):
     """Lengths at the split edges (0, 1, P-1, P, P+1, S-1, S, > S), all
     full, on shapes that give one split (S = 16, 32) and many (16, 64);
-    odd G (3, 7) runs padded to the next even build."""
+    odd G (3, 7) runs padded to the next even build; G = 9 and 16 run as
+    two row groups (9: of 5 and 4 rows)."""
     per, ns = decode_split_plan(s, b, kv, torch.cuda.get_device_properties(dev)
-                                .multi_processor_count)
+                                .multi_processor_count, decode_row_groups(g)[0])
     q, kc, vc = _decode_case(dev, b, g * kv, kv, s, hd, dt, seed=80 + s + g)
     for lens in decode_edge_lens(per, s, b):
         _check_decode(q, kc, vc, lens, dt, f"P={per} NS={ns} lens={lens}")
@@ -138,6 +175,33 @@ def test_decode_attention_kernel_split_edges_gemma(dev, b, kv, s, dt):
     q, kc, vc = _decode_case(dev, b, GEMMA_G * kv, kv, s, 256, dt, seed=100 + s)
     for lens in decode_edge_lens(per, s, b) + [[397, 250, 130, 17][:b]]:
         _check_decode(q, kc, vc, lens, dt, f"hd 256 P={per} NS={ns} lens={lens}")
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,kv,s", DECODE_SHAPES_MOE)
+def test_decode_attention_kernel_split_edges_moe(dev, b, kv, s, dt):
+    """qwen3-moe's decode attention: G = 16 over KV = 4 at hd 128, two row
+    groups of 8 query heads, each its own block with its own partials and
+    ticket counter; lengths at the split edges and the path's."""
+    groups, _ = decode_row_groups(MOE_G)
+    per, ns = decode_split_plan(s, b, kv, torch.cuda.get_device_properties(dev)
+                                .multi_processor_count, groups)
+    q, kc, vc = _decode_case(dev, b, MOE_G * kv, kv, s, MOE_HD, dt, seed=120 + s)
+    for lens in decode_edge_lens(per, s, b) + [[397, 250, 130, 17][:b]]:
+        _check_decode(q, kc, vc, lens, dt, f"G=16 KV=4 P={per} NS={ns} lens={lens}")
+
+
+def test_wrappers_reject_bad_inputs(dev):
+    """On the card a G above 16 query heads per KV head (17) raises instead
+    of launching or falling back to the plain version; 16 launches."""
+    for dt in DTYPES:
+        q, kc, vc = _decode_case(dev, 2, 17 * 2, 2, 64, 128, dt, seed=7)
+        lt = torch.tensor([5, 64], dtype=torch.int32, device=dev)
+        n = decode_attention.launches
+        with pytest.raises(ValueError, match="at most 16"):
+            decode_attention(q, kc, vc, lt)
+        assert decode_attention.launches == n
+        _check_decode(q[:, :32], kc, vc, [5, 64], dt, "G=16")
 
 
 def test_attention_kernels_reject_unbuilt_head_dim(dev):
@@ -283,30 +347,55 @@ def test_rmsnorm_kernel_strided_and_unaligned(dev, dt):
              tie_embeddings=False),
     dict(arch="llama3-8b"), dict(arch="qwen3-8b"),
     dict(arch="gemma-2b", head_dim=256, num_heads=8, num_kv_heads=1),
-], ids=["qwen2", "dense-variants", "llama3-8b", "qwen3-8b", "gemma-2b-hd256"])
-def test_model_kernel_path_matches_plain_path(dev, variants):
+    dict(arch="qwen2-moe-a2.7b"),
+    dict(arch="qwen3-moe-235b-a22b", head_dim=128, num_heads=64, num_kv_heads=4),
+], ids=["qwen2", "dense-variants", "llama3-8b", "qwen3-8b", "gemma-2b-hd256",
+        "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b-g16"])
+def test_model_kernel_path_matches_plain_path(dev, variants, monkeypatch):
     """f32, 2 layers of the 100m config (head_dim 64; gemma-2b's case at its
-    full 8 heads over 1 KV head of 256): prefill and 4 decode steps through
-    the kernels agree with the plain path.  1e-4, looser than the
-    per-kernel 3e-5, because each layer adds the kernels' own
-    summation-order differences to logits of scale ~1-10.  The variant case
-    sends gemma's ``1 + scale`` norm through the fused kernel too, and
-    qwen3's ``qk_norm`` adds 2L norm-only launches a call."""
+    full 8 heads over 1 KV head of 256, qwen3-moe's at its full 64 heads
+    over 4 of 128): prefill and 4 decode steps through the kernels agree
+    with the plain path.  1e-4, looser than the per-kernel 3e-5, because
+    each layer adds the kernels' own summation-order differences to logits
+    of scale ~1-10.  The variant case sends gemma's ``1 + scale`` norm
+    through the fused kernel too, and qwen3's ``qk_norm`` adds 2L
+    norm-only launches a call.  MoE routing is discontinuous: a call whose
+    routes differ between the paths is held to the route rule instead of
+    the logits (:func:`_routes_agree`), at most once, and the kernel path
+    then continues from the plain path's cache."""
     variants = dict(variants)
     cfg = model_100m(variants.pop("arch", "qwen2-1.5b")).scaled(num_layers=2, **variants)
     fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
     params = fast.init(0)
+    routes = _record_routes(monkeypatch)
+    flips = 0
+
+    def both(call_fast, call_plain):
+        nonlocal flips
+        routes.clear()
+        lk, ck = call_fast()
+        fast_routes = routes[:]
+        routes.clear()
+        lp, cp = call_plain()
+        if _routes_agree(fast_routes, routes[:], cfg.top_k):
+            torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+        else:
+            flips += 1
+            for key in ("k", "v", "len"):
+                ck[key].copy_(cp[key])
+        return lp, ck, cp
+
     norms0 = fused_rmsnorm.launches
     toks = torch.randint(0, cfg.vocab_size, (1, 77), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(1))
-    lk, ck = fast.prefill(params, {"tokens": toks}, max_seq=128)
-    lp, cp = plain.prefill(params, {"tokens": toks}, max_seq=128)
-    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    lp, ck, cp = both(lambda: fast.prefill(params, {"tokens": toks}, max_seq=128),
+                      lambda: plain.prefill(params, {"tokens": toks}, max_seq=128))
     for _ in range(4):
         nxt = lp[:, -1].argmax(-1, keepdim=True)
-        lk, ck = fast.decode_step(params, ck, nxt)
-        lp, cp = plain.decode_step(params, cp, nxt)
-        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+        lp, ck, cp = both(lambda: fast.decode_step(params, ck, nxt),
+                          lambda: plain.decode_step(params, cp, nxt))
+    assert flips <= 1
+    assert bool(routes) == (cfg.family == "moe")
     assert torch.equal(ck["len"], cp["len"])
     # ln1, ln2 and the final norm, each fused with its residual add: 2L + 1
     # per call, and with qk_norm the q and k norms of each layer: 2L more
