@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout, on a machine with one GPU
 
 Drives the port's main paths (the serving plane's model step, for the
-dense, xLSTM and MoE families) on the GPU, never the JAX reference
-package, in nineteen phases; any failed phase exits non-zero before the
+dense, xLSTM, MoE and Zamba2 families) on the GPU, never the JAX reference
+package, in twenty-one phases; any failed phase exits non-zero before the
 final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
@@ -16,7 +16,9 @@ final line:
    nothing), and count the tensor-core instructions (``HMMA``) in the
    built flash-attention library: the bf16 kernels must have some,
    ``flash_fwd_mma<256>`` included; the decode-attention instantiations
-   that G = 16 runs (``decode_fwd<T, 128, 8, 2>``) must spill nothing;
+   that G = 16 runs (``decode_fwd<T, 128, 8, 2>``) must spill nothing, and
+   so must every head-dim-80 instantiation of both, ``flash_fwd_mma<80>``
+   holding ``HMMA``;
 3. hold each kernel (K1-K5) against its plain PyTorch version on the card
    at the main paths' shapes plus ragged ones and the attention kernels'
    tile and split edges, in f32 and bf16 (K1 in every mode the models call:
@@ -26,8 +28,9 @@ final line:
    attention at S = 16, 100, 384 and 1024), and each wrapper's host time
    per call (K1's beside one ``torch.add``); K2 and K3 also at head dim
    256 with G = 8 over KV = 1 (gemma-2b) and at head dim 128 with G = 16
-   over KV = 4 (qwen3-moe: K3 as two row groups): the tile and split
-   edges, prefill S = 16, 100 and 384, decode over 4 slots; K1 on
+   over KV = 4 (qwen3-moe: K3 as two row groups) and at head dim 80 with
+   G = 1 over KV = 32 (zamba2-2.7b): the tile and split edges, prefill
+   S = 16, 100 and 384, decode over 4 slots; K1 on
    qk_norm's rows of 128 beside ``F.rms_norm``; the K4 and K5 windows are
    also printed by kernel name,
    K4 must be one kernel per call, and K5 is timed at the admission
@@ -69,7 +72,16 @@ final line:
    route rule: a route that differs between the paths must be a near tie,
    and at most one call may be exempted for it) and in bf16 (served as in
    5: 49 and 17 fused norms a call; the decode rounds' routed experts and
-   the bound they give).
+   the bound they give);
+20. full-width zamba2-2.7b in f32: kernel path against plain path, as in
+   4 (its 311-token prompt spans a chunk and a padded one), then the
+   parallel prefill's Mamba states and next-step logits against the
+   sequential replay of a 300-token prompt;
+21. full-width zamba2-2.7b in bf16, served as in 5: 127 fused norms a
+   call, one flash-attention launch a prefill and one decode-attention
+   launch a decode step per invocation of the shared block (9 each), and
+   the decode round's bytes bound with the shared block's weights read at
+   each of its 9 invocations.
 
 It prints a ``{"kernels": [...]}`` line and ends with one JSON line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -339,9 +351,11 @@ def phase_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from _attention_edges import (DECODE_SHAPES, DECODE_SHAPES_GEMMA, DECODE_SHAPES_MOE, GEMMA_G,
-                                  GEMMA_HD, GEMMA_KV, MOE_G, MOE_HD, MOE_KV, decode_edge_lens,
-                                  flash_edge_cases, flash_edge_cases_gemma, flash_edge_cases_moe)
+    from _attention_edges import (DECODE_SHAPES, DECODE_SHAPES_GEMMA, DECODE_SHAPES_MOE,
+                                  DECODE_SHAPES_ZAMBA2, GEMMA_G, GEMMA_HD, GEMMA_KV, MOE_G, MOE_HD,
+                                  MOE_KV, ZAMBA_G, ZAMBA_HD, ZAMBA_KV, decode_edge_lens,
+                                  flash_edge_cases, flash_edge_cases_gemma, flash_edge_cases_moe,
+                                  flash_edge_cases_zamba2)
 
     from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
@@ -466,12 +480,15 @@ def phase_kernels(dev) -> dict:
     log_timings(f"decode_attention bf16 B=4 H=12 KV=2 S=512 hd=128 lens={lens}", t, "SDPA")
     report["decode_attention"] = {"max_abs_err": errs[("bfloat16", tuple(lens))],
                                   "shape": f"B=4 H=12 KV=2 S=512 hd=128 lens={lens} bf16", **t}
-    # gemma-2b (hd 256, G = 8 over 1) and qwen3-moe (hd 128, G = 16 over 4)
+    # gemma-2b (hd 256, G = 8 over 1), qwen3-moe (hd 128, G = 16 over 4) and
+    # zamba2-2.7b (hd 80, G = 1 over 32)
     for key, (g, kvn, hdn, edges, shapes, what) in {
             "hd256": (GEMMA_G, GEMMA_KV, GEMMA_HD, flash_edge_cases_gemma(), DECODE_SHAPES_GEMMA,
                       "gemma-2b"),
             "g16": (MOE_G, MOE_KV, MOE_HD, flash_edge_cases_moe(), DECODE_SHAPES_MOE,
-                    "qwen3-moe-235b-a22b")}.items():
+                    "qwen3-moe-235b-a22b"),
+            "hd80": (ZAMBA_G, ZAMBA_KV, ZAMBA_HD, flash_edge_cases_zamba2(),
+                     DECODE_SHAPES_ZAMBA2, "zamba2-2.7b")}.items():
         flash_r, decode_r = phase_attention_shape(dev, rnd, dts, g=g, kv=kvn, hd=hdn,
                                                   flash_edges=edges, decode_shapes=shapes,
                                                   what=what)
@@ -830,11 +847,15 @@ DENSE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 PATH_KERNELS = {"qwen2-1.5b": DENSE_KERNELS, "xlstm-1.3b": ("rmsnorm", "slstm_scan"),
                 "gemma-2b": DENSE_KERNELS, "llama3-8b": DENSE_KERNELS,
                 "qwen3-8b": DENSE_KERNELS, "qwen2-moe-a2.7b": DENSE_KERNELS,
-                "qwen3-moe-235b-a22b": DENSE_KERNELS}
+                "qwen3-moe-235b-a22b": DENSE_KERNELS, "zamba2-2.7b": DENSE_KERNELS}
 # the dense siblings served after the fleet (phases 9-14), smallest first
 SIBLINGS = ("gemma-2b", "llama3-8b", "qwen3-8b")
 # the MoE family (phases 16-19), after its layer phase (15)
 MOE_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
+# the Zamba2 family (phases 20-21), last
+ZAMBA_ARCHS = ("zamba2-2.7b",)
+# a prompt longer than zamba2's chunk of 256 for the replay check of phase 20
+REPLAY_PROMPT = 300
 # depth cuts: qwen3-moe's 94 layers hold 470 GB in bf16; 4 of its identical
 # layers run every module and kernel shape that 94 would (PERF.md section 4)
 DEPTH = {"qwen3-moe-235b-a22b": 4}
@@ -999,8 +1020,43 @@ def phase_model_f32(dev, arch: str) -> None:
         routes.close()
         log(f"f32 {arch}: {8 - len(exempt)} of 8 calls held to the logit bound, exempt "
             f"(near-tie route flips): {exempt or 'none'}")
-    del params, ck, cp, lk, lp
+    del ck, cp, lk, lp
+    if cfg.family == "zamba2":
+        check_prefill_replay(dev, params, cfg, rng, arch)
+    del params
     torch.cuda.empty_cache()
+
+
+def check_prefill_replay(dev, params: dict, cfg, rng, arch: str) -> None:
+    """Zamba2's parallel prefill (one chunked SSD pass) against its
+    sequential replay (the prompt as decode steps from the zero state), both
+    on the kernel path, on a prompt of ``REPLAY_PROMPT`` tokens: longer than
+    the chunk of 256, so the inter-chunk scan and a padded chunk run at full
+    width.  Every Mamba state leaf and the next step's logits from each
+    cache must agree within ``MODEL_F32_REL_TOL`` of their scale."""
+    import torch
+
+    from repro_torch.models import zamba2_model as zm
+
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, REPLAY_PROMPT)), device=dev)
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        lp, cp = zm.prefill(params, toks, cfg, max_seq=REPLAY_PROMPT + 1)
+        ls, cs = zm.prefill_sequential(params, toks, cfg, max_seq=REPLAY_PROMPT + 1)
+        nxt = lp[:, -1].argmax(-1, keepdim=True)
+        step = {"parallel": zm.decode_step(params, cp, nxt, cfg)[0],
+                "replay": zm.decode_step(params, cs, nxt, cfg)[0]}
+    pairs = {f"mamba/{k}": (cp["mamba"][k], cs["mamba"][k]) for k in cp["mamba"]}
+    pairs["next-step logits"] = (step["parallel"], step["replay"])
+    for what, (a, b) in pairs.items():
+        scale = float(b.abs().max())
+        err = max_err(a, b)
+        log(f"f32 {arch} prefill S={REPLAY_PROMPT}, parallel vs sequential replay, {what}: "
+            f"max_abs_err {err:.3e} (scale {scale:.3e}, rel {err / scale:.3e}, bound "
+            f"{MODEL_F32_REL_TOL})")
+        if not torch.isfinite(a).all() or err > MODEL_F32_REL_TOL * scale:
+            fail(f"f32 {arch}: parallel prefill differs from its sequential replay in {what}")
+    log(f"f32 {arch}: replay check done in {time.monotonic() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1039,11 +1095,38 @@ def norms_per_call(cfg) -> int:
     more): gemma-2b 37, llama3-8b 65, qwen3-8b 145, qwen2-moe 49, qwen3-moe
     at 4 layers 17 (the MoE layer norms nothing); xLSTM: each block's
     pre-norm and inner norm, each sLSTM block's ln_s2 and the final norm
-    (103 at full width)."""
+    (103 at full width); Zamba2: each Mamba2 block's pre-norm and inner
+    norm, ln1 and ln2 at each invocation of the shared block, and the final
+    norm (127 at full width)."""
+    if cfg.family == "zamba2":
+        return 2 * cfg.num_layers + 2 * (cfg.num_layers // cfg.attn_every) + 1
     if cfg.family == "xlstm":
         n_slstm = cfg.num_layers // cfg.slstm_every if cfg.slstm_every > 0 else 0
         return 2 * cfg.num_layers + n_slstm + 1
     return 2 * cfg.num_layers + 1 + (2 * cfg.num_layers if cfg.qk_norm else 0)
+
+
+def attention_per_call(cfg) -> int:
+    """Flash-attention launches a prefill, and decode-attention launches a
+    decode step, make: one per layer (dense, MoE), one per invocation of
+    the shared block (Zamba2: 9 at full width), none on xLSTM."""
+    if cfg.family == "zamba2":
+        return cfg.num_layers // cfg.attn_every
+    return 0 if cfg.family == "xlstm" else cfg.num_layers
+
+
+def zamba2_round_bytes(params: dict, cfg, cache: dict) -> dict:
+    """The bytes a Zamba2 decode round must move, by part, without the K/V:
+    every Mamba2 block's weights once, the shared block's weights once at
+    each of its invocations (0.21 GB at full width, above the 50 MB L2),
+    ``lm_head`` and the final norm (the embedding reads one row a slot),
+    and the slots' Mamba states read and written."""
+    ng = cfg.num_layers // cfg.attn_every
+    size = lambda tree: sum(t.numel() * t.element_size() for t in _leaves(tree))  # noqa: E731
+    return {"mamba": size(params["mamba"]) + size(params["ln_m"]),
+            "shared": ng * size(params["shared"]),
+            "head": size(params["lm_head"]) + size(params["final_norm"]),
+            "state": 2 * size(cache["mamba"])}
 
 
 def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
@@ -1101,6 +1184,14 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
             fail(f"{arch}: {stages[stage]['rmsnorm']} rmsnorm launches in {calls} {stage} "
                  f"calls, expected {want} per call")
     log(f"{arch}: {norms_per_call(cfg)} rmsnorm launches per prefill and per decode call")
+    for stage, name in (("prefill", "flash_attention"), ("decode", "decode_attention")):
+        calls, want = stages["calls"][stage], attention_per_call(cfg)
+        if want and stages[stage][name] != calls * want:
+            fail(f"{arch}: {stages[stage][name]} {name} launches in {calls} {stage} calls, "
+                 f"expected {want} per call")
+    if attention_per_call(cfg):
+        log(f"{arch}: {attention_per_call(cfg)} flash_attention launches per prefill and "
+            f"decode_attention launches per decode call")
     if cfg.family == "xlstm":
         for stage in ("prefill", "decode"):
             for name in names:
@@ -1119,6 +1210,12 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
             f"GB: {SLOTS * k} routes a layer reach {active:.1f} of {e} experts in expectation, "
             f"{expert_bytes / 1e9:.3f} GB of experts in all) / 3.35 TB/s)")
         moe_bytes = (weight_bytes, expert_bytes, e)
+    elif cfg.family == "zamba2":
+        parts = zamba2_round_bytes(params, cfg, srv._cache)
+        no_kv = sum(parts.values())
+        log(f"{arch} decode-round bound without the K/V {1e3 * no_kv / HBM_BYTES_PER_S:.3f} ms "
+            f"({no_kv / 1e9:.3f} GB: " + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
+            + " GB) / 3.35 TB/s")
     else:
         bound_step = 1e3 * (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S
         log(f"{arch} decode-round bound {bound_step:.3f} ms ((weights {weight_bytes / 1e9:.3f} "
@@ -1137,6 +1234,14 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
         fail(f"{arch}: second serve run did not complete cleanly")
 
     path_ms = profile_rounds(srv, cfg, {n: ws[n] for n in names})
+    if cfg.family == "zamba2":   # the valid K/V the profiled rounds read, at their lengths
+        kv_row = 2 * cfg.num_kv_heads * cfg.head_dim * 2 * (cfg.num_layers // cfg.attn_every)
+        kv_bytes = path_ms["kv_tokens"] * kv_row
+        read = no_kv + kv_bytes
+        log(f"{arch} decode-round bound for the profiled rounds: "
+            f"{1e3 * read / HBM_BYTES_PER_S:.3f} ms ({read / 1e9:.3f} GB: the above and "
+            f"{kv_bytes / 1e9:.3f} GB of valid K/V, {path_ms['kv_tokens']:.1f} cached positions "
+            f"over the slots a round)")
     if cfg.family == "moe":      # the bound for the experts the profiled rounds reached
         weight_bytes, expert_bytes, e = moe_bytes
         read = weight_bytes - expert_bytes * (1 - path_ms["moe"]["active_experts"] / e)
@@ -1344,7 +1449,11 @@ def profile_rounds(srv, cfg, wrappers: dict, rounds: int = 4) -> dict:
                            prefix="profile"):
         srv.submit(r)
     windows = []
+    kv_tokens = []
     for n_rounds in (1, rounds):
+        if n_rounds == rounds and cfg.family == "zamba2":
+            # the cached positions each round of the window attends to, on average
+            kv_tokens.append(float(srv._cache["len"].sum()) + len(srv._active) * (rounds + 1) / 2)
         before = {k: w.launches for k, w in wrappers.items()}
         routes = RouteLog() if cfg.family == "moe" and n_rounds == rounds else None
         torch.cuda.synchronize()
@@ -1402,6 +1511,8 @@ def profile_rounds(srv, cfg, wrappers: dict, rounds: int = 4) -> dict:
                     f"{us / 1e3 / calls[name]:.5f} ms per launch")
     if cfg.family == "moe":
         path_ms["moe"] = moe
+    if kv_tokens:
+        path_ms["kv_tokens"] = kv_tokens[0]
     return path_ms
 
 
@@ -1496,13 +1607,22 @@ def main() -> None:
              f"2), spilling: {spilled}")
     log(f"G = 16 at hd 128: the 2 decode_fwd<T, 128, 8, 2> instantiations its row groups run "
         f"spill nothing")
+    # the head-dim-80 instantiations (zamba2-2.7b): flash_fwd<float, 80>,
+    # flash_fwd_mma<80> and decode_fwd<T, 80, G, RG> for every built G and RG
+    hd80 = [(k, spill) for n in ("flash_attention", "decode_attention")
+            for k, _, spill in ptxas.get(n, ()) if re.search(r"\b80\b", k)]
+    spilled = [k for k, spill in hd80 if re.search(r"[1-9]\d* bytes spill", spill)]
+    if len(hd80) != 16 or spilled:
+        fail(f"head dim 80: {len(hd80)} instantiations reported (expected 2 flash + 14 "
+             f"decode), spilling: {spilled}")
+    log(f"head dim 80: {len(hd80)} instantiations of flash and decode attention, no spills")
     hmma = sass_counts("flash_attention", "HMMA")
     for fn, count in hmma.items():
         log(f"SASS flash_attention {fn}: {count} HMMA")
     mma_kernels = {fn: c for fn, c in hmma.items() if "flash_fwd_mma" in fn}
     if not mma_kernels or not all(mma_kernels.values()) or \
-            not any("flash_fwd_mma<256>" in fn for fn in mma_kernels):
-        fail(f"the bf16 flash-attention kernels (hd 256 included) have no tensor-core "
+            not all(any(f"flash_fwd_mma<{hd}>" in fn for fn in mma_kernels) for hd in (80, 256)):
+        fail(f"the bf16 flash-attention kernels (hd 80 and 256 included) have no tensor-core "
              f"instructions: {hmma}")
 
     t0 = time.monotonic()
@@ -1530,6 +1650,7 @@ def main() -> None:
     phase_moe_layer(dev)
     log(f"phase 15 (MoE layer, qwen2-moe-a2.7b width) done in {time.monotonic() - t0:.1f} s")
     model_phases(MOE_ARCHS, 16)
+    model_phases(ZAMBA_ARCHS, 20)
     log(f"all phases done in {time.monotonic() - T_START:.1f} s")
 
     kernels = []
@@ -1546,7 +1667,7 @@ def main() -> None:
                         "host_ms": r["host_ms"],
                         "path_device_ms_per_launch": {a: p[name] for a, p in path_ms.items()
                                                       if name in p},
-                        **{k: r[k] for k in ("by_seq", "hd256", "g16", "shapes", "variant",
+                        **{k: r[k] for k in ("by_seq", "hd256", "g16", "hd80", "shapes", "variant",
                                              "cluster",
                                              "torch_add_host_ms")
                            if k in r}})

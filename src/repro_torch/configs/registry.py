@@ -23,7 +23,7 @@ _MODULES: dict[str, str | None] = {
     "xlstm-1.3b": "xlstm_1_3b",
     "whisper-small": None,
     "llama-3.2-vision-90b": None,
-    "zamba2-2.7b": None,
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)
@@ -64,4 +64,9 @@ def model_100m(arch: str) -> ModelConfig:
         over.update(vision_tokens=64, cross_attn_every=2)
     if cfg.ssm_state:
         over.update(ssm_state=16)
+    if cfg.attn_every:
+        # whole groups of attn_every blocks: the reference's 8 layers against
+        # zamba2's attn_every of 6 cannot be built (ROADMAP.md, Queue 3)
+        n = over["num_layers"]
+        over.update(num_layers=max(cfg.attn_every, n - n % cfg.attn_every))
     return cfg.scaled(**over)

@@ -22,7 +22,12 @@
 //    before it uses any, so a block has all of its bytes in flight at once;
 //    a row wider than a warp's 32 loads (f32 at hd 256: 64 chunks) gives
 //    each lane C = 2 chunks of it, 128 elements apart, so every shuffle
-//    stays within the warp;
+//    stays within the warp; a row whose chunk count is not a power of two
+//    (hd 80: 10 chunks in bf16, 20 in f32) takes the next power of two of
+//    lanes (16, or the whole warp), and the spare lanes load nothing, hold
+//    zeros (so they add 0 to each dot product) and store nothing, which
+//    keeps the xor-shuffle sums and the row-slot merge on power-of-two lane
+//    counts;
 //  * each lane keeps its C x 8 (or 4) columns of the G query rows in
 //    registers; a row's dot products are reduced over its lanes with xor
 //    shuffles and scaled by scale*log2(e), the online softmax (exp2)
@@ -76,6 +81,10 @@ constexpr int kMaxSplits = 256;               // splits one request may use
 // 1 or even, else Gq + 1 (the wrapper sizes the scratch by the same rule).
 __host__ __device__ constexpr int row_slots(int Gq) { return Gq == 1 ? 1 : Gq + Gq % 2; }
 
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
 __device__ __forceinline__ int valid_len(const int* lengths, int b, int S) {
   return min(max(lengths[b], 0), S);
 }
@@ -118,11 +127,14 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            int units, int Gt, int S, int P, int NS, Strides qs, Strides ks, Strides vs,
            long long osb, long long osh, float scale_log2, int Gr) {
   constexpr int E = 16 / sizeof(T);           // elements per 16-byte lane load
-  constexpr int LPR = HD / E < 32 ? HD / E : 32;   // lanes per cache row
-  constexpr int C = HD / (E * LPR);           // 16-byte chunks of a row per lane
+  constexpr int CH = HD / E;                  // 16-byte chunks per cache row
+  constexpr int LPR = CH < 32 ? pow2_at_least(CH) : 32;   // lanes per cache row
+  constexpr int C = (CH + LPR - 1) / LPR;     // 16-byte chunks of a row per lane
   constexpr int EL = C * E;                   // elements of a row per lane
   constexpr int RPW = 32 / LPR;               // rows per warp load instruction
-  static_assert(LPR * EL == HD && RPW * LPR == 32, "a warp's lanes cover whole rows");
+  constexpr bool kSpare = LPR * C != CH;      // lanes past the row's chunks (hd 80)
+  static_assert(HD % E == 0 && (!kSpare || C == 1) && RPW * LPR == 32,
+                "a warp's lanes cover whole rows");
   constexpr int U = G * EL <= 48 ? 4 : (C == 1 ? 2 : 1);   // rows each lane has in flight
   constexpr int PB = kWarps * RPW * U;        // positions per block iteration
   __shared__ float sM[kWarps][G], sL[kWarps][G];
@@ -147,6 +159,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int used = (n + P - 1) / P, send = min(s0 + P, n);
   // chunk c of this lane holds columns col + c * LPR * E .. + E - 1
   const int slot = lane / LPR, col = (lane % LPR) * E;
+  const bool live = !kSpare || col < HD;      // a spare lane reads and writes nothing
 
   float qv[G][EL];
   const T* qb = q + b * qs.b + head0 * qs.h + col;
@@ -154,8 +167,10 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      widen<T>(g < Gq ? __ldg(reinterpret_cast<const uint4*>(qb + g * qs.h + c * LPR * E))
-                      : make_uint4(0u, 0u, 0u, 0u), qv[g] + c * E);
+      widen<T>(g < Gq && live
+                   ? __ldg(reinterpret_cast<const uint4*>(qb + g * qs.h + c * LPR * E))
+                   : make_uint4(0u, 0u, 0u, 0u),
+               qv[g] + c * E);
 
   float m[G], l[G], acc[G][EL];
 #pragma unroll
@@ -176,12 +191,13 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     for (int u = 0; u < U; ++u) {             // all of this lane's loads first
       const int pos = base + u * RPW + slot;
       ok[u] = pos < send;
+      const bool ld = ok[u] && live;
       const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int at = c * LPR * E;
-        kr[u][c] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(kb + pos * ks.s + at)) : zero;
-        vr[u][c] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(vb + pos * vs.s + at)) : zero;
+        kr[u][c] = ld ? __ldg(reinterpret_cast<const uint4*>(kb + pos * ks.s + at)) : zero;
+        vr[u][c] = ld ? __ldg(reinterpret_cast<const uint4*>(vb + pos * vs.s + at)) : zero;
       }
     }
     float s[U][G];
@@ -244,10 +260,11 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   if (lane < LPR) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
+      if (live)
 #pragma unroll
-      for (int c = 0; c < C; ++c)
+        for (int c = 0; c < C; ++c)
 #pragma unroll
-        for (int e = 0; e < E; ++e) sAcc[warp][g][col + c * LPR * E + e] = acc[g][c * E + e];
+          for (int e = 0; e < E; ++e) sAcc[warp][g][col + c * LPR * E + e] = acc[g][c * E + e];
       if (lane == 0) {
         sM[warp][g] = m[g];
         sL[warp][g] = l[g];
@@ -399,6 +416,10 @@ extern "C" int decode_attention_fwd(
   cudaError_t err;
   if (dtype == 0 && hd == 64)
     err = launch_g<float, 64>(a, st);
+  else if (dtype == 0 && hd == 80)
+    err = launch_g<float, 80>(a, st);
+  else if (dtype == 1 && hd == 80)
+    err = launch_g<__nv_bfloat16, 80>(a, st);
   else if (dtype == 0 && hd == 128)
     err = launch_g<float, 128>(a, st);
   else if (dtype == 0 && hd == 256)

@@ -50,6 +50,13 @@
 //    over the 4 lanes of a quad, `ex2.approx` with scale*log2(e) folded
 //    into one FMA, -inf for a masked key), and P is rounded to bf16 in
 //    registers to become the A operand of P.V;
+//  * a head dim whose rows are not a power-of-two count of 16-byte chunks
+//    (80: zamba2-2.7b, 10 chunks) lays its tiles out in rows of the next
+//    power of two (128 columns, 256 bytes), so the swizzle, whose XOR
+//    reaches chunk 15, stays inside the row; only the real chunks are
+//    copied, and no instruction reads the spare ones; hd 80 takes the
+//    two-set plan with Q in registers (5 k-steps, 10 n-tiles of O) and the
+//    hd-128 plan's 144 KB of shared memory;
 //  * the element mask is applied only on a tile that straddles the
 //    diagonal or the Sk edge; q/k/v/o are read and written through their
 //    strides (16-byte aligned, checked by the wrapper), so the model's
@@ -59,9 +66,10 @@
 // cores an f32 product is TF32 (10-bit mantissa) and would miss the 3e-5
 // f32 bound, so f32 keeps a CUDA-core kernel: 16 query rows per block,
 // 32-key tiles staged in shared memory as f32, lane j scoring key j, the
-// P.V product reading V rows coalesced, each lane owning hd/32 columns;
-// the tiles sit in dynamic shared memory (84 KB at hd 256, above the 48 KB
-// a static array may take).
+// P.V product reading V rows coalesced, each lane owning ceil(hd/32)
+// columns (at hd 80 lanes 16-31 own two: their third is past the row and
+// neither read nor written); the tiles sit in dynamic shared memory (84 KB
+// at hd 256, above the 48 KB a static array may take).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -84,7 +92,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int G, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
           Strides os, int causal, float scale) {
-  constexpr int DPL = HD / 32;                // output columns per lane
+  constexpr int DPL = (HD + 31) / 32;         // output columns per lane; at hd 80 the
+                                              // third of lanes 16-31 is past the row
   extern __shared__ __align__(128) unsigned char smem[];
   float* const base = reinterpret_cast<float*>(smem);
   auto sQ = reinterpret_cast<float (*)[HD]>(base);
@@ -155,7 +164,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int j = 0; j < kBK; ++j) {
       float vv[DPL];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) vv[i] = sV[j][lane + 32 * i];
+      for (int i = 0; i < DPL; ++i) {
+        if constexpr (HD % 32 == 0)
+          vv[i] = sV[j][lane + 32 * i];
+        else
+          vv[i] = lane + 32 * i < HD ? sV[j][lane + 32 * i] : 0.f;
+      }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float pj = sP[warp * kRows + r][j];
@@ -172,7 +186,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
-      ob[qpos * os.s + lane + 32 * i] = from_f32<T>(acc[r][i] * inv);
+      if (HD % 32 == 0 || lane + 32 * i < HD)
+        ob[qpos * os.s + lane + 32 * i] = from_f32<T>(acc[r][i] * inv);
   }
 }
 
@@ -213,31 +228,44 @@ constexpr int kK = 64;                        // keys per tile
 constexpr int kThreads = 2 * kWarps * 32;     // two groups of 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
 
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
 // What the two groups of 4 warps share out, by head dim.  hd <= 128: two
 // warp sets on every other key tile, each warp with all of O's columns, Q's
 // fragments in registers.  hd 256: one set on every tile, O's columns split
 // over the two groups, Q's fragments read from shared memory per k-step.
+// A tile row holds kPitch elements: HD, or at a head dim of a chunk count
+// that is not a power of two (80: 10 chunks) the next power of two of
+// chunks, so the swizzle stays in the row.
 template <int HD>
 struct MmaPlan {
+  static_assert(HD % 16 == 0, "whole k-steps of 16 and n-tile pairs of O");
   static constexpr int kSets = HD > 128 ? 1 : 2;       // warp sets over the key tiles
   static constexpr int kCols = 3 - kSets;              // groups sharing O's columns
   static constexpr bool kQRegs = kSets == 2;
-  static constexpr int kSmem = (kQ + kSets * 4 * kK) * HD * 2;   // Q + each set's ring
-  static_assert(kSmem <= 232448, "a block's shared memory on the H100");
+  static constexpr int kPitch = 8 * pow2_at_least(HD / 8);      // elements per tile row
+  static constexpr int kSmem = (kQ + kSets * 4 * kK) * kPitch * 2;   // Q + each set's ring
+  static_assert(kPitch >= 64 && kSmem <= 232448, "a block's shared memory on the H100");
 };
 
 // Copy rows [r0, r0 + R) of one (S, HD) bf16 matrix (row stride `rs`
-// elements) into a swizzled tile at `dst`, with the NT threads of index
-// `tid`; rows >= `rows` are zero-filled.
+// elements) into a swizzled tile at `dst` whose rows are `MmaPlan<HD>::
+// kPitch` elements, with the NT threads of index `tid`; rows >= `rows` are
+// zero-filled.  Only the HD / 8 real chunks of a row are copied.
 template <int HD, int R, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, long long rs,
                                           int r0, int rows, int tid) {
   constexpr int CH = HD / 8;                  // 16-byte chunks per row
+  constexpr int N = R * CH;                   // chunks per tile
+  constexpr int RB = MmaPlan<HD>::kPitch * 2;
 #pragma unroll
-  for (int it = 0; it < R * CH / NT; ++it) {
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
     const int i = tid + it * NT, r = i / CH, c = i % CH;
+    if (N % NT != 0 && i >= N) break;         // the last round is partial (hd 80's Q tile)
     const bool ok = r0 + r < rows;
-    cp_async16(dst + swz(r, c, HD * 2), ok ? src + (r0 + r) * rs + c * 8 : src, ok);
+    cp_async16(dst + swz(r, c, RB), ok ? src + (r0 + r) * rs + c * 8 : src, ok);
   }
 }
 
@@ -264,7 +292,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
               float scale_log2) {
   using Plan = MmaPlan<HD>;
   constexpr int SETS = Plan::kSets;
-  constexpr int RB = HD * 2;                  // bytes per tile row
+  constexpr int RB = Plan::kPitch * 2;        // bytes per tile row
   constexpr int TB = kK * RB;                 // bytes per Q, K or V tile (kQ == kK)
   constexpr int KS = HD / 16;                 // k-steps of Q.K^T over head_dim
   constexpr int OC = HD / Plan::kCols;        // O columns per warp
@@ -507,6 +535,10 @@ extern "C" int flash_attention_fwd(
   cudaError_t err;
   if (dtype == 0 && hd == 64)
     err = launch_f32<64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+  else if (dtype == 0 && hd == 80)
+    err = launch_f32<80>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+  else if (dtype == 1 && hd == 80)
+    err = launch_bf16<80>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 0 && hd == 128)
     err = launch_f32<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 1 && hd == 64)

@@ -30,7 +30,7 @@ from .ref import decode_attention_ref
 __all__ = ["decode_attention", "decode_attention_ref", "decode_row_groups",
            "decode_split_plan", "KERNEL_HEAD_DIMS", "KERNEL_MAX_GROUP"]
 
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 80, 128, 256)
 KERNEL_MAX_GROUP = 16
 _BLOCK_ROWS = 8                 # query rows one block runs (kMaxG in the source)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

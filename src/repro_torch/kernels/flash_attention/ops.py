@@ -26,7 +26,7 @@ from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_ref", "KERNEL_HEAD_DIMS"]
 
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 80, 128, 256)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 

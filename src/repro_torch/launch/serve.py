@@ -15,7 +15,10 @@ serves the MoE family at full width (24 layers, 60 experts top-4 plus 4
 shared, 14.3 B parameters); ``--arch qwen3-moe-235b-a22b --layers 4``
 serves qwen3-moe at full width cut to 4 of its 94 layers (11.2 B
 parameters; the 94 layers, 470 GB in bf16, do not fit one card), with
-decode attention at 16 query heads per KV head.  ``--size smoke`` or
+decode attention at 16 query heads per KV head.  ``--arch zamba2-2.7b``
+serves the Zamba2 family at full width (54 Mamba2 blocks and one shared
+attention block invoked every 6, 2.42 B parameters), its attention at
+head dim 80; its ``--layers`` must be a multiple of 6.  ``--size smoke`` or
 ``100m`` give the reduced configs, ``--layers N`` cuts any config's depth;
 ``--device cpu`` runs the kernels' plain versions on the CPU.
 """
@@ -39,8 +42,13 @@ PROMPT_MIN, PROMPT_MAX = 16, 384     # unsized prompts, drawn uniformly
 
 
 def build_config(arch: str, size: str, layers: int | None = None) -> ModelConfig:
-    """``arch`` at ``size``, its depth cut to ``layers`` when given."""
+    """``arch`` at ``size``, its depth cut to ``layers`` when given; Zamba2's
+    depth must stay whole groups of ``attn_every`` blocks."""
     cfg = {"smoke": get_smoke_config, "100m": model_100m, "full": get_config}[size](arch)
+    if layers and cfg.attn_every and layers % cfg.attn_every:
+        raise ValueError(f"--layers {layers}: {cfg.name} runs groups of attn_every="
+                         f"{cfg.attn_every} Mamba2 blocks, so its depth must be a multiple "
+                         f"of attn_every={cfg.attn_every}")
     return cfg.scaled(num_layers=layers) if layers else cfg
 
 
@@ -115,7 +123,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args(argv)
 
-    cfg = build_config(args.arch, args.size, args.layers)
+    try:
+        cfg = build_config(args.arch, args.size, args.layers)
+    except ValueError as e:
+        ap.error(str(e))
     model = Model(cfg, device=args.device)
     server = InferenceServer(model, slots=args.slots, max_seq=args.max_seq)
     server.load(model.init(args.seed))

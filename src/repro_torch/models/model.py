@@ -1,26 +1,26 @@
 """Unified model API for the port.
 
-Counterpart of ``repro/models/model.py``.  The ``dense``, ``moe`` and
-``xlstm`` families are ported; the others raise, naming their ROADMAP item.  A
-``Model`` lives on one device: ``cuda`` unless the caller passes
-``device="cpu"``.
+Counterpart of ``repro/models/model.py``.  The ``dense``, ``moe``,
+``xlstm`` and ``zamba2`` families are ported; the others raise, naming their
+ROADMAP item.  A ``Model`` lives on one device: ``cuda`` unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import transformer, xlstm_model
+from . import transformer, xlstm_model, zamba2_model
 from .common import ModelConfig
 
 __all__ = ["Model", "resolve_device"]
 
 _NOT_PORTED = {
-    "zamba2": "ROADMAP.md Queue 1 item 5 (Mamba2 / Zamba2)",
     "whisper": "ROADMAP.md Queue 1 item 6 (Whisper and mLLaMA)",
     "mllama": "ROADMAP.md Queue 1 item 6 (Whisper and mLLaMA)",
 }
-_FAMILIES = {"dense": transformer, "moe": transformer, "xlstm": xlstm_model}
+_FAMILIES = {"dense": transformer, "moe": transformer, "xlstm": xlstm_model,
+             "zamba2": zamba2_model}
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -74,5 +74,5 @@ class Model:
         """Copy the one-request cache ``single`` (from :meth:`prefill`) into
         slot ``slot`` of the batched ``cache``, in place, and set its
         length: K/V rows for the dense family, every state leaf along its
-        batch axis for xLSTM."""
+        batch axis for xLSTM, both for Zamba2."""
         self._m.splice_cache(cache, single, slot, length)

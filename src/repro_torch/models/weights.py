@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import transformer, xlstm_model
+from . import transformer, xlstm_model, zamba2_model
 from .common import ModelConfig
 
 __all__ = ["params_from_numpy"]
@@ -51,9 +51,13 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device: torch.device | str) 
     xLSTM: the port keeps the reference's stacked leaves as they are — the
     ``(ng, nm)`` axes of ``mlstm``/``ln_m``, the ``(ng,)`` axis of
     ``slstm`` (with its ``mlp``), ``ln_s`` and ``ln_s2``, and an untied
-    ``lm_head``."""
-    if cfg.family == "xlstm":
-        return _map(tree, xlstm_model.param_shapes(cfg), "", device, None)
+    ``lm_head``.
+    Zamba2: the stacked leaves as they are too — the ``(ng, per)`` axes of
+    ``mamba`` and ``ln_m``, one ``shared`` block (``attn``, ``mlp``,
+    ``ln1``, ``ln2``) and an untied ``lm_head``."""
+    if cfg.family in ("xlstm", "zamba2"):
+        spec = (xlstm_model if cfg.family == "xlstm" else zamba2_model).param_shapes(cfg)
+        return _map(tree, spec, "", device, None)
     spec = transformer.param_shapes(cfg)
     if set(tree) != set(spec):
         raise KeyError(f"top-level leaves {sorted(tree)}, expected {sorted(spec)}")

@@ -6,9 +6,9 @@ Flash attention (K2) works in 64-row query tiles and 64-key tiles; decode
 attention (K3) splits the cache into blocks of ``decode_split_plan``
 positions and builds 1, 2, 4, 6 and 8 query rows per KV head (an odd
 count runs padded to the next even one); 9 to 16 run as two row groups of
-at most 8 rows, each its own block.  Both build head dims 64, 128 and 256;
-the 256 cases are gemma-2b's G = 8 over KV = 1, and qwen3-moe's G = 16
-over KV = 4 runs at 128."""
+at most 8 rows, each its own block.  Both build head dims 64, 80, 128 and
+256; the 256 cases are gemma-2b's G = 8 over KV = 1, qwen3-moe's G = 16
+over KV = 4 runs at 128, and zamba2-2.7b's G = 1 over KV = 32 at 80."""
 
 EDGES = [1, 15, 63, 64, 65, 127, 383, 384, 385]
 EDGE_PAIRS = [(n, n) for n in EDGES] + [(n, m) for n, m in zip(EDGES, reversed(EDGES)) if n != m]
@@ -41,6 +41,16 @@ def flash_edge_cases_moe() -> list[tuple[int, int, int, int, int]]:
     return [(sq, sk, MOE_G, b, MOE_KV) for sq, sk, _, b, _ in flash_edge_cases()]
 
 
+# zamba2-2.7b's shared attention block at head_dim 80: G = 1 query head over
+# each of KV = 32
+ZAMBA_G, ZAMBA_KV, ZAMBA_HD = 1, 32, 80
+
+
+def flash_edge_cases_zamba2() -> list[tuple[int, int, int, int, int]]:
+    """The same (Sq, Sk) edges and batches with G = 1 over KV = 32."""
+    return [(sq, sk, ZAMBA_G, b, ZAMBA_KV) for sq, sk, _, b, _ in flash_edge_cases()]
+
+
 # (B, KV, S): one split (S = 16, 32 on 132 SMs) and many (16, 64)
 DECODE_SHAPES = [(4, 2, 512), (1, 1, 2048), (2, 2, 32), (3, 1, 16)]
 # gemma-2b's serving cache, KV = 1: 16 splits of 32 (4, 1, 512), one split, many
@@ -48,6 +58,9 @@ DECODE_SHAPES_GEMMA = [(4, 1, 512), (2, 1, 32), (1, 1, 2048)]
 # qwen3-moe's serving cache, KV = 4 at G = 16 (two row groups): 4 splits of
 # 128 (4, 4, 512), one split, many
 DECODE_SHAPES_MOE = [(4, 4, 512), (2, 4, 32), (1, 4, 2048)]
+# zamba2-2.7b's serving cache, KV = 32 at G = 1: 2 splits of 256 (4, 32, 512),
+# one split, many
+DECODE_SHAPES_ZAMBA2 = [(4, 32, 512), (2, 32, 32), (1, 32, 2048)]
 # 9: two row groups of 5 and 4 rows (the 6-slot build, the last group short)
 DECODE_GROUPS = (1, 3, 6, 7, 8, 9, 16)
 

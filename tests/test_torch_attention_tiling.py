@@ -43,12 +43,20 @@ H100_SMS = 132
 H100_SMEM_PER_BLOCK = 232_448    # bytes a block may opt into
 
 
+def tile_pitch(hd: int) -> int:
+    """Elements per row of K2's bf16 tiles (``MmaPlan::kPitch``): the head
+    dim's 16-byte chunks rounded up to a power of two, so the swizzle
+    ``chunk ^ (row % 8)`` stays in the row (hd 80: 10 chunks in rows of 16)."""
+    return 8 * (1 << max(0, (hd // 8 - 1).bit_length()))
+
+
 def mma_plan(hd: int) -> tuple[int, int, int]:
     """K2's bf16 plan (``MmaPlan`` in ``csrc/flash_attention.cu``): warp sets
     over the key tiles, groups of warps sharing O's columns, and the
-    dynamic shared memory (Q, then each set's two stages of K and V)."""
+    dynamic shared memory (Q, then each set's two stages of K and V, in
+    rows of ``tile_pitch``)."""
     sets = 1 if hd > 128 else 2
-    return sets, 3 - sets, (Q_ROWS + sets * 4 * K_TILE) * hd * 2
+    return sets, 3 - sets, (Q_ROWS + sets * 4 * K_TILE) * tile_pitch(hd) * 2
 
 
 def _tol(dt: str) -> float:
@@ -132,6 +140,8 @@ FLASH_CASES = [
     (1, 8, 1, 130, 130, 256, True),    # hd 256 (gemma-2b's G = 8, KV = 1): one set, split O
     (2, 8, 1, 65, 200, 256, False),    # the same, non-causal, ragged tiles
     (1, 64, 4, 65, 65, 16, True),      # qwen3-moe's G = 16 over KV = 4
+    (1, 32, 32, 65, 65, 80, True),     # hd 80 (zamba2-2.7b's G = 1 over KV = 32)
+    (2, 4, 2, 63, 129, 80, False),     # hd 80, non-causal, ragged tiles
 ]
 
 
@@ -168,16 +178,44 @@ def test_tiled_flash_skips_exactly_the_tiles_past_the_diagonal():
 
 def test_mma_plans_fit_a_block():
     """Every head dim K2 builds has a bf16 plan within the 227 KB of shared
-    memory a block may have on the H100: two sets at hd 64 and 128 (147,456
-    B at 128), one set with O's columns split over two groups at hd 256
-    (163,840 B; two sets would need 294,912).  Each warp keeps at most 128
-    columns of O (64 f32 accumulators a lane)."""
-    assert FLASH_HEAD_DIMS == (64, 128, 256)
+    memory a block may have on the H100: two sets at hd 64, 80 and 128
+    (147,456 B at 128, and at 80 in its rows of 128), one set with O's
+    columns split over two groups at hd 256 (163,840 B; two sets would need
+    294,912).  Each warp keeps at most 128 columns of O (64 f32
+    accumulators a lane)."""
+    assert FLASH_HEAD_DIMS == (64, 80, 128, 256)
     for hd in FLASH_HEAD_DIMS:
         sets, cols, smem = mma_plan(hd)
         assert smem <= H100_SMEM_PER_BLOCK and hd // cols <= 128, hd
+        assert hd % 16 == 0 and (hd // cols) % 16 == 0, hd   # whole k-steps, n-tile pairs
     assert mma_plan(128) == (2, 1, 147_456) and mma_plan(256) == (1, 2, 163_840)
+    assert mma_plan(80) == (2, 1, 147_456)
+    assert [tile_pitch(hd) for hd in FLASH_HEAD_DIMS] == [64, 128, 128, 256]
     assert (Q_ROWS + 2 * 4 * K_TILE) * 256 * 2 > H100_SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("hd", FLASH_HEAD_DIMS)
+def test_tile_copies_and_swizzle_stay_in_each_row(hd):
+    """K2's bf16 tiles (``load_tile`` and ``swz``): the copy rounds of the Q
+    tile (256 threads) and of a set's K or V tile (128 threads, or 256 with
+    one set) write each of a row's hd/8 chunks exactly once, the last round
+    cut short where the chunks do not fill it (hd 80's Q tile: 640 chunks,
+    2.5 rounds); the swizzled chunk ``c ^ (row % 8)`` stays inside the
+    row's ``tile_pitch`` and is one to one; every chunk an ``ldmatrix`` of
+    Q.K^T or P.V reads (k-steps of 16 columns, n-tile pairs of O) is a
+    written one."""
+    ch, pitch_ch = hd // 8, tile_pitch(hd) // 8
+    sets = mma_plan(hd)[0]
+    for rows, threads in ((Q_ROWS, 256), (K_TILE, 256 // sets)):
+        n = rows * ch
+        written = [tid + it * threads for it in range(-(-n // threads))
+                   for tid in range(threads) if tid + it * threads < n]
+        assert sorted(written) == list(range(n)), (rows, threads)
+    for row in range(K_TILE):
+        phys = [c ^ (row % 8) for c in range(ch)]
+        assert len(set(phys)) == ch and max(phys) < pitch_ch, row
+    read = {2 * ks + half for ks in range(hd // 16) for half in (0, 1)}
+    assert read == set(range(ch))
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +296,8 @@ DECODE_CASES = [
     (4, 8, 1, 512, 256, H100_SMS, [397, 250, 130, 17]),      # gemma-2b: G = 8 at hd 256
     (4, 64, 4, 512, 128, H100_SMS, [397, 250, 130, 17]),     # qwen3-moe: G = 16, two groups
     (2, 36, 4, 96, 16, H100_SMS, [0, 95]),                   # G = 9: groups of 5 and 4
+    (4, 32, 32, 512, 80, H100_SMS, [397, 250, 130, 17]),     # zamba2-2.7b: G = 1 at hd 80
+    (2, 8, 4, 64, 80, 8, [63, 33]),                          # hd 80, G = 2, P = 32 splits
 ]
 
 
@@ -282,6 +322,7 @@ def test_decode_split_plan_rule():
     and 16 splits (128 blocks), of which 54 hold valid positions at lengths
     397/250/130/17."""
     assert decode_split_plan(512, 4, 2, H100_SMS) == (32, 16)
+    assert decode_split_plan(512, 4, 32, H100_SMS) == (256, 2)     # zamba2-2.7b's decode
     per = 32
     assert 2 * sum(-(-n // per) for n in (397, 250, 130, 17)) == 54
     for s in (1, 16, 31, 32, 33, 100, 512, 700, 2048, 32768):
@@ -333,29 +374,37 @@ def test_decode_split_plan_counts_row_groups():
 
 
 def decode_lane_map(hd: int, elem_bytes: int) -> tuple[int, int, int]:
-    """K3's lanes for one cache row (``decode_fwd``): 16-byte chunks of E =
-    16 / elem_bytes elements, LPR lanes a row (at most a warp), C chunks a
-    lane (chunk c of lane i at element (c * LPR + i) * E) and RPW rows a
-    warp load instruction."""
+    """K3's lanes for one cache row (``decode_fwd``): the row's CH 16-byte
+    chunks of E = 16 / elem_bytes elements, LPR lanes a row (CH rounded up
+    to a power of two, at most a warp), C chunks a lane (chunk c of lane i
+    at element (c * LPR + i) * E; a lane whose element is past the row is
+    spare) and RPW rows a warp load instruction."""
     e = 16 // elem_bytes
-    lpr = min(hd // e, 32)
-    return lpr, hd // (e * lpr), 32 // lpr
+    ch = hd // e
+    lpr = min(1 << (ch - 1).bit_length(), 32)
+    return lpr, -(-ch // lpr), 32 // lpr
 
 
 @pytest.mark.parametrize("elem_bytes", [4, 2], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", DECODE_HEAD_DIMS)
 def test_decode_lanes_cover_each_row_once(hd, elem_bytes):
-    """Every built head dim in both types: the lanes of one row slot read
-    each column of the row exactly once, the row slots fill the warp, and a
-    row's lanes sit within one warp (its shuffles never leave it).  f32 at
-    hd 256 is the one case with two chunks a lane."""
+    """Every built head dim in both types: the live lanes of one row slot
+    read each column of the row exactly once, the row slots fill the warp,
+    a row's lanes are a power of two (the xor-shuffle sums and the row-slot
+    merge need one) within one warp.  f32 at hd 256 is the one case with
+    two chunks a lane; hd 80 the one with spare lanes (bf16: 10 of 16 live,
+    f32: 20 of 32), which load nothing and add zeros."""
     lpr, c, rpw = decode_lane_map(hd, elem_bytes)
     e = 16 // elem_bytes
-    assert rpw * lpr == 32 and lpr <= 32
-    cols = sorted((ci * lpr + lane) * e + i for lane in range(lpr) for ci in range(c)
-                  for i in range(e))
+    assert rpw * lpr == 32 and lpr <= 32 and lpr & (lpr - 1) == 0
+    starts = [(ci * lpr + lane) * e for lane in range(lpr) for ci in range(c)]
+    live = [s for s in starts if s < hd]
+    cols = sorted(s + i for s in live for i in range(e))
     assert cols == list(range(hd))
     assert (c == 2) == (hd == 256 and elem_bytes == 4)
+    assert (len(live) < len(starts)) == (hd == 80)
+    if hd == 80:
+        assert (len(live), lpr) == ((10, 16) if elem_bytes == 2 else (20, 32))
 
 
 def test_check_aligned_names_the_unaligned_view():

@@ -11,9 +11,10 @@ products run in full f32 (TF32 off)."""
 import pytest
 import torch
 from _attention_edges import (DECODE_GROUPS, DECODE_SHAPES, DECODE_SHAPES_GEMMA,
-                              DECODE_SHAPES_MOE, GEMMA_G, GEMMA_KV, MOE_G, MOE_HD,
-                              decode_edge_lens, flash_edge_cases, flash_edge_cases_gemma,
-                              flash_edge_cases_moe)
+                              DECODE_SHAPES_MOE, DECODE_SHAPES_ZAMBA2, GEMMA_G, GEMMA_KV, MOE_G,
+                              MOE_HD, ZAMBA_G, ZAMBA_HD, decode_edge_lens, flash_edge_cases,
+                              flash_edge_cases_gemma, flash_edge_cases_moe,
+                              flash_edge_cases_zamba2)
 
 from repro_torch.configs import model_100m
 from repro_torch.kernels.decode_attention.ops import (decode_attention, decode_attention_ref,
@@ -86,6 +87,8 @@ def _routes_agree(fast: list, plain: list, k: int, tie: float = 1e-5) -> bool:
 @pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", [
     (1, 12, 2, 384, 384, 128, True), (2, 8, 2, 50, 130, 64, True), (1, 4, 4, 33, 47, 64, False),
     (1, 8, 1, 384, 384, 256, True), (1, 8, 1, 100, 100, 256, True),   # gemma-2b prefill
+    (1, 32, 32, 384, 384, 80, True), (1, 32, 32, 100, 100, 80, True),  # zamba2-2.7b prefill
+    (1, 32, 32, 16, 16, 80, True),
 ])
 def test_flash_attention_kernel_matches_plain(dev, b, h, kv, sq, sk, hd, causal, dt):
     q = _randn(dev, b, sq, h, hd, dt=dt, seed=1).transpose(1, 2)
@@ -112,15 +115,17 @@ def test_decode_attention_kernel_matches_plain(dev, lens, dt):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_tile_edges(dev, hd, causal, dt):
     """Sq and Sk over the 64-row tile edges, equal and unequal both ways,
     with G = H / KV cycling through 1, 4, 6 and 8; at hd 256 (one warp set,
     O split over two groups) also every edge at gemma-2b's G = 8, KV = 1,
-    and at hd 128 every edge at qwen3-moe's G = 16, KV = 4."""
+    at hd 128 every edge at qwen3-moe's G = 16, KV = 4, and at hd 80 (tile
+    rows padded to 128 columns) every edge at zamba2-2.7b's G = 1, KV = 32."""
     cases = flash_edge_cases() + (flash_edge_cases_gemma() if hd == 256 else []) + \
-        (flash_edge_cases_moe() if hd == MOE_HD else [])
+        (flash_edge_cases_moe() if hd == MOE_HD else []) + \
+        (flash_edge_cases_zamba2() if hd == ZAMBA_HD else [])
     for i, (sq, sk, g, b, kv) in enumerate(cases):
         q = _randn(dev, b, sq, g * kv, hd, dt=dt, seed=20 + i).transpose(1, 2)
         k = _randn(dev, b, sk, kv, hd, dt=dt, seed=40 + i).transpose(1, 2)
@@ -149,7 +154,7 @@ def _check_decode(q, kc, vc, lens, dt, what):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 @pytest.mark.parametrize("g", DECODE_GROUPS)
 @pytest.mark.parametrize("b,kv,s", DECODE_SHAPES)
 def test_decode_attention_kernel_split_edges(dev, b, kv, s, g, hd, dt):
@@ -191,6 +196,19 @@ def test_decode_attention_kernel_split_edges_moe(dev, b, kv, s, dt):
         _check_decode(q, kc, vc, lens, dt, f"G=16 KV=4 P={per} NS={ns} lens={lens}")
 
 
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,kv,s", DECODE_SHAPES_ZAMBA2)
+def test_decode_attention_kernel_split_edges_zamba2(dev, b, kv, s, dt):
+    """zamba2-2.7b's decode attention: G = 1 over KV = 32 at hd 80 (bf16: 10
+    of a row's 16 lanes load; f32: 20 of 32), lengths at the split edges
+    and the path's."""
+    per, ns = decode_split_plan(s, b, kv, torch.cuda.get_device_properties(dev)
+                                .multi_processor_count)
+    q, kc, vc = _decode_case(dev, b, ZAMBA_G * kv, kv, s, ZAMBA_HD, dt, seed=140 + s)
+    for lens in decode_edge_lens(per, s, b) + [[397, 250, 130, 17][:b]]:
+        _check_decode(q, kc, vc, lens, dt, f"hd 80 KV=32 P={per} NS={ns} lens={lens}")
+
+
 def test_wrappers_reject_bad_inputs(dev):
     """On the card a G above 16 query heads per KV head (17) raises instead
     of launching or falling back to the plain version; 16 launches."""
@@ -205,16 +223,16 @@ def test_wrappers_reject_bad_inputs(dev):
 
 
 def test_attention_kernels_reject_unbuilt_head_dim(dev):
-    """A head dim outside the built set (80: zamba2-2.7b's) raises on the
-    card instead of launching or falling back to the plain version."""
+    """A head dim outside the built set (96) raises on the card instead of
+    launching or falling back to the plain version."""
     for dt in DTYPES:
-        q = _randn(dev, 1, 4, 2, 80, dt=dt, seed=3).transpose(1, 2)
-        kv = _randn(dev, 1, 4, 2, 80, dt=dt, seed=4).transpose(1, 2)
+        q = _randn(dev, 1, 4, 2, 96, dt=dt, seed=3).transpose(1, 2)
+        kv = _randn(dev, 1, 4, 2, 96, dt=dt, seed=4).transpose(1, 2)
         n = flash_attention.launches
-        with pytest.raises(ValueError, match="head_dim 80"):
+        with pytest.raises(ValueError, match="head_dim 96"):
             flash_attention(q, kv, kv)
         lt = torch.tensor([3], dtype=torch.int32, device=dev)
-        with pytest.raises(ValueError, match="head_dim 80"):
+        with pytest.raises(ValueError, match="head_dim 96"):
             decode_attention(q[:, :, 0], kv, kv, lt)
         assert flash_attention.launches == n
 
@@ -595,3 +613,34 @@ def test_xlstm_kernel_path_matches_plain_path(dev, every):
     assert slstm_scan.launches - scans0 == 5 * groups      # prefill + 4 steps
     # every block's pre-norm and inner norm, each sLSTM block's ln_s2, the final norm
     assert fused_rmsnorm.launches - norms0 == 5 * (2 * cfg.num_layers + groups + 1)
+
+
+@pytest.mark.parametrize("variants", [{}, dict(head_dim=80, num_heads=32, num_kv_heads=32)],
+                         ids=["100m-hd64", "hd80-g1"])
+def test_zamba2_kernel_path_matches_plain_path(dev, variants):
+    """f32, the 100m reduction of zamba2-2.7b (6 Mamba2 blocks, one shared
+    attention block invoked once; with hd 80 at zamba2-2.7b's G = 1):
+    prefill of a prompt longer than two SSD chunks and 4 decode steps
+    through the kernels agree with the plain path, states included.  1e-4,
+    as for the dense model."""
+    cfg = model_100m("zamba2-2.7b").scaled(ssm_chunk=32, **variants)
+    fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
+    params = fast.init(0)
+    n0 = {w: w.launches for w in (fused_rmsnorm, flash_attention, decode_attention)}
+    toks = torch.randint(0, cfg.vocab_size, (1, 77), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    lk, ck = fast.prefill(params, {"tokens": toks}, max_seq=128)
+    lp, cp = plain.prefill(params, {"tokens": toks}, max_seq=128)
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for _ in range(4):
+        nxt = lp[:, -1].argmax(-1, keepdim=True)
+        lk, ck = fast.decode_step(params, ck, nxt)
+        lp, cp = plain.decode_step(params, cp, nxt)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for k, v in ck["mamba"].items():
+        torch.testing.assert_close(v, cp["mamba"][k], atol=1e-4, rtol=1e-4, msg=k)
+    ng = cfg.num_layers // cfg.attn_every
+    assert flash_attention.launches - n0[flash_attention] == ng
+    assert decode_attention.launches - n0[decode_attention] == 4 * ng
+    # ln_m and the inner norm of every block, ln1 and ln2 of every group, the final norm
+    assert fused_rmsnorm.launches - n0[fused_rmsnorm] == 5 * (2 * cfg.num_layers + 2 * ng + 1)
