@@ -4,8 +4,10 @@
     python3 chip_smoke.py            # from the root of a checkout, on a machine with one GPU
 
 Drives the port's main paths (the serving plane's model step, for the
-dense, xLSTM, MoE and Zamba2 families) on the GPU, never the JAX reference
-package, in twenty-one phases; any failed phase exits non-zero before the
+dense, xLSTM, MoE and Zamba2 families; ``Model.prefill`` and
+``decode_step`` for Whisper and mLLaMA, whose prefill takes frames or a
+vision input that no request carries) on the GPU, never the JAX reference
+package, in twenty-five phases; any failed phase exits non-zero before the
 final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
@@ -23,14 +25,21 @@ final line:
    at the main paths' shapes plus ragged ones and the attention kernels'
    tile and split edges, in f32 and bf16 (K1 in every mode the models call:
    with and without the residual add, Gemma's ``1 + scale``, with and
-   without the residual output, on strided and unaligned rows), and time
+   without the residual output, on strided and unaligned rows, up to
+   mLLaMA's D = 8192, the kernel's widest), and time
    kernel, plain version and the nearest PyTorch library call (flash
    attention at S = 16, 100, 384 and 1024), and each wrapper's host time
    per call (K1's beside one ``torch.add``); K2 and K3 also at head dim
    256 with G = 8 over KV = 1 (gemma-2b) and at head dim 128 with G = 16
    over KV = 4 (qwen3-moe: K3 as two row groups) and at head dim 80 with
    G = 1 over KV = 32 (zamba2-2.7b): the tile and split edges, prefill
-   S = 16, 100 and 384, decode over 4 slots; K1 on
+   S = 16, 100 and 384, decode over 4 slots; K2 non-causal with Sq != Sk
+   and K3 over a whole fixed-length K/V at the cross-attention families'
+   shapes (whisper-small: B = 4, 12 heads over 12 at hd 64, the encoder's
+   Sq = Sk = 1500, cross-attention from 100 and 384 tokens to 1500 frames,
+   K3 over 1500 in 3 splits; llama-3.2-vision-90b: 64 heads over 8 at hd
+   128 from 100 and 384 tokens to 4096 vision tokens, K3 over 4096 in 5
+   splits), each beside SDPA and its bound; K1 on
    qk_norm's rows of 128 beside ``F.rms_norm``; the K4 and K5 windows are
    also printed by kernel name,
    K4 must be one kernel per call, and K5 is timed at the admission
@@ -81,7 +90,26 @@ final line:
    call, one flash-attention launch a prefill and one decode-attention
    launch a decode step per invocation of the shared block (9 each), and
    the decode round's bytes bound with the shared block's weights read at
-   each of its 9 invocations.
+   each of its 9 invocations;
+22. full-width whisper-small in f32 through ``Model``: kernel path against
+   plain path on the same weights, two batches of 4 prompts (100 and 311
+   tokens) with their own frames, prefill logits and cross K/V, then 4
+   decode steps; then prefill of n tokens plus one decode step against
+   prefill of n + 1;
+23. full-width whisper-small in bf16: 8 requests in two batches of 4
+   (prompt lengths from the seed in 16-384, frames of their own, 32 new
+   tokens), exactly 36 flash-attention launches a prefill (12 encoder,
+   12 self, 12 cross), 24 decode-attention launches a decode step (12
+   self, 12 cross) and no fused norm; TTFT, step ms, tok/s and memory; a
+   profile of one prefill and 4 decode steps (each decode-attention call
+   one kernel) beside the step's bytes bound;
+24-25. llama-3.2-vision-90b at full width cut to 10 of its 100 layers (2
+   groups of [4 self + 1 cross]), every cross layer's gates set to 0.7 and
+   -0.5 first (zero at init, where the cross path adds nothing), as in 22
+   (f32) and 23 (bf16, 4096 vision tokens a request): 21 fused norms a
+   call, 10 flash-attention launches a prefill (8 self, 2 cross), 10
+   decode-attention launches a step; 23 and 25 also print one batch's
+   bf16 prefill logits on the kernel path beside the plain path's.
 
 It prints a ``{"kernels": [...]}`` line and ends with one JSON line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -494,6 +522,9 @@ def phase_kernels(dev) -> dict:
                                                   what=what)
         report["flash_attention"][key] = flash_r
         report["decode_attention"][key] = decode_r
+    # whisper-small and llama-3.2-vision-90b: non-causal and cross attention
+    report["flash_attention"]["cross"], report["decode_attention"]["cross"] = \
+        phase_cross_shapes(dev, rnd, dts)
     report.update(phase_slstm_scan(dev, rnd, dts))
     report.update(phase_ragged_concat(dev, gen))
     return report
@@ -595,15 +626,92 @@ def phase_attention_shape(dev, rnd, dts, *, g: int, kv: int, hd: int, flash_edge
     return flash, decode
 
 
+def phase_cross_shapes(dev, rnd, dts) -> tuple[dict, dict]:
+    """K2 and K3 at the cross-attention families' shapes, which no earlier
+    path runs (``CROSS_FLASH``, ``CROSS_DECODE`` in
+    ``tests/_attention_edges.py``): K2 non-causal with Sq != Sk (whisper's
+    encoder over 1500 frames, both families' prefill cross-attention over
+    1500 frames or 4096 vision tokens), K3 with one query a request over the
+    whole K/V (3 splits of 512 at S = 1500, 5 of 832 at 4096), in f32 and
+    bf16 against their plain versions, K3 called three times in a row on
+    one stream and then at its split edges (a ticket counter left non-zero
+    fails).  Each timed in bf16 beside SDPA (``enable_gqa``, no mask: every
+    key is valid) and its bound, with its host ms.  Returns the bf16
+    timings by shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from _attention_edges import CROSS_DECODE, CROSS_FLASH, decode_edge_lens
+
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_attention_ref,
+                                                          decode_row_groups,
+                                                          decode_split_plan)
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
+
+    flash, decode = {}, {}
+    for b, h, kv, sq, sk, hd in CROSS_FLASH:
+        shape = f"B={b} H={h} KV={kv} Sq={sq} Sk={sk} hd={hd} non-causal"
+        errs = {}
+        for dname, dt in dts.items():
+            q = rnd(b, sq, h, hd, dt=dt).transpose(1, 2)
+            k, v = (rnd(b, sk, kv, hd, dt=dt).transpose(1, 2) for _ in range(2))
+            errs[dname] = check_close(f"flash {dname} {shape}",
+                                      flash_attention(q, k, v, causal=False),
+                                      flash_attention_ref(q, k, v, causal=False), dname)
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        t = timings(lambda: flash_attention(q, k, v, causal=False),
+                    lambda: flash_attention_ref(q, k, v, causal=False),
+                    lambda: F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True),
+                    plain_iters=5)
+        t["bound_ms"], t["bound_by"] = bound_ms(2 * (2 * b * sq * h * hd + 2 * b * sk * kv * hd),
+                                                4 * hd * h * b * sq * sk, "bfloat16")
+        log(f"flash_attention {shape}: max_abs_err f32 {errs['float32']:.3e}, bf16 "
+            f"{errs['bfloat16']:.3e}")
+        log_timings(f"flash_attention bf16 {shape}", t, "SDPA")
+        flash[shape] = {**{k_: v_ for k_, v_ in t.items() if k_ != "wall_ms"},
+                        "max_abs_err": errs["bfloat16"]}
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, h, kv, s_, hd in CROSS_DECODE:
+        per, ns = decode_split_plan(s_, b, kv, sms, decode_row_groups(h // kv)[0])
+        shape = f"B={b} H={h} KV={kv} S={s_} hd={hd} all valid"
+        errs = {}
+        for dname, dt in dts.items():
+            qd = rnd(b, 1, h, hd, dt=dt)[:, 0]
+            kt, vt = (rnd(b, s_, kv, hd, dt=dt).transpose(1, 2) for _ in range(2))
+            for lens in [[s_] * b] * 3 + decode_edge_lens(per, s_, b):
+                lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+                e = check_close(f"decode {dname} {shape} P={per} lens={lens}",
+                                decode_attention(qd, kt, vt, lt),
+                                decode_attention_ref(qd, kt, vt, lt), dname)
+                errs[dname] = max(errs.get(dname, 0.0), e)
+        lt = torch.full((b,), s_, dtype=torch.int32, device=dev)
+        q4, kct, vct = qd[:, :, None], kt.contiguous(), vt.contiguous()
+        t = timings(lambda: decode_attention(qd, kt, vt, lt),
+                    lambda: decode_attention_ref(qd, kt, vt, lt),
+                    lambda: F.scaled_dot_product_attention(q4, kct, vct, enable_gqa=True))
+        t["bound_ms"], t["bound_by"] = bound_ms(2 * (2 * b * h * hd + 2 * b * s_ * kv * hd) + 4 * b,
+                                                4 * hd * h * b * s_, "bfloat16")
+        log(f"decode_attention {shape}: P={per}, {ns} splits; max_abs_err f32 "
+            f"{errs['float32']:.3e}, bf16 {errs['bfloat16']:.3e}")
+        log_timings(f"decode_attention bf16 {shape}", t, "SDPA")
+        decode[shape] = {**{k_: v_ for k_, v_ in t.items() if k_ != "wall_ms"},
+                         "max_abs_err": errs["bfloat16"], "splits": ns, "per_block": per}
+    return flash, decode
+
+
 def phase_rmsnorm(dev, gen, rnd, dts) -> dict:
     """K1 in every mode the paths call, at their widths: D = 1536 (qwen2),
-    2048 (xlstm) and 4096 (the mLSTM's inner norm), the smoke configs' 48
-    and the unaligned 52; R = 4 (decode's slots) to 384 (prefill).  Then
+    2048 (xlstm), 4096 (the mLSTM's inner norm) and 8192 (mLLaMA, the
+    kernel's widest: 4 vectors a thread in bf16, 512 threads in f32), the
+    smoke configs' 48 and the unaligned 52; R = 4 (decode's slots) to 384
+    (prefill).  Then
     the views the model hands over: prefill's last position of (B, S, D),
     strided rows, and a view offset by one element (the scalar
     instantiation).  Timed in bf16 at D = 1536, R = 4 and 384 beside
     ``F.rms_norm`` (the norm alone on the pre-added input: PyTorch has no
-    add + norm call), at D = 2048 and 4096, R = 4, and the host time of one
+    add + norm call), at D = 2048, 4096 and 8192, R = 4, and the host time of one
     call beside one ``torch.add`` of the same tensors."""
     import torch
     import torch.nn.functional as F
@@ -622,7 +730,7 @@ def phase_rmsnorm(dev, gen, rnd, dts) -> dict:
              "add-no-out": (True, False, False), "norm": (False, False, False),
              "norm-gemma": (False, True, True)}
     for dname, dt in dts.items():
-        for d in (1536, 2048, 4096, 48, 52):
+        for d in (1536, 2048, 4096, 8192, 48, 52):
             worst = 0.0
             for rows in (4, 384, 16, 1, 37):
                 for mode, (with_r, gemma, want) in modes.items():
@@ -674,7 +782,7 @@ def phase_rmsnorm(dev, gen, rnd, dts) -> dict:
         qk_times[f"qk_norm R={rows} D=128 bf16"] = {k: v for k, v in t.items() if k != "wall_ms"}
 
     times = {}
-    for rows, d in ((4, 1536), (384, 1536), (4, 2048), (4, 4096)):
+    for rows, d in ((4, 1536), (384, 1536), (4, 2048), (4, 4096), (4, 8192)):
         x, r = rnd(rows, d, dt=torch.bfloat16), rnd(rows, d, dt=torch.bfloat16)
         sc = torch.randn(d, generator=gen, device=dev)
         hsum = (x.float() + r.float()).to(torch.bfloat16)
@@ -847,18 +955,24 @@ DENSE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 PATH_KERNELS = {"qwen2-1.5b": DENSE_KERNELS, "xlstm-1.3b": ("rmsnorm", "slstm_scan"),
                 "gemma-2b": DENSE_KERNELS, "llama3-8b": DENSE_KERNELS,
                 "qwen3-8b": DENSE_KERNELS, "qwen2-moe-a2.7b": DENSE_KERNELS,
-                "qwen3-moe-235b-a22b": DENSE_KERNELS, "zamba2-2.7b": DENSE_KERNELS}
+                "qwen3-moe-235b-a22b": DENSE_KERNELS, "zamba2-2.7b": DENSE_KERNELS,
+                "whisper-small": ("flash_attention", "decode_attention"),
+                "llama-3.2-vision-90b": DENSE_KERNELS}
 # the dense siblings served after the fleet (phases 9-14), smallest first
 SIBLINGS = ("gemma-2b", "llama3-8b", "qwen3-8b")
 # the MoE family (phases 16-19), after its layer phase (15)
 MOE_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
-# the Zamba2 family (phases 20-21), last
+# the Zamba2 family (phases 20-21)
 ZAMBA_ARCHS = ("zamba2-2.7b",)
+# the cross-attention families (phases 22-25), last, through Model
+CROSS_ARCHS = ("whisper-small", "llama-3.2-vision-90b")
 # a prompt longer than zamba2's chunk of 256 for the replay check of phase 20
 REPLAY_PROMPT = 300
 # depth cuts: qwen3-moe's 94 layers hold 470 GB in bf16; 4 of its identical
-# layers run every module and kernel shape that 94 would (PERF.md section 4)
-DEPTH = {"qwen3-moe-235b-a22b": 4}
+# layers run every module and kernel shape that 94 would.  mLLaMA's 100 (175
+# GB in bf16) are 20 identical groups of [4 self + 1 cross]; 2 groups run
+# every module and kernel shape (PERF.md section 4)
+DEPTH = {"qwen3-moe-235b-a22b": 4, "llama-3.2-vision-90b": 10}
 # a route that differs between the two f32 paths must be a near tie in the
 # plain path: its k-th and (k+1)-th router probabilities this close
 ROUTE_TIE = 1e-5
@@ -1289,6 +1403,298 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phases 22-25: the cross-attention families through the Model API
+# ---------------------------------------------------------------------------
+
+# mLLaMA's cross layers' gates, set before every phase: they are zero at
+# init, and tanh(0) = 0 would make every cross-attention and cross MLP add
+# nothing, so no fault of the cross path could show
+MLLAMA_GATES = {"gate_attn": 0.7, "gate_mlp": -0.5}
+CROSS_BATCH = 4
+# the f32 phases' prompt lengths, one batch each: across K2's 64-row tiles
+CROSS_F32_PROMPTS = (100, 311)
+
+
+def cross_model(dev, arch: str, dtype: str):
+    """``arch`` (at its served depth) in ``dtype`` on the card, its random
+    weights from ``SEED``, mLLaMA's gates set (``MLLAMA_GATES``)."""
+    from repro_torch.models import Model
+
+    cfg = arch_config(arch, dtype)
+    model = Model(cfg, device=dev)
+    params = model.init(SEED)
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"{dtype} {arch}: {n / 1e9:.3f} B parameters, "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.3f} GB")
+    if cfg.family == "mllama":
+        for k, g in MLLAMA_GATES.items():
+            params["cross_layers"][k].fill_(g)
+        log(f"{dtype} {arch}: every cross layer's gate_attn set to {MLLAMA_GATES['gate_attn']} "
+            f"and gate_mlp to {MLLAMA_GATES['gate_mlp']} (zero at init, where the cross "
+            f"path adds nothing)")
+    return cfg, model, params
+
+
+def cross_input(cfg, b: int, gen) -> dict:
+    """The input beside the tokens, drawn on the card from ``gen``: audio
+    frames (whisper) or vision patch embeddings (mLLaMA), (b, P, d_model)."""
+    import torch
+
+    key, n = (("frames", cfg.encoder_positions) if cfg.family == "whisper"
+              else ("vision", cfg.vision_tokens))
+    return {key: torch.randn((b, n, cfg.d_model), generator=gen, device=gen.device,
+                             dtype=torch.float32).to(cfg.cdt)}
+
+
+def check_rel(what: str, a, b) -> None:
+    """``a`` within ``MODEL_F32_REL_TOL`` of ``b``'s scale, and finite."""
+    import torch
+
+    if not torch.isfinite(a).all():
+        fail(f"{what}: non-finite values")
+    scale = float(b.abs().max())
+    err = max_err(a, b)
+    same = bool((a[:, -1].argmax(-1) == b[:, -1].argmax(-1)).all()) if a.ndim == 3 else None
+    log(f"{what}: max_abs_err {err:.3e} (scale {scale:.3e}, rel {err / scale:.3e}, bound "
+        f"{MODEL_F32_REL_TOL}){'' if same is None else f', argmax agree {same}'}")
+    if err > MODEL_F32_REL_TOL * scale:
+        fail(f"{what}: differs by {err:.3e}, beyond {MODEL_F32_REL_TOL} of {scale:.3e}")
+
+
+def phase_cross_f32(dev, arch: str) -> None:
+    """Kernel path against plain path in f32 at full width on one copy of
+    the weights: two batches of 4 prompts (``CROSS_F32_PROMPTS`` tokens),
+    each with its own frames or vision input, prefill logits and the cross
+    K/V, then 4 decode steps.  Then, on the kernel path, prefill of n
+    tokens plus one decode step against prefill of n + 1 tokens."""
+    import torch
+
+    from repro_torch.models import Model
+
+    cfg, fast, params = cross_model(dev, arch, "float32")
+    plain = Model(cfg, device=dev, plain=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for n in CROSS_F32_PROMPTS:
+        toks = torch.randint(0, cfg.vocab_size, (CROSS_BATCH, n), generator=gen, device=dev)
+        batch = {"tokens": toks, **cross_input(cfg, CROSS_BATCH, gen)}
+        lk, ck = fast.prefill(params, batch, max_seq=n + 8)
+        lp, cp = plain.prefill(params, batch, max_seq=n + 8)
+        check_rel(f"f32 {arch} prefill B={CROSS_BATCH} S={n}", lk, lp)
+        for key in ("ck", "cv"):
+            check_rel(f"f32 {arch} prefill B={CROSS_BATCH} S={n} cache {key}", ck[key], cp[key])
+        nxt = lp[:, -1].argmax(-1, keepdim=True)
+        for i in range(4):
+            lk, ck = fast.decode_step(params, ck, nxt)
+            lp, cp = plain.decode_step(params, cp, nxt)
+            check_rel(f"f32 {arch} decode step {i + 1} at length {n + i + 1}", lk, lp)
+            nxt = lp[:, -1].argmax(-1, keepdim=True)
+        if ck["len"].tolist() != [n + 4] * CROSS_BATCH:
+            fail(f"f32 {arch}: cache len {ck['len'].tolist()}, expected {n + 4}")
+        del ck, cp, batch
+    n = CROSS_F32_PROMPTS[0]
+    toks = torch.randint(0, cfg.vocab_size, (CROSS_BATCH, n + 1), generator=gen, device=dev)
+    extra = cross_input(cfg, CROSS_BATCH, gen)
+    _, cache = fast.prefill(params, {"tokens": toks[:, :n], **extra}, max_seq=n + 1)
+    stepped = fast.decode_step(params, cache, toks[:, n:])[0]
+    whole = fast.prefill(params, {"tokens": toks, **extra})[0]
+    check_rel(f"f32 {arch} prefill S={n} + one decode step against prefill S={n + 1}",
+              stepped, whole)
+    del params, cache, extra
+    torch.cuda.empty_cache()
+
+
+def cross_calls_per_stage(cfg) -> dict:
+    """Each path kernel's launches a prefill and a decode step make.
+    Whisper: K2 once per encoder layer and twice per decoder layer (self,
+    cross: 36 at 12 + 12 layers), K3 twice per decoder layer (24), no K1
+    (LayerNorm).  mLLaMA: K2 and K3 once a layer (self or cross: 10 at 10
+    layers), K1 2L + 1 (21)."""
+    L = cfg.num_layers
+    if cfg.family == "whisper":
+        return {"prefill": {"rmsnorm": 0, "flash_attention": cfg.encoder_layers + 2 * L,
+                            "decode_attention": 0},
+                "decode": {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 2 * L}}
+    return {"prefill": {"rmsnorm": 2 * L + 1, "flash_attention": L, "decode_attention": 0},
+            "decode": {"rmsnorm": 2 * L + 1, "flash_attention": 0, "decode_attention": L}}
+
+
+def generate(model, params: dict, batch: dict, max_new: int) -> dict:
+    """Greedy generation of ``max_new`` tokens a row through ``Model``: one
+    prefill, then ``max_new - 1`` decode steps.  Each token is read back to
+    the host as a server does, which syncs: TTFT is the prefill (encoder
+    included) up to its token on the host, each step's ms the same."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, cache = model.prefill(params, batch, max_seq=MAX_SEQ)
+    nxt = logits[:, -1].argmax(-1, keepdim=True)
+    out = [nxt.cpu()]
+    ttft = time.monotonic() - t0
+    steps = []
+    for _ in range(max_new - 1):
+        t1 = time.monotonic()
+        logits, cache = model.decode_step(params, cache, nxt)
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(nxt.cpu())
+        steps.append(1e3 * (time.monotonic() - t1))
+    return {"ttft_ms": 1e3 * ttft, "step_ms": steps, "wall_s": time.monotonic() - t0,
+            "tokens": torch.cat(out, 1), "len": cache["len"].tolist()}
+
+
+def cross_round_bytes(params: dict, cfg, lens: list) -> dict:
+    """The bytes one decode step must move, by part: the weights it reads
+    (the decoder's, or every layer's, without the cross layers' ``wk`` and
+    ``wv``, whose K/V is cached; whisper's tied table as its unembedding,
+    mLLaMA's ``lm_head``; the embedding reads one row a request), the cached
+    cross K/V, and the valid self K/V at the step's lengths ``lens``."""
+    size = lambda tree: sum(t.numel() * t.element_size() for t in _leaves(tree))  # noqa: E731
+    if cfg.family == "whisper":
+        layers = params["decoder"]["layers"]
+        weights = (size(layers) - size(layers["cross_attn"]["wk"])
+                   - size(layers["cross_attn"]["wv"]) + size(params["decoder"]["tok_embed"])
+                   + size(params["decoder"]["final_ln"]))
+        n_self, kv, cross_rows = cfg.num_layers, cfg.num_heads, cfg.encoder_positions
+        n_cross = cfg.num_layers
+    else:
+        cross = params["cross_layers"]
+        weights = (size(params) - size(params["tok_embed"]) - size(cross["attn"]["wk"])
+                   - size(cross["attn"]["wv"]))
+        n_cross = cfg.num_layers // cfg.cross_attn_every
+        n_self, kv, cross_rows = cfg.num_layers - n_cross, cfg.num_kv_heads, cfg.vision_tokens
+    el = 2 * kv * cfg.head_dim * cfg.cdt.itemsize          # one position's k and v
+    return {"weights": weights, "cross_kv": n_cross * len(lens) * cross_rows * el,
+            "self_kv": n_self * sum(lens) * el}
+
+
+def phase_cross_bf16(dev, arch: str) -> tuple[dict, dict]:
+    """8 requests in two batches of 4 through ``Model.prefill`` and greedy
+    ``decode_step`` (the reference's entry point for this family: its
+    server cannot take frames or a vision input), each batch one prompt
+    length drawn from the seed in 16-384 and its own frames or vision
+    input, ``MAX_SEQ`` positions, ``MAX_NEW`` tokens a request.  Every
+    kernel's launch counter is set to 0 just before and read just after;
+    each prefill and decode call must launch exactly the counts of
+    ``cross_calls_per_stage``.  Then a profile of one prefill and 4 decode
+    steps (each K3 call one kernel), the decode step's bytes bound, and
+    the first batch's prefill logits on the kernel path beside the plain
+    path's (information)."""
+    import numpy as np
+    import torch
+
+    ws = wrappers()
+    names = PATH_KERNELS[arch]
+    cfg, model, params = cross_model(dev, arch, "bfloat16")
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def make_batch(n):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (CROSS_BATCH, n)), device=dev)
+        return {"tokens": toks, **cross_input(cfg, CROSS_BATCH, gen)}
+
+    generate(model, params, make_batch(PROMPT_MAX), 2)   # warm the allocator's pool
+    lens = [int(rng.integers(PROMPT_MIN, PROMPT_MAX + 1)) for _ in range(N_REQUESTS // CROSS_BATCH)]
+    batches = [make_batch(n) for n in lens]
+    torch.cuda.reset_peak_memory_stats(dev)
+    stage_names = ("rmsnorm", "flash_attention", "decode_attention")
+    stages = count_by_stage(model, stage_names, ws)
+    for w in ws.values():
+        w.launches = 0
+    runs = [generate(model, params, b, MAX_NEW) for b in batches]
+    launches = {name: w.launches for name, w in ws.items()}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"{arch}: kernel {name} was launched {launches[name]} times on the main path")
+    log(f"{arch} launches on the main path (counters zeroed just before): {launches}")
+    want = cross_calls_per_stage(cfg)
+    for stage in ("prefill", "decode"):
+        calls = stages["calls"][stage]
+        got = {n: stages[stage][n] for n in stage_names}
+        if not calls or got != {n: calls * c for n, c in want[stage].items()}:
+            fail(f"{arch}: {stage} launched {got} in {calls} calls, expected "
+                 f"{want[stage]} per call")
+        log(f"{arch}: {calls} {stage} calls, each {want[stage]}")
+    for n, r in zip(lens, runs):
+        if r["tokens"].shape != (CROSS_BATCH, MAX_NEW) or \
+                not ((r["tokens"] >= 0) & (r["tokens"] < cfg.vocab_size)).all() or \
+                r["len"] != [n + MAX_NEW - 1] * CROSS_BATCH:
+            fail(f"{arch} batch at S={n}: tokens {tuple(r['tokens'].shape)}, lengths {r['len']}")
+    wall = sum(r["wall_s"] for r in runs)
+    steps = [ms for r in runs for ms in r["step_ms"]]
+    log(f"{arch} bf16 {N_REQUESTS} requests in {len(runs)} batches of {CROSS_BATCH}, prompts "
+        f"{lens}, {MAX_NEW} tokens each: {N_REQUESTS * MAX_NEW} tokens in {wall:.3f} s = "
+        f"{N_REQUESTS * MAX_NEW / wall:.2f} tok/s; TTFT per batch (encoder or vision K/V "
+        f"included) {[round(r['ttft_ms'], 3) for r in runs]} ms; decode step median "
+        f"{sorted(steps)[len(steps) // 2]:.3f} ms, range {min(steps):.3f}-{max(steps):.3f} ms; "
+        f"peak device memory {peak:.3f} GiB")
+    mid = [lens[0] + MAX_NEW // 2] * CROSS_BATCH     # the first batch's middle step
+    parts = cross_round_bytes(params, cfg, mid)
+    read = sum(parts.values())
+    log(f"{arch} decode-step bound {1e3 * read / HBM_BYTES_PER_S:.3f} ms ({read / 1e9:.3f} GB: "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
+        + f" GB at lengths {mid[0]}) / 3.35 TB/s")
+
+    # where the time goes: one prefill, then 4 decode steps, profiled
+    from torch.profiler import ProfilerActivity, profile
+
+    path_ms = {}
+    batch = batches[0]
+    windows = []
+    state = {}
+    for label, n_rounds in (("admission round", 1), ("decode rounds", 4)):
+        before = {k: w.launches for k, w in ws.items()}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            if label == "admission round":
+                logits, state["cache"] = model.prefill(params, batch, max_seq=MAX_SEQ)
+                state["nxt"] = logits[:, -1].argmax(-1, keepdim=True)
+                state["nxt"].cpu()
+            else:
+                for _ in range(n_rounds):
+                    logits, state["cache"] = model.decode_step(params, state["cache"],
+                                                               state["nxt"])
+                    state["nxt"] = logits[:, -1].argmax(-1, keepdim=True)
+                    state["nxt"].cpu()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        calls = {k: w.launches - before[k] for k, w in ws.items() if k in names}
+        windows.append(window_report(label, prof, wall, n_rounds, calls,
+                                     {n: ws[n] for n in names}, path_ms,
+                                     busy_rows=f"{CROSS_BATCH} requests"))
+    lens_now = state["cache"]["len"].tolist()
+    parts = cross_round_bytes(params, cfg, [n - 2 for n in lens_now])
+    read = sum(parts.values())
+    log(f"{arch} decode-step bound for the profiled steps: {1e3 * read / HBM_BYTES_PER_S:.3f} "
+        f"ms ({read / 1e9:.3f} GB) against device busy {windows[1]['busy_ms']:.3f} ms and wall "
+        f"{windows[1]['wall_ms']:.3f} ms a step")
+
+    # how far bf16 rounding moves the first batch's prefill logits between
+    # the two paths, beside the plain logits' top-2 gap (a greedy token
+    # flips where that gap is below the paths' difference)
+    from repro_torch.models import Model
+
+    plain = Model(cfg, device=dev, plain=True)
+    lk = model.prefill(params, batch, max_seq=MAX_SEQ)[0][:, -1].float()
+    lp = plain.prefill(params, batch, max_seq=MAX_SEQ)[0][:, -1].float()
+    top2 = lp.topk(2, dim=-1).values
+    log(f"{arch} bf16 prefill logits at S={lens[0]}, kernel path vs plain path "
+        f"(information): max abs {max_err(lk, lp):.4e}, logit scale "
+        f"{float(lp.abs().max()):.4e}, plain top-2 gap min "
+        f"{float((top2[:, 0] - top2[:, 1]).min()):.4e}, argmax agree "
+        f"{int((lk.argmax(-1) == lp.argmax(-1)).sum())}/{CROSS_BATCH}")
+    if not torch.isfinite(lk).all():
+        fail(f"{arch} bf16 prefill: non-finite logits on the kernel path")
+    del params, model, plain, batches, batch, state, lk, lp
+    torch.cuda.empty_cache()
+    return {n: launches[n] for n in names}, path_ms
+
+
+# ---------------------------------------------------------------------------
 # phase 15: the MoE layer at qwen2-moe's width
 # ---------------------------------------------------------------------------
 
@@ -1476,44 +1882,56 @@ def profile_rounds(srv, cfg, wrappers: dict, rounds: int = 4) -> dict:
     srv.serve()
 
     path_ms = {}
-    for label, (prof, wall, n, calls) in zip(("admission round", "decode rounds"), windows):
-        acts = cuda_activity(prof)
-        dev_us = {}
-        for e in acts:
-            dev_us[e.key] = dev_us.get(e.key, 0.0) + e.self_device_time_total
-        busy = sum(dev_us.values()) / 1e6
-        log(f"profile, {label} ({n} round(s), {SLOTS} slots busy): wall "
-            f"{1e3 * wall / n:.3f} ms/round, device busy {1e3 * busy / n:.3f} ms/round "
-            f"(idle share {1 - busy / wall:.3f}), "
-            f"{sum(e.count for e in acts) / n:.0f} device activities/round")
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-        log(f"profile, {label}, device ms/round by kernel: " + json.dumps(
-            [[k[:70], round(v / 1e3 / n, 4)] for k, v in top]))
-        n_kernels = {}
-        for e in acts:
-            n_kernels[e.key] = n_kernels.get(e.key, 0) + e.count
-        for name in wrappers:
-            us = sum(v for k, v in dev_us.items() if any(p in k for p in KERNEL_NAMES[name]))
-            kernels = sum(c for k, c in n_kernels.items()
-                          if any(p in k for p in KERNEL_NAMES[name]))
-            # each decode-attention call is one launch: the profiler may
-            # deliver fewer activities than were launched (seen on the H100:
-            # 111 of 112), never more
-            if name == "decode_attention" and not 0 < kernels <= calls[name]:
-                fail(f"{label}: {calls[name]} decode_attention calls ran {kernels} kernels; "
-                     "each call must be one launch")
-            if name == "decode_attention" and kernels < calls[name]:
-                log(f"profile, {label}: the profiler delivered {kernels} of "
-                    f"{calls[name]} decode_attention activities")
-            if calls[name]:
-                path_ms.setdefault(name, {})[label] = us / 1e3 / calls[name]
-                log(f"profile, {label}: {name} {calls[name]} launches, device "
-                    f"{us / 1e3 / calls[name]:.5f} ms per launch")
+    for label, window in zip(("admission round", "decode rounds"), windows):
+        window_report(label, *window, wrappers, path_ms)
     if cfg.family == "moe":
         path_ms["moe"] = moe
     if kv_tokens:
         path_ms["kv_tokens"] = kv_tokens[0]
     return path_ms
+
+
+def window_report(label: str, prof, wall: float, n: int, calls: dict, wrappers: dict,
+                  path_ms: dict, busy_rows: str = f"{SLOTS} slots busy") -> dict:
+    """Log one profiled window of ``n`` rounds (wall time, device busy and
+    idle share, device activities, the top kernels) and each wrapper's
+    device ms per launch into ``path_ms``; fails unless each
+    decode-attention call was one kernel.  Returns the window's numbers."""
+    acts = cuda_activity(prof)
+    dev_us = {}
+    for e in acts:
+        dev_us[e.key] = dev_us.get(e.key, 0.0) + e.self_device_time_total
+    busy = sum(dev_us.values()) / 1e6
+    out = {"wall_ms": 1e3 * wall / n, "busy_ms": 1e3 * busy / n, "idle_share": 1 - busy / wall,
+           "activities": sum(e.count for e in acts) / n}
+    log(f"profile, {label} ({n} round(s), {busy_rows}): wall {out['wall_ms']:.3f} ms/round, "
+        f"device busy {out['busy_ms']:.3f} ms/round (idle share {out['idle_share']:.3f}), "
+        f"{out['activities']:.0f} device activities/round")
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    log(f"profile, {label}, device ms/round by kernel: " + json.dumps(
+        [[k[:70], round(v / 1e3 / n, 4)] for k, v in top]))
+    n_kernels = {}
+    for e in acts:
+        n_kernels[e.key] = n_kernels.get(e.key, 0) + e.count
+    for name in wrappers:
+        us = sum(v for k, v in dev_us.items() if any(p in k for p in KERNEL_NAMES[name]))
+        kernels = sum(c for k, c in n_kernels.items()
+                      if any(p in k for p in KERNEL_NAMES[name]))
+        # each decode-attention call is one launch: the profiler may
+        # deliver fewer activities than were launched (seen on the H100:
+        # 111 of 112), never more, and none only where no call was made
+        if name == "decode_attention" and (kernels > calls[name]
+                                           or (calls[name] > 0 and kernels == 0)):
+            fail(f"{label}: {calls[name]} decode_attention calls ran {kernels} kernels; "
+                 "each call must be one launch")
+        if name == "decode_attention" and kernels < calls[name]:
+            log(f"profile, {label}: the profiler delivered {kernels} of "
+                f"{calls[name]} decode_attention activities")
+        if calls[name]:
+            path_ms.setdefault(name, {})[label] = us / 1e3 / calls[name]
+            log(f"profile, {label}: {name} {calls[name]} launches, device "
+                f"{us / 1e3 / calls[name]:.5f} ms per launch")
+    return out
 
 
 def _items(tree, prefix=""):
@@ -1630,10 +2048,11 @@ def main() -> None:
     log(f"phase 3 (kernels vs plain) done in {time.monotonic() - t0:.1f} s")
     launches, path_ms = {}, {}
 
-    def model_phases(archs: tuple, first: int) -> None:
+    def model_phases(archs: tuple, first: int,
+                     fns=(("f32 model", phase_model_f32), ("bf16 serving", phase_serve_bf16))
+                     ) -> None:
         """Each arch's f32 model phase, then its bf16 serving phase."""
-        steps = [(arch, what, fn) for arch in archs for what, fn in
-                 (("f32 model", phase_model_f32), ("bf16 serving", phase_serve_bf16))]
+        steps = [(arch, what, fn) for arch in archs for what, fn in fns]
         for n, (arch, what, fn) in enumerate(steps, start=first):
             t0 = time.monotonic()
             out = fn(dev, arch)
@@ -1651,6 +2070,8 @@ def main() -> None:
     log(f"phase 15 (MoE layer, qwen2-moe-a2.7b width) done in {time.monotonic() - t0:.1f} s")
     model_phases(MOE_ARCHS, 16)
     model_phases(ZAMBA_ARCHS, 20)
+    model_phases(CROSS_ARCHS, 22, (("f32 model", phase_cross_f32),
+                                   ("bf16 generation", phase_cross_bf16)))
     log(f"all phases done in {time.monotonic() - T_START:.1f} s")
 
     kernels = []
@@ -1667,9 +2088,8 @@ def main() -> None:
                         "host_ms": r["host_ms"],
                         "path_device_ms_per_launch": {a: p[name] for a, p in path_ms.items()
                                                       if name in p},
-                        **{k: r[k] for k in ("by_seq", "hd256", "g16", "hd80", "shapes", "variant",
-                                             "cluster",
-                                             "torch_add_host_ms")
+                        **{k: r[k] for k in ("by_seq", "hd256", "g16", "hd80", "cross", "shapes",
+                                             "variant", "cluster", "torch_add_host_ms")
                            if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

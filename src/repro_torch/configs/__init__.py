@@ -1,3 +1,3 @@
-from .registry import ARCH_IDS, PORTED_ARCH_IDS, get_config, get_smoke_config, model_100m
+from .registry import ARCH_IDS, get_config, get_smoke_config, model_100m
 
-__all__ = ["ARCH_IDS", "PORTED_ARCH_IDS", "get_config", "get_smoke_config", "model_100m"]
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "model_100m"]

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (full, smoke, 100m).
 
 Counterpart of ``repro/configs/registry.py`` plus ``model_100m`` (the
-reference keeps it in ``repro/launch/train.py``).  Only the architectures
-whose family the port runs have a config module here; the others raise.
+reference keeps it in ``repro/launch/train.py``).  Every one of the
+reference's ten architectures has a config module here.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from repro_torch.models.common import ModelConfig
 
 __all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "model_100m"]
 
-_MODULES: dict[str, str | None] = {
+_MODULES: dict[str, str] = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "qwen3-8b": "qwen3_8b",
@@ -21,24 +21,18 @@ _MODULES: dict[str, str | None] = {
     "gemma-2b": "gemma_2b",
     "llama3-8b": "llama3_8b",
     "xlstm-1.3b": "xlstm_1_3b",
-    "whisper-small": None,
-    "llama-3.2-vision-90b": None,
+    "whisper-small": "whisper_small",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)
-PORTED_ARCH_IDS: tuple[str, ...] = tuple(a for a, m in _MODULES.items() if m)
 
 
 def _module(arch: str):
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
-    mod = _MODULES[arch]
-    if mod is None:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: its config comes with its family "
-            f"(ROADMAP.md, Queue 1); ported: {', '.join(PORTED_ARCH_IDS)}")
-    return importlib.import_module(f"repro_torch.configs.{mod}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 
 def get_config(arch: str) -> ModelConfig:

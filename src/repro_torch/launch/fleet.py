@@ -318,10 +318,10 @@ def exactly_once(out: dict) -> bool:
 
 
 def main(argv=None) -> dict:
-    from repro_torch.configs import PORTED_ARCH_IDS
+    from repro_torch.launch.serve import SERVED_ARCH_IDS
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=PORTED_ARCH_IDS, default="qwen2-1.5b")
+    ap.add_argument("--arch", choices=SERVED_ARCH_IDS, default="qwen2-1.5b")
     ap.add_argument("--size", choices=("smoke", "100m", "full"), default="full")
     ap.add_argument("--replicas", type=int, default=2)
     ap.add_argument("--requests", type=int, default=16)

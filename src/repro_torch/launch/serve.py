@@ -18,7 +18,11 @@ parameters; the 94 layers, 470 GB in bf16, do not fit one card), with
 decode attention at 16 query heads per KV head.  ``--arch zamba2-2.7b``
 serves the Zamba2 family at full width (54 Mamba2 blocks and one shared
 attention block invoked every 6, 2.42 B parameters), its attention at
-head dim 80; its ``--layers`` must be a multiple of 6.  ``--size smoke`` or
+head dim 80; its ``--layers`` must be a multiple of 6.  ``--arch`` takes
+``SERVED_ARCH_IDS`` only: whisper-small and llama-3.2-vision-90b need
+audio frames or a vision input beside the tokens, which a request does not
+carry, so they run through ``Model.prefill`` and ``Model.decode_step``
+instead (``chip_smoke.py`` phases 22-25).  ``--size smoke`` or
 ``100m`` give the reduced configs, ``--layers N`` cuts any config's depth;
 ``--device cpu`` runs the kernels' plain versions on the CPU.
 """
@@ -32,13 +36,17 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import PORTED_ARCH_IDS, get_config, get_smoke_config, model_100m
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config, model_100m
 from repro_torch.models import Model, ModelConfig
+from repro_torch.models.model import EXTRA_INPUTS
 from repro_torch.runtime import InferenceServer, Request
 
-__all__ = ["build_config", "make_requests", "run", "warmup", "main"]
+__all__ = ["SERVED_ARCH_IDS", "build_config", "make_requests", "run", "warmup", "main"]
 
 PROMPT_MIN, PROMPT_MAX = 16, 384     # unsized prompts, drawn uniformly
+# the archs whose prefill takes a request's tokens alone
+SERVED_ARCH_IDS: tuple[str, ...] = tuple(
+    a for a in ARCH_IDS if get_config(a).family not in EXTRA_INPUTS)
 
 
 def build_config(arch: str, size: str, layers: int | None = None) -> ModelConfig:
@@ -112,7 +120,7 @@ def run(server: InferenceServer, requests: list[Request]) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=PORTED_ARCH_IDS, default="qwen2-1.5b")
+    ap.add_argument("--arch", choices=SERVED_ARCH_IDS, default="qwen2-1.5b")
     ap.add_argument("--size", choices=("smoke", "100m", "full"), default="full")
     ap.add_argument("--layers", type=int, default=None, help="cut the depth (default: all)")
     ap.add_argument("--requests", type=int, default=8)

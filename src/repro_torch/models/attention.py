@@ -13,7 +13,16 @@ same math through its Hopper kernels:
   the cache layer at position ``len`` *before* attention, and the
   decode-attention kernel then attends with length ``len + 1``: the same
   function, under the TPU kernel's own contract, and no separate
-  whole-cache scatter after the layers.
+  whole-cache scatter after the layers;
+* :func:`cross_attention_decode` — decode's cross-attention (Whisper's
+  decoder over its encoder output, mLLaMA's cross layers over the vision
+  tokens): the reference's ``attention(q, ck, cv, causal=False)`` with one
+  query per row, which is the decode-attention kernel's contract with
+  every row's length the whole fixed-length K/V.
+
+Prefill's non-causal calls (Whisper's encoder, both families'
+cross-attention, Sq != Sk) go through :func:`attention` with
+``causal=False``.
 
 ``plain=True`` calls the kernels' plain versions instead, on any device;
 it exists so a run on the card can hold the kernel path against them.
@@ -26,7 +35,7 @@ import torch
 from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
 
-__all__ = ["attention", "decode_attention_append"]
+__all__ = ["attention", "cross_attention_decode", "decode_attention_append"]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -60,3 +69,12 @@ def decode_attention_append(q: torch.Tensor, k_cache: torch.Tensor, v_cache: tor
     fn = decode_attention_ref if plain else decode_attention
     out = fn(q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), lengths)
     return out[:, None]
+
+
+def cross_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """q: (B, 1, H, hd); k/v: (B, Sk, KV, hd), every position valid, so
+    ``lengths`` (B,) int32 is Sk in every row (the caller builds it once a
+    step for all its cross layers) -> (B, 1, H, hd)."""
+    fn = decode_attention_ref if plain else decode_attention
+    return fn(q[:, 0], k.transpose(1, 2), v.transpose(1, 2), lengths)[:, None]

@@ -1,4 +1,4 @@
-"""Shared model substrate: config, init helper, RMSNorm, RoPE.
+"""Shared model substrate: config, init helper, RMSNorm, LayerNorm, RoPE.
 
 Counterpart of ``repro/models/common.py``.  ``ModelConfig`` mirrors the
 reference field for field; ``pdt``/``cdt`` return torch dtypes.
@@ -6,11 +6,14 @@ reference field for field; ``pdt``/``cdt`` return torch dtypes.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, replace
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["ModelConfig", "rms_norm", "apply_rope", "rope_freqs", "dense_init"]
+__all__ = ["ModelConfig", "rms_norm", "layer_norm", "apply_rope", "rope_freqs", "dense_init",
+           "stack_shapes", "stack_draws", "tree_at"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -66,7 +69,10 @@ class ModelConfig:
     attn_scores_bf16: bool = False
     use_pallas: bool = False         # reference's TPU switch; the port's dense
                                      # path always goes through its kernels' ops
-    max_seq: int = 0
+    max_seq: int = 0                 # learned-pos-embed capacity (0 -> 4096)
+
+    def max_positions(self) -> int:
+        return self.max_seq or 4096
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -99,6 +105,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
     return (xf * s).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The reference's ``layer_norm``: mean, variance and the affine in f32,
+    cast back to ``x.dtype``."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
+    return y.to(x.dtype)
+
+
 def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float):
     """positions (..., S) -> (sin, cos) of shape (..., S, head_dim//2)."""
     half = head_dim // 2
@@ -125,3 +139,46 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype, *,
     std = scale / (fan ** 0.5)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return (w * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# stacked parameter trees (the reference's scanned layers)
+# ---------------------------------------------------------------------------
+
+
+def stack_shapes(spec: dict, lead: tuple[int, ...]) -> dict:
+    """A layer's shape tree with ``lead`` axes in front of every leaf."""
+    return {k: stack_shapes(v, lead) if isinstance(v, dict) else lead + tuple(v)
+            for k, v in spec.items()}
+
+
+def tree_at(tree: dict, *idx) -> dict:
+    """Views of one layer's parameters in a tree of stacked leaves."""
+    return {k: tree_at(v, *idx) if isinstance(v, dict) else v[idx] for k, v in tree.items()}
+
+
+def stack_draws(draw, lead: tuple[int, ...]) -> dict:
+    """A tree of stacked leaves of shape ``lead + shape``: ``draw()`` gives
+    one layer's tree, drawn on its own for each index and copied in, so the
+    peak is one layer above the stacked tree."""
+    out = None
+    for idx in itertools.product(*map(range, lead)):
+        layer = draw()
+        if out is None:
+            out = _empty_like_stacked(layer, lead)
+        _copy_at(out, layer, idx)
+    return out
+
+
+def _empty_like_stacked(tree: dict, lead: tuple[int, ...]) -> dict:
+    return {k: _empty_like_stacked(v, lead) if isinstance(v, dict)
+            else torch.empty(lead + tuple(v.shape), dtype=v.dtype, device=v.device)
+            for k, v in tree.items()}
+
+
+def _copy_at(out: dict, tree: dict, idx: tuple) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _copy_at(out[k], v, idx)
+        else:
+            out[k][idx].copy_(v)

@@ -1,26 +1,26 @@
 """Unified model API for the port.
 
-Counterpart of ``repro/models/model.py``.  The ``dense``, ``moe``,
-``xlstm`` and ``zamba2`` families are ported; the others raise, naming their
-ROADMAP item.  A ``Model`` lives on one device: ``cuda`` unless the caller
-passes ``device="cpu"``.
+Counterpart of ``repro/models/model.py``.  Every family of the reference is
+ported: ``dense``, ``moe``, ``xlstm``, ``zamba2``, ``whisper`` and
+``mllama``.  Whisper's and mLLaMA's prefill take the whole batch, as the
+reference's do: beside ``tokens``, the input named in ``EXTRA_INPUTS``
+(audio frames, vision patch embeddings).  A ``Model`` lives on one device:
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import transformer, xlstm_model, zamba2_model
+from . import mllama_model, transformer, whisper_model, xlstm_model, zamba2_model
 from .common import ModelConfig
 
-__all__ = ["Model", "resolve_device"]
+__all__ = ["Model", "resolve_device", "EXTRA_INPUTS"]
 
-_NOT_PORTED = {
-    "whisper": "ROADMAP.md Queue 1 item 6 (Whisper and mLLaMA)",
-    "mllama": "ROADMAP.md Queue 1 item 6 (Whisper and mLLaMA)",
-}
+# the families whose prefill needs an input beside the tokens, and its key
+EXTRA_INPUTS = {"whisper": "frames", "mllama": "vision"}
 _FAMILIES = {"dense": transformer, "moe": transformer, "xlstm": xlstm_model,
-             "zamba2": zamba2_model}
+             "zamba2": zamba2_model, "whisper": whisper_model, "mllama": mllama_model}
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -39,9 +39,6 @@ class Model:
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str | None = None,
                  plain: bool = False):
         if cfg.family not in _FAMILIES:
-            if cfg.family in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}")
             raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         self._m = _FAMILIES[cfg.family]
@@ -59,8 +56,14 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params: dict, batch: dict, *, max_seq: int | None = None):
-        return self._m.prefill(params, batch["tokens"], self.cfg, max_seq=max_seq,
-                               plain=self.plain)
+        key = EXTRA_INPUTS.get(self.cfg.family)
+        if key is None:
+            return self._m.prefill(params, batch["tokens"], self.cfg, max_seq=max_seq,
+                                   plain=self.plain)
+        if key not in batch:
+            raise ValueError(f"{self.cfg.name}: the {self.cfg.family} family's prefill needs "
+                             f"batch[{key!r}] beside 'tokens'; got keys {sorted(batch)}")
+        return self._m.prefill(params, batch, self.cfg, max_seq=max_seq, plain=self.plain)
 
     @torch.no_grad()
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
@@ -74,5 +77,14 @@ class Model:
         """Copy the one-request cache ``single`` (from :meth:`prefill`) into
         slot ``slot`` of the batched ``cache``, in place, and set its
         length: K/V rows for the dense family, every state leaf along its
-        batch axis for xLSTM, both for Zamba2."""
+        batch axis for xLSTM, both for Zamba2.  Whisper and mLLaMA have
+        none: the serving plane's requests carry tokens alone, which their
+        prefill cannot take."""
+        key = EXTRA_INPUTS.get(self.cfg.family)
+        if key is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: no slot splicing for the {self.cfg.family} family: a "
+                f"request carries tokens alone and its prefill needs {key!r} (the "
+                f"reference's server cannot serve it either); run it through prefill and "
+                f"decode_step")
         self._m.splice_cache(cache, single, slot, length)

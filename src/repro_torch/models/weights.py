@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import transformer, xlstm_model, zamba2_model
+from . import mllama_model, transformer, whisper_model, xlstm_model, zamba2_model
 from .common import ModelConfig
 
 __all__ = ["params_from_numpy"]
@@ -54,10 +54,17 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device: torch.device | str) 
     ``lm_head``.
     Zamba2: the stacked leaves as they are too — the ``(ng, per)`` axes of
     ``mamba`` and ``ln_m``, one ``shared`` block (``attn``, ``mlp``,
-    ``ln1``, ``ln2``) and an untied ``lm_head``."""
-    if cfg.family in ("xlstm", "zamba2"):
-        spec = (xlstm_model if cfg.family == "xlstm" else zamba2_model).param_shapes(cfg)
-        return _map(tree, spec, "", device, None)
+    ``ln1``, ``ln2``) and an untied ``lm_head``.
+    Whisper: the stacked leaves as they are too — ``encoder`` (``pos_embed``,
+    ``layers`` with a leading layer axis, ``final_ln``) and ``decoder``
+    (``tok_embed``, ``pos_embed``, ``layers``, ``final_ln``).
+    mLLaMA: ``self_layers`` with leading ``(ng, ns)`` axes, ``cross_layers``
+    with ``(ng,)`` (the gates ``(ng,)``), ``final_norm`` and, where untied,
+    ``lm_head``."""
+    stacked = {"xlstm": xlstm_model, "zamba2": zamba2_model, "whisper": whisper_model,
+               "mllama": mllama_model}
+    if cfg.family in stacked:
+        return _map(tree, stacked[cfg.family].param_shapes(cfg), "", device, None)
     spec = transformer.param_shapes(cfg)
     if set(tree) != set(spec):
         raise KeyError(f"top-level leaves {sorted(tree)}, expected {sorted(spec)}")

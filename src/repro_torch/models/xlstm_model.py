@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 
-from .common import ModelConfig, dense_init
+from .common import ModelConfig, dense_init, stack_draws, tree_at
 from .mlp import gated_mlp
 from .xlstm import (
     init_mlstm,
@@ -96,45 +96,21 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return shapes(_spec(cfg))
 
 
-def _empty(tree: dict, device) -> dict:
-    return {k: _empty(v, device) if isinstance(v, dict)
-            else torch.empty(v[0], dtype=v[1], device=device) for k, v in tree.items()}
-
-
-def _fill(dst: dict, src: dict) -> None:
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _fill(dst[k], v)
-        else:
-            dst[k].copy_(v)
-
-
-def _at(tree: dict, *idx) -> dict:
-    """Views of one block's parameters in a stacked tree."""
-    return {k: _at(v, *idx) if isinstance(v, dict) else v[idx] for k, v in tree.items()}
-
-
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters on ``gen.device``, drawn from ``gen``.  Each block
     is drawn on its own and copied into the stacked leaves, so the peak is
     one block above the tree itself."""
     ng, nm = _layout(cfg)
     dev = gen.device
-    spec = _spec(cfg)
     params = {
         "tok_embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdt,
                                 fan_in=cfg.d_model),
-        "mlstm": _empty(spec["mlstm"], dev),
+        "mlstm": stack_draws(lambda: init_mlstm(gen, cfg), (ng, nm)),
         "ln_m": {"scale": torch.ones((ng, nm, cfg.d_model), dtype=torch.float32, device=dev)},
         "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)},
     }
-    for g in range(ng):
-        for i in range(nm):
-            _fill(_at(params["mlstm"], g, i), init_mlstm(gen, cfg))
     if cfg.slstm_every > 0:
-        params["slstm"] = _empty(spec["slstm"], dev)
-        for g in range(ng):
-            _fill(_at(params["slstm"], g), init_slstm(gen, cfg))
+        params["slstm"] = stack_draws(lambda: init_slstm(gen, cfg), (ng,))
         params["ln_s"] = {"scale": torch.ones((ng, cfg.d_model), dtype=torch.float32,
                                               device=dev)}
         params["ln_s2"] = {"scale": torch.ones((ng, cfg.d_model), dtype=torch.float32,
@@ -163,7 +139,7 @@ def _stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | Non
     h = None
     for g in range(ng):
         for i in range(nm):
-            p = _at(params["mlstm"], g, i)
+            p = tree_at(params["mlstm"], g, i)
             xn, x = norm(x, h, params["ln_m"]["scale"][g, i], eps=eps)
             if cache is not None:
                 leaves = cache["mlstm"]
@@ -178,7 +154,7 @@ def _stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | Non
         if not has_s:
             sts[g] = init_slstm_state(cfg, b, device=x.device)
             continue
-        ps = _at(params["slstm"], g)
+        ps = tree_at(params["slstm"], g)
         xn, x = norm(x, h, params["ln_s"]["scale"][g], eps=eps)
         if cache is not None:
             leaves = cache["slstm"]

@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 
-from .common import ModelConfig, dense_init, rope_freqs
+from .common import ModelConfig, dense_init, rope_freqs, stack_draws, tree_at
 from .mamba2 import init_mamba, init_mamba_state, mamba_block, mamba_decode, mamba_shapes
 from .mlp import gated_mlp, init_mlp
 from .transformer import attn_block, init_attn
@@ -78,11 +78,6 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return tree
 
 
-def _at(tree: dict, *idx) -> dict:
-    """Views of one block's parameters in a stacked tree."""
-    return {k: v[idx] for k, v in tree.items()}
-
-
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters on ``gen.device``, drawn from ``gen``.  Each Mamba
     block is drawn on its own and copied into the stacked leaves, so the
@@ -91,12 +86,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     dev = gen.device
     ones = lambda *lead: torch.ones(lead + (cfg.d_model,), dtype=torch.float32,  # noqa: E731
                                     device=dev)
-    mamba = {k: torch.empty((ng, per) + shape, dtype=dt, device=dev)
-             for k, (shape, dt) in mamba_shapes(cfg).items()}
-    for g in range(ng):
-        for j in range(per):
-            for k, v in init_mamba(gen, cfg).items():
-                mamba[k][g, j].copy_(v)
+    mamba = stack_draws(lambda: init_mamba(gen, cfg), (ng, per))
     params = {
         "tok_embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdt,
                                 fan_in=cfg.d_model),
@@ -135,7 +125,7 @@ def _stack(params: dict, x: torch.Tensor, sin, cos, cfg: ModelConfig, cache: dic
     h = None
     for g in range(ng):
         for j in range(per):
-            p = _at(params["mamba"], g, j)
+            p = tree_at(params["mamba"], g, j)
             xn, x = norm(x, h, params["ln_m"]["scale"][g, j], eps=eps)
             if decode:
                 h, st = mamba_decode(p, xn, {k: v[g, j] for k, v in leaves.items()}, cfg,

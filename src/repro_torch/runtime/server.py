@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core.device_arena import DevicePagePool
 from repro_torch.models import Model
+from repro_torch.models.model import EXTRA_INPUTS
 from repro_torch.serving.messages import GenerationGate, iter_requests
 
 __all__ = ["Request", "Result", "InferenceServer", "attach_serving_executor"]
@@ -63,6 +64,13 @@ class Result:
 class InferenceServer:
     def __init__(self, model: Model, *, slots: int = 4, max_seq: int = 512,
                  page_tokens: int = 64):
+        key = EXTRA_INPUTS.get(model.cfg.family)
+        if key is not None:
+            raise ValueError(
+                f"{model.cfg.name}: the server cannot serve the {model.cfg.family} family: its "
+                f"prefill needs {key!r} beside the tokens and a request carries the tokens "
+                f"alone (the reference's server fails the same way, later, on a KeyError); "
+                f"run it through Model.prefill and Model.decode_step")
         self.model = model
         self.device = model.device
         self.slots = slots

@@ -71,3 +71,17 @@ def decode_edge_lens(per: int, s: int, b: int) -> list[list[int]]:
     edges = [0, 1, per - 1, per, per + 1, s - 1, s, s + 7]
     rows = [(edges[i:i + b] + [s] * b)[:b] for i in range(0, len(edges), b)]
     return rows + [[s] * b]
+
+
+# The cross-attention families' shapes, non-causal with every key valid, as
+# (B, H, KV, Sq, Sk, hd): whisper-small's encoder (Sq = Sk = 1500) and its
+# decoder's cross-attention from prompts of 100 and 384 tokens to the 1500
+# frames (12 heads over 12 at hd 64), and llama-3.2-vision-90b's cross
+# layers from the same prompts to 4096 vision tokens (64 heads over 8 at hd
+# 128); four requests a batch.
+CROSS_FLASH = [(4, 12, 12, 1500, 1500, 64), (4, 12, 12, 100, 1500, 64),
+               (4, 12, 12, 384, 1500, 64), (4, 64, 8, 100, 4096, 128),
+               (4, 64, 8, 384, 4096, 128)]
+# decode's cross-attention, one query a request over the whole K/V, as (B,
+# H, KV, Sk, hd): 3 splits of 512 (whisper) and 5 of 832 (mLLaMA) on 132 SMs
+CROSS_DECODE = [(4, 12, 12, 1500, 64), (4, 64, 8, 4096, 128)]

@@ -10,11 +10,11 @@ products run in full f32 (TF32 off)."""
 
 import pytest
 import torch
-from _attention_edges import (DECODE_GROUPS, DECODE_SHAPES, DECODE_SHAPES_GEMMA,
-                              DECODE_SHAPES_MOE, DECODE_SHAPES_ZAMBA2, GEMMA_G, GEMMA_KV, MOE_G,
-                              MOE_HD, ZAMBA_G, ZAMBA_HD, decode_edge_lens, flash_edge_cases,
-                              flash_edge_cases_gemma, flash_edge_cases_moe,
-                              flash_edge_cases_zamba2)
+from _attention_edges import (CROSS_DECODE, CROSS_FLASH, DECODE_GROUPS, DECODE_SHAPES,
+                              DECODE_SHAPES_GEMMA, DECODE_SHAPES_MOE, DECODE_SHAPES_ZAMBA2,
+                              GEMMA_G, GEMMA_KV, MOE_G, MOE_HD, ZAMBA_G, ZAMBA_HD,
+                              decode_edge_lens, flash_edge_cases, flash_edge_cases_gemma,
+                              flash_edge_cases_moe, flash_edge_cases_zamba2)
 
 from repro_torch.configs import model_100m
 from repro_torch.kernels.decode_attention.ops import (decode_attention, decode_attention_ref,
@@ -209,6 +209,86 @@ def test_decode_attention_kernel_split_edges_zamba2(dev, b, kv, s, dt):
         _check_decode(q, kc, vc, lens, dt, f"hd 80 KV=32 P={per} NS={ns} lens={lens}")
 
 
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd", CROSS_FLASH)
+def test_flash_attention_kernel_cross_shapes(dev, b, h, kv, sq, sk, hd, dt):
+    """Whisper's encoder and both families' prefill cross-attention:
+    non-causal, Sq != Sk, over 1500 frames (hd 64, 12 heads over 12) or
+    4096 vision tokens (hd 128, 64 over 8); K/V as the model holds them,
+    (B, Sk, KV, hd) viewed as (B, KV, Sk, hd)."""
+    q = _randn(dev, b, sq, h, hd, dt=dt, seed=160 + sq).transpose(1, 2)
+    k = _randn(dev, b, sk, kv, hd, dt=dt, seed=161 + sk).transpose(1, 2)
+    v = _randn(dev, b, sk, kv, hd, dt=dt, seed=162 + sk).transpose(1, 2)
+    n = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches == n + 1
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, causal=False).float(),
+                               atol=_tol(dt), rtol=_tol(dt))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,h,kv,s,hd", CROSS_DECODE)
+def test_decode_attention_kernel_cross_shapes(dev, b, h, kv, s, hd, dt):
+    """Decode's cross-attention: one query a request over the whole K/V
+    (every length S), 3 splits of 512 at S = 1500 and 5 of 832 at 4096;
+    three calls in a row on one stream, then the split edges, so a ticket
+    counter left non-zero shows."""
+    per, ns = decode_split_plan(s, b, kv, torch.cuda.get_device_properties(dev)
+                                .multi_processor_count, decode_row_groups(h // kv)[0])
+    q, kc, vc = _decode_case(dev, b, h, kv, s, hd, dt, seed=170 + s)
+    for lens in [[s] * b] * 3 + decode_edge_lens(per, s, b):
+        _check_decode(q, kc, vc, lens, dt, f"S={s} P={per} NS={ns} lens={lens}")
+
+
+@pytest.mark.parametrize("arch,variants", [
+    ("whisper-small", {}), ("llama-3.2-vision-90b", {}),
+    ("llama-3.2-vision-90b", dict(head_dim=128, num_heads=16, num_kv_heads=2))],
+    ids=["whisper-100m", "mllama-100m", "mllama-hd128-g8"])
+def test_cross_families_kernel_path_matches_plain_path(dev, arch, variants):
+    """f32, the 100m reductions of whisper-small (2 encoder layers over 128
+    frames, 8 decoder layers) and llama-3.2-vision-90b (8 layers, a cross
+    layer every 2, 64 vision tokens; also at its hd 128 and G = 8) with the
+    mLLaMA gates non-zero: prefill and 4 decode steps through the kernels
+    agree with the plain path, the cross K/V too, and each call launches
+    the kernels the model's plan says.  1e-4, as for the dense model."""
+    from repro_torch.models.mllama_model import layout
+
+    cfg = model_100m(arch).scaled(**variants)
+    fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
+    params = fast.init(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    extra = {}
+    if cfg.family == "mllama":
+        ng = layout(cfg)[0]
+        params["cross_layers"]["gate_attn"].copy_(torch.full((ng,), 0.7))
+        params["cross_layers"]["gate_mlp"].copy_(torch.full((ng,), -0.5))
+        extra["vision"] = torch.randn(2, cfg.vision_tokens, cfg.d_model, device=dev,
+                                      generator=gen)
+    else:
+        extra["frames"] = torch.randn(2, cfg.encoder_positions, cfg.d_model, device=dev,
+                                      generator=gen)
+    n0 = {w: w.launches for w in (fused_rmsnorm, flash_attention, decode_attention)}
+    toks = torch.randint(0, cfg.vocab_size, (2, 77), device=dev, generator=gen)
+    lk, ck = fast.prefill(params, {"tokens": toks, **extra}, max_seq=128)
+    lp, cp = plain.prefill(params, {"tokens": toks, **extra}, max_seq=128)
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for _ in range(4):
+        nxt = lp[:, -1].argmax(-1, keepdim=True)
+        lk, ck = fast.decode_step(params, ck, nxt)
+        lp, cp = plain.decode_step(params, cp, nxt)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for k in ("k", "v", "ck", "cv"):
+        torch.testing.assert_close(ck[k], cp[k], atol=1e-4, rtol=1e-4, msg=k)
+    layers = cfg.num_layers
+    launches = {w: w.launches - n0[w] for w in n0}
+    if cfg.family == "whisper":
+        assert launches == {fused_rmsnorm: 0, flash_attention: cfg.encoder_layers + 2 * layers,
+                            decode_attention: 4 * 2 * layers}
+    else:
+        assert launches == {fused_rmsnorm: 5 * (2 * layers + 1), flash_attention: layers,
+                            decode_attention: 4 * layers}
+
+
 def test_wrappers_reject_bad_inputs(dev):
     """On the card a G above 16 query heads per KV head (17) raises instead
     of launching or falling back to the plain version; 16 launches."""
@@ -281,7 +361,7 @@ def test_flash_attention_f32_takes_unaligned_views(dev):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("d", [48, 52, 128, 1536, 2048, 4096])
+@pytest.mark.parametrize("d", [48, 52, 128, 1536, 2048, 4096, 8192])
 @pytest.mark.parametrize("rows", [1, 4, 37, 384])
 @pytest.mark.parametrize("residual,gemma,want", [
     (True, False, True), (False, False, True), (False, True, False), (True, True, True),
@@ -292,9 +372,10 @@ def test_rmsnorm_kernel_matches_plain(dev, residual, gemma, want, rows, d, dt):
     blocks' inner norms and layer 0's ln1; Gemma's ``1 + scale``; no
     residual output, as the final and the mLSTM inner norms) at the paths'
     widths (1536 qwen2, 2048 xlstm and gemma, 4096 the mLSTM's inner norm
-    and the 8B models, 128 qk_norm's rows of head_dim) and the smoke
-    configs' (48); D = 52 is no multiple of the 16-byte vector and takes
-    the scalar instantiation.  One launch per call."""
+    and the 8B models, 8192 mLLaMA at the kernel's widest, 128 qk_norm's
+    rows of head_dim) and the smoke configs' (48); D = 52 is no multiple
+    of the 16-byte vector and takes the scalar instantiation.  One launch
+    per call."""
     x = _randn(dev, rows, d, dt=dt, seed=7)
     r = _randn(dev, rows, d, dt=dt, seed=8) if residual else None
     sc = _randn(dev, d, dt=torch.float32, seed=9)

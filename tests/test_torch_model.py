@@ -355,13 +355,20 @@ def test_config_mirrors_reference():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-small")
-    with pytest.raises(KeyError):
+    """Every arch and family of the reference is ported: only an arch or a
+    family that the reference does not have either is refused, an unknown
+    arch with a ``KeyError`` that names the known ones, an unknown family
+    with a ``ValueError``."""
+    from repro.configs.registry import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+
+    assert ARCH_IDS == JAX_ARCH_IDS
+    for arch in ARCH_IDS:
+        assert get_config(arch).name == arch
+    with pytest.raises(KeyError, match="whisper-small"):
         get_config("no-such-arch")
-    whisper = get_smoke_config("qwen2-1.5b").scaled(family="whisper")
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        Model(whisper, device="cpu")
+    with pytest.raises(ValueError, match="unknown family 'speech'"):
+        Model(get_smoke_config("qwen2-1.5b").scaled(family="speech"), device="cpu")
 
 
 def test_params_from_numpy_bf16_round_trip():
