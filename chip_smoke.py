@@ -6,9 +6,10 @@
 Drives the port's main paths (the serving plane's model step, for the
 dense, xLSTM, MoE and Zamba2 families; ``Model.prefill`` and
 ``decode_step`` for Whisper and mLLaMA, whose prefill takes frames or a
-vision input that no request carries) on the GPU, never the JAX reference
-package, in twenty-five phases; any failed phase exits non-zero before the
-final line:
+vision input that no request carries; training through ``Trainer``,
+``Model.loss`` and the backward kernels) on the GPU, never the JAX
+reference package, in twenty-nine phases; any failed phase exits
+non-zero before the final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
@@ -46,7 +47,16 @@ final line:
    path's S = 16, 100 and 384, at decode's B = 4 S = 1 warm and with L2
    flushed, and beside its serial floor (S rounds of the cluster's h
    exchange and barrier alone, or of the grid barrier for the f32 grid
-   kernel);
+   kernel); then the backward kernels, K1-bwd in every forward mode at D =
+   48-8192 (512, the 100m reductions' width, included) and R = 1-8192
+   (each call repeated bit for bit) and K2-bwd through its autograd
+   Function at the tile edges (causal or not, hd 64, 80, 128 and 256, G
+   1-16), the cross shapes (Sq != Sk) and the training paths' shapes
+   (``TRAIN_FLASH``), K2's forward at each of them also with its
+   logsumexp output (the output the same bit for bit, the logsumexp that
+   of the scaled scores), each timed beside its bound and the library's
+   backward (autograd through ``F.rms_norm``; through SDPA) at the
+   training path's shapes;
 4. full-width qwen2-1.5b in f32: kernel path against plain path on the same
    random weights, prefill logits of 4 ragged prompts and 4 decode steps
    with the 4 slots at their ragged lengths;
@@ -109,9 +119,33 @@ final line:
    (f32) and 23 (bf16, 4096 vision tokens a request): 21 fused norms a
    call, 10 flash-attention launches a prefill (8 self, 2 cross), 10
    decode-attention launches a step; 23 and 25 also print one batch's
-   bf16 prefill logits on the kernel path beside the plain path's.
+   bf16 prefill logits on the kernel path beside the plain path's;
+26. training: full-width qwen2-1.5b in f32 (28 layers, B 2, S 256, remat
+   ``block``): ``Model.loss`` and every gradient leaf on the kernel path
+   against ``plain=True``, the max relative error per leaf group, and the
+   launches remat implies (K1 4L + 1, K1-bwd 2L + 1, K2 2L, K2-bwd L);
+27. training: full-width qwen2-1.5b in bf16 with f32 master weights and
+   moments through ``repro_torch.runtime.trainer.Trainer`` over the
+   zero-copy data plane, B 8 x S 1024, 8 steps with a checkpoint at step
+   4; a second ``Trainer`` on the same directory resumes at step 5 and its
+   losses for steps 5-8 must equal the uninterrupted run's (within
+   ``RESUME_LOSS_TOL``), while each of four restore faults planted in
+   further resumes (moments zeroed, master weights rebuilt from the bf16
+   params, the optimizer's step or the data cursor one ahead) must move
+   them beyond it; prints the step ms, tokens/s, the model-FLOP share,
+   peak device memory and the losses at steps 1 and 8, and one step's
+   device time by kernel group;
+28. training: the 100m reductions of qwen2-1.5b, qwen2-moe-a2.7b,
+   zamba2-2.7b, whisper-small and llama-3.2-vision-90b (head dim 64) in
+   bf16, 3 steps each, kernel path against plain path at step 1; and
+   xlstm's loss on the card must refuse (K5 has no backward kernel);
+29. every dtype, shape, stride and mode K1-bwd and K2-bwd ran on in
+   phases 26-28 (recorded as they ran), again on unit-scale random inputs
+   of that layout against the plain backward, K2's forward with its
+   logsumexp output as in phase 3.
 
-It prints a ``{"kernels": [...]}`` line and ends with one JSON line
+It prints a ``{"kernels": [...]}`` line (the backward kernels with
+``"role": "backward"``) and ends with one JSON line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
 directory without ``src/repro_torch``, it exits non-zero and prints no
 result.
@@ -212,7 +246,40 @@ def cuda_activity(prof) -> list:
     return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
 
 
-def device_breakdown(fn, iters: int = 20, warm: int = 3, tries: int = 3,
+# device_breakdown's one entry when torch.profiler delivered no activity
+EVENTS_KEY = "(whole call between CUDA events: the profiler delivered no activity)"
+
+
+# cycles of the spin kernel that holds the stream in event_ms: about 0.1 s
+# of the H100's clock, time for the host to queue the timed calls
+HOLD_CYCLES = 200_000_000
+
+
+def event_ms(fn, iters: int, flush=None) -> float:
+    """Device time per call between CUDA events recorded just before and
+    just after each call (after ``flush``, which stays outside).  A spin
+    kernel holds the stream while the host queues the calls, so the device
+    runs them back to back and no launch gap of the host falls inside a
+    pair (a call that waits for the device, as a copy to the host does,
+    lets the gaps back in)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    pairs = []
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def device_breakdown(fn, iters: int = 20, warm: int = 3, tries: int = 5,
                      flush=None) -> dict:
     """{kernel name: [device ms per call, launches per call]} from the CUDA
     activity ``torch.profiler`` records over ``iters`` calls.  ``flush``
@@ -221,17 +288,21 @@ def device_breakdown(fn, iters: int = 20, warm: int = 3, tries: int = 3,
     can deliver fewer activities than were launched (seen on the H100: 14
     of 20 calls of a 5 us kernel), so a name's ms per call is its mean time
     per activity times its launches per call, rounded to a whole number (at
-    least 1).  A window with no device activity at all is profiled again;
-    after ``tries`` such windows the run fails rather than report 0."""
+    least 1).  It can also deliver none at all for a window (seen on the
+    H100: up to 3 windows in a row of a few us kernels), so such a window is
+    profiled again with twice the calls; after ``tries`` such windows the
+    call is timed between CUDA events instead (:func:`event_ms`), as the one
+    entry ``EVENTS_KEY``, whose launches per call are unknown (None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    n_calls = iters
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(n_calls):
                 if flush is not None:
                     flush()
                 fn()
@@ -245,21 +316,24 @@ def device_breakdown(fn, iters: int = 20, warm: int = 3, tries: int = 3,
         if seen:
             by = {}
             for k, (us, n) in seen.items():
-                per_call = max(1, round(n / iters))
+                per_call = max(1, round(n / n_calls))
                 by[k] = [us / 1e3 / n * per_call, per_call]
             return by
-        log("profiler window held no device activity; profiling again")
-    fail(f"torch.profiler recorded no device activity in {tries} windows")
+        log(f"profiler window of {n_calls} calls held no device activity; profiling again")
+        n_calls *= 2
+    log(f"torch.profiler recorded no device activity in {tries} windows; "
+        "timing the call between CUDA events")
+    return {EVENTS_KEY: [event_ms(fn, iters, flush), None]}
 
 
-def device_ms(fn, iters: int = 20, warm: int = 3, tries: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warm: int = 3, tries: int = 5) -> float:
     """Device time per call (see :func:`device_breakdown`)."""
     return sum(ms for ms, _ in device_breakdown(fn, iters, warm, tries).values())
 
 
 def log_breakdown(what: str, by: dict) -> None:
     log(f"{what}: device ms per call by kernel: "
-        + "; ".join(f"{k[:80]} {ms:.5f} x{n:g}" for k, (ms, n) in
+        + "; ".join(f"{k[:80]} {ms:.5f} x{n if n is not None else '?'}" for k, (ms, n) in
                     sorted(by.items(), key=lambda kv: -kv[1][0])))
 
 
@@ -268,21 +342,25 @@ def timings(kernel, plain, library, *, plain_iters: int = 20, what: str | None =
     call (None where there is none); ``plain_iters`` cuts the profiled
     calls of a plain version that issues thousands of launches per call.
     With ``what``, the kernel's window is logged by kernel name, and
-    ``kernels_per_call`` counts its device activities per call."""
+    ``kernels_per_call`` counts its device activities per call (None where
+    the profiler delivered none).  ``event_ms`` is the kernel's time per
+    call between CUDA events, the fallback's timer, beside the profiler's."""
     by = device_breakdown(kernel)
     if what:
         log_breakdown(what, by)
     return {"ms": sum(ms for ms, _ in by.values()),
-            "kernels_per_call": sum(n for _, n in by.values()),
+            "kernels_per_call": None if EVENTS_KEY in by else sum(n for _, n in by.values()),
             "plain_ms": device_ms(plain, iters=plain_iters, warm=1),
             "library_ms": None if library is None else device_ms(library),
-            "wall_ms": cuda_ms(kernel), "host_ms": host_ms(kernel)}
+            "wall_ms": cuda_ms(kernel), "host_ms": host_ms(kernel),
+            "event_ms": event_ms(kernel, 20)}
 
 
 def log_timings(what: str, t: dict, library: str | None) -> None:
     lib = f"{library} {t['library_ms']:.5f}" if library else "no library call"
     log(f"{what}: device ms per call: kernel {t['ms']:.5f}, plain {t['plain_ms']:.5f}, "
-        f"{lib}, bound {t['bound_ms']:.5f} ({t['bound_by']}); "
+        f"{lib}, bound {t['bound_ms']:.5f} ({t['bound_by']}); kernel between CUDA events "
+        f"{t['event_ms']:.5f}; "
         f"kernel wall per back-to-back call {t['wall_ms']:.5f} ms, host {t['host_ms']:.5f} ms")
 
 
@@ -527,6 +605,7 @@ def phase_kernels(dev) -> dict:
         phase_cross_shapes(dev, rnd, dts)
     report.update(phase_slstm_scan(dev, rnd, dts))
     report.update(phase_ragged_concat(dev, gen))
+    report.update(phase_backward_kernels(dev, gen, rnd, dts))
     return report
 
 
@@ -938,7 +1017,9 @@ def phase_ragged_concat(dev, gen) -> dict:
                 # the valid rows alone, no zero-filled tail
                 cat, plain_iters=5, what=f"ragged_concat f32 lens={lens} capacity={cap}")
     log_breakdown("torch.cat of the valid views", device_breakdown(cat))
-    if t["kernels_per_call"] != 1:
+    if t["kernels_per_call"] is None:
+        log("ragged_concat: kernels per call not measured (no profiler activity)")
+    elif t["kernels_per_call"] != 1:
         fail(f"ragged_concat: {t['kernels_per_call']:g} kernels per call, not one")
     nbytes = 4 * c * (sum(lens) + cap) + 8 * n
     t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 0, "float32")
@@ -1753,7 +1834,7 @@ def phase_moe_layer(dev) -> None:
             fn = lambda c=c: mlp.moe_ffn(p, x, cfg=c)  # noqa: E731
             by_kernel = device_breakdown(fn, iters=10)
             dev_ms = sum(ms for ms, _ in by_kernel.values())
-            launches = sum(n for _, n in by_kernel.values())
+            launches = sum(n or 0 for _, n in by_kernel.values())
             log(f"moe layer {dname} T={t} {path} path: device {dev_ms:.5f} ms per call "
                 f"({launches:g} device activities), host wall {cuda_ms(fn, iters=10):.5f} ms; "
                 f"bound {bound:.5f} ms ({by}: {nbytes / 1e9:.3f} GB, "
@@ -1898,6 +1979,14 @@ def window_report(label: str, prof, wall: float, n: int, calls: dict, wrappers: 
     device ms per launch into ``path_ms``; fails unless each
     decode-attention call was one kernel.  Returns the window's numbers."""
     acts = cuda_activity(prof)
+    if not acts:
+        # the profiler can deliver no activity at all for a window (see
+        # device_breakdown): nothing on the device is measured, or checked
+        log(f"profile, {label} ({n} round(s), {busy_rows}): wall {1e3 * wall / n:.3f} "
+            "ms/round; torch.profiler delivered no device activity, device numbers not "
+            "measured")
+        nan = float("nan")
+        return {"wall_ms": 1e3 * wall / n, "busy_ms": nan, "idle_share": nan, "activities": nan}
     dev_us = {}
     for e in acts:
         dev_us[e.key] = dev_us.get(e.key, 0.0) + e.self_device_time_total
@@ -1954,6 +2043,675 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# training: the backward kernels (phase 3) and phases 26-28
+# ---------------------------------------------------------------------------
+
+# f32 full-width qwen2-1.5b gradients, kernel path against plain path: as for
+# MODEL_F32_REL_TOL, the two differ only in the order of f32 sums inside K1,
+# K2 and their backwards (~1e-6 relative a call), carried forward and back
+# through 28 layers; 1e-3 of each leaf group's largest gradient leaves room
+# for that while an indexing, masking or scaling fault is O(1).
+GRAD_F32_REL_TOL = 1e-3
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_F32_BS = (2, 256)                      # B, S of phase 26
+TRAIN_BF16_BS = (8, 1024)                    # B, S of phase 27
+TRAIN_STEPS, TRAIN_CKPT_AT = 8, 4
+# phase 27, resumed run against uninterrupted run: the restore is exact (bf16
+# params as their bits, f32 master, moments and step, the data cursor) and
+# neither backward kernel uses atomics, so steps 5-8 start from the same
+# state and batches and run the same sums; the resumed losses have equalled
+# the uninterrupted run's bit for bit in every run on the card.  The four
+# restore faults of RESUME_FAULTS, planted on the card (NVIDIA H100 80GB
+# HBM3, 700 W), moved them by 4.3e-2 (master rebuilt from the bf16 params),
+# 0.18 (the optimizer's step one ahead), 0.19 (the data cursor one ahead)
+# and 1.03 (moments zeroed).  The bound sits below a tenth of the smallest
+# fault and leaves room above 0 for a one-ulp flip, should a library
+# kernel's sum order ever differ between the two trainers; every run
+# plants the faults again and fails if one stays within it.
+RESUME_LOSS_TOL = 1e-3
+RESUME_FAULTS = ("moments zeroed", "master weights from the bf16 params",
+                 "optimizer step one ahead", "data cursor one ahead")
+# phase 28 at bf16, kernel path against plain path on step 1's loss and
+# grad norm: bf16 keeps 8 significant bits (2^-9 relative per rounding), and
+# the two paths round at different points (the norms' outputs, attention's p,
+# its output); over a loss averaged across 1024 tokens these average down to
+# ~1e-3 relative, and the grad norm (a root sum of squares over every leaf)
+# to ~1e-2.  Bounds 1e-2 and 5e-2; a fault in a backward kernel moves the grad
+# norm by O(1).  MoE routes that flip at near ties move both a little more,
+# inside the same bounds.
+FAMILY_LOSS_REL_TOL, FAMILY_GNORM_REL_TOL = 1e-2, 5e-2
+FAMILY_TRAIN = ("qwen2-1.5b", "qwen2-moe-a2.7b", "zamba2-2.7b", "whisper-small",
+                "llama-3.2-vision-90b")
+FAMILY_BS, FAMILY_STEPS = (4, 256), 3
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd")
+
+
+def train_wrappers() -> dict:
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_bwd
+
+    return {"rmsnorm": fused_rmsnorm, "rmsnorm_bwd": rmsnorm_bwd,
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd}
+
+
+def zero_counts(ws: dict) -> None:
+    for w in ws.values():
+        w.launches = 0
+
+
+# K2's logsumexp output against torch.logsumexp of the f32 scores: the
+# kernel sums exp2 of log2e-scaled scores in another order; values of ~1-10
+LSE_TOL = 1e-4
+
+
+def scores_lse(q, k, causal: bool, scale: float | None = None):
+    """Each row's logsumexp of the scaled scores, in f32: what K2's forward
+    writes through its optional ``lse`` pointer."""
+    import torch
+
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(q.shape[1] // k.shape[1], 1))
+    s = s * (q.shape[-1] ** -0.5 if scale is None else scale)
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).triu(1),
+                          float("-inf"))
+    return torch.logsumexp(s, -1)
+
+
+def check_forward_lse(what: str, q, k, v, causal: bool, scale: float | None = None,
+                      out=None):
+    """K2's forward with its logsumexp output: the output must equal the
+    same call's without it (and ``out``, where given) bit for bit, and the
+    logsumexp ``scores_lse``.  Returns (output, lse)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import _launch_fwd
+
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    o = _launch_fwd(q, k, v, causal, scale, lse)
+    if not torch.equal(o, _launch_fwd(q, k, v, causal, scale, None)) or \
+            out is not None and not torch.equal(o, out):
+        fail(f"{what}: the forward's output differs with its logsumexp output")
+    check_close(f"{what} lse", lse, scores_lse(q, k, causal, scale), "float32", tol=LSE_TOL)
+    return o, lse
+
+
+def phase_backward_kernels(dev, gen, rnd, dts) -> dict:
+    """K1-bwd and K2-bwd against their plain backwards on the card: K1-bwd
+    in every forward mode at D = 48-8192 and R = 1-8192 (qwen2-1.5b's
+    training rows: B * S = 512 and 8192 at D = 1536; the 100m reductions'
+    D = 512), twice each (bit for
+    bit the same); K2-bwd through the autograd Function at the tile edges
+    (``tests/_attention_edges.py``, causal or not, hd 64/128, and at
+    gemma's hd 256 G 8, qwen3-moe's hd 128 G 16 and zamba2's hd 80 G 1),
+    the cross-attention shapes (Sq != Sk, non-causal) and the training
+    paths' shapes (``TRAIN_FLASH``); K2's forward at each case also with
+    its logsumexp output (``check_forward_lse``).  Timed beside their bound
+    and the library's backward (autograd through ``F.rms_norm`` of the
+    added input; through ``F.scaled_dot_product_attention``), and held
+    against the plain backward at the timed shapes too."""
+    import torch
+    import torch.nn.functional as F
+
+    from _attention_edges import (CROSS_FLASH, GEMMA_G, GEMMA_HD, GEMMA_KV, MOE_G, MOE_HD,
+                                  MOE_KV, TRAIN_FLASH, ZAMBA_G, ZAMBA_HD, ZAMBA_KV,
+                                  flash_edge_cases)
+
+    from repro_torch.kernels.flash_attention.ops import (_launch_fwd, flash_attention,
+                                                         flash_attention_bwd,
+                                                         flash_attention_bwd_ref)
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd, rmsnorm_bwd_ref
+
+    report = {}
+    modes = {"add": (True, False, True), "add-gemma": (True, True, True),
+             "add-no-out": (True, False, False), "norm": (False, False, False),
+             "norm-gemma": (False, True, True)}
+    worst = {}
+    for dname, dt in dts.items():
+        for d in (48, 52, 128, 256, 512, 1536, 2048, 4096, 8192):
+            for rows in (1, 37, 512, 8192 if d <= 2048 else 384):
+                for mode, (with_r, gemma, want) in modes.items():
+                    x = rnd(rows, d, dt=dt)
+                    r = rnd(rows, d, dt=dt) if with_r else None
+                    sc = torch.randn(d, generator=gen, device=dev)
+                    dy = rnd(rows, d, dt=dt)
+                    dh = rnd(rows, d, dt=dt) if with_r and want else None
+                    dx, ds = rmsnorm_bwd(x, r, sc, dy, dh, gemma=gemma)
+                    rx, rs = rmsnorm_bwd_ref(x, r, sc, dy, dh, gemma=gemma)
+                    what = f"rmsnorm_bwd {dname} R={rows} D={d} {mode}"
+                    e = check_close(f"{what} dx", dx, rx, dname)
+                    # dscale sums up to 8192 rows: 10x the f32 tolerance
+                    check_close(f"{what} dscale", ds, rs, "float32",
+                                tol=TOL[dname] * (10 if dname == "float32" else 1))
+                    dx2, ds2 = rmsnorm_bwd(x, r, sc, dy, dh, gemma=gemma)
+                    if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
+                        fail(f"{what}: a second call differs (not deterministic)")
+                    worst[dname] = max(worst.get(dname, 0.0), e)
+        log(f"rmsnorm_bwd {dname} D=48..8192 R=1..8192 modes {'/'.join(modes)}: max_abs_err "
+            f"{worst[dname]:.3e}, every call repeated bit for bit")
+    times = {}
+    for rows, d in ((8192, 1536), (512, 1536), (2048, 512)):
+        x, r, dy, dh = (rnd(rows, d, dt=torch.bfloat16) for _ in range(4))
+        sc = torch.randn(d, generator=gen, device=dev)
+        xr = x.float().add(r.float()).to(torch.bfloat16).requires_grad_()
+        sc16 = sc.to(torch.bfloat16).requires_grad_()
+        y = F.rms_norm(xr, (d,), sc16, 1e-6)
+        what = f"rmsnorm_bwd bf16 R={rows} D={d} (add, residual grad in)"
+        for n, a, w in zip(("dx", "dscale"), rmsnorm_bwd(x, r, sc, dy, dh),
+                           rmsnorm_bwd_ref(x, r, sc, dy, dh)):
+            check_close(f"{what} (timed) {n}", a, w, "bfloat16")
+        t = timings(lambda: rmsnorm_bwd(x, r, sc, dy, dh),
+                    lambda: rmsnorm_bwd_ref(x, r, sc, dy, dh),
+                    lambda: torch.autograd.grad(y, [xr, sc16], dy, retain_graph=True))
+        # x, r, dy, dh read once, dx written once (bf16), the scale read and
+        # dscale written (f32); ~10 operations an element
+        t["bound_ms"], t["bound_by"] = bound_ms(5 * rows * d * 2 + 2 * d * 4, 10 * rows * d,
+                                                "bfloat16")
+        log_timings(what, t, "autograd of F.rms_norm")
+        times[f"R={rows} D={d} bf16"] = t
+    report["rmsnorm_bwd"] = {"max_abs_err": worst["bfloat16"], "shape": "R=8192 D=1536 bf16",
+                             **times["R=8192 D=1536 bf16"], "shapes": times}
+
+    def case(b, h, kv, sq, sk, hd, causal, dt):
+        q = rnd(b, sq, h, hd, dt=dt).transpose(1, 2).requires_grad_()
+        k = rnd(b, sk, kv, hd, dt=dt).transpose(1, 2).requires_grad_()
+        v = rnd(b, sk, kv, hd, dt=dt).transpose(1, 2).requires_grad_()
+        o = flash_attention(q, k, v, causal=causal)
+        do = rnd(b, h, sq, hd, dt=dt)
+        got = torch.autograd.grad(o, [q, k, v], do)
+        want = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(), do,
+                                       causal=causal)
+        what = f"flash_attention_bwd {dt} B={b} H={h} KV={kv} Sq={sq} Sk={sk} hd={hd} " \
+               f"causal={causal}"
+        check_forward_lse(what, q.detach(), k.detach(), v.detach(), causal, out=o.detach())
+        return max(check_close(f"{what} {n}", a, w, str(dt).split(".")[-1])
+                   for n, a, w in zip(("dq", "dk", "dv"), got, want))
+
+    worst = {}
+    for dname, dt in dts.items():
+        n = 0
+        for sq, sk, g, b, kv in flash_edge_cases():
+            for hd in (64, 128):
+                for causal in (True, False):
+                    worst[dname] = max(worst.get(dname, 0.0),
+                                       case(b, g * kv, kv, sq, sk, hd, causal, dt))
+                    n += 1
+        for g, kv, hd in ((GEMMA_G, GEMMA_KV, GEMMA_HD), (MOE_G, MOE_KV, MOE_HD),
+                          (ZAMBA_G, ZAMBA_KV, ZAMBA_HD)):
+            for sq, sk in ((1, 1), (65, 65), (100, 130), (130, 77), (384, 384)):
+                for causal in (True, False):
+                    worst[dname] = max(worst[dname], case(1, g * kv, kv, sq, sk, hd, causal, dt))
+                    n += 1
+        for b, h, kv, sq, sk, hd in CROSS_FLASH:
+            worst[dname] = max(worst[dname], case(b, h, kv, sq, sk, hd, False, dt))
+            n += 1
+        for b, h, kv, sq, sk, hd, causal in [(2, 12, 2, 256, 256, 128, True), *TRAIN_FLASH]:
+            worst[dname] = max(worst[dname], case(b, h, kv, sq, sk, hd, causal, dt))
+            n += 1
+        log(f"flash_attention_bwd {dname}: {n} cases (tile edges causal or not at hd 64/128, "
+            f"hd 256 G 8, hd 128 G 16, hd 80 G 1, cross shapes, B=2 S=256, the training paths' "
+            f"shapes), each forward's logsumexp within {LSE_TOL} and its output unchanged: "
+            f"max_abs_err {worst[dname]:.3e}")
+    times = {}
+    for b, s in (TRAIN_BF16_BS, (1, 384)):
+        h, kv, hd = 12, 2, 128
+        q = rnd(b, s, h, hd, dt=torch.bfloat16).transpose(1, 2)
+        k, v = (rnd(b, s, kv, hd, dt=torch.bfloat16).transpose(1, 2) for _ in range(2))
+        lse = torch.empty((b, h, s), device=dev)
+        o = _launch_fwd(q, k, v, True, None, lse)
+        do = rnd(b, h, s, hd, dt=torch.bfloat16)
+        what = f"flash_attention_bwd bf16 B={b} H=12 KV=2 S={s} hd=128 causal"
+        for n, a, w in zip(("dq", "dk", "dv"), flash_attention_bwd(q, k, v, o, do, lse),
+                           flash_attention_bwd_ref(q, k, v, o, do, causal=True)):
+            check_close(f"{what} (timed) {n}", a, w, "bfloat16")
+        qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+        oc = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+        t = timings(lambda: flash_attention_bwd(q, k, v, o, do, lse, causal=True),
+                    lambda: flash_attention_bwd_ref(q, k, v, o, do, causal=True),
+                    lambda: torch.autograd.grad(oc, [qc, kc, vc], do, retain_graph=True),
+                    plain_iters=5)
+        pairs = b * h * (s * (s + 1) // 2)
+        # q, o, dO, dq (B,S,H,hd), k, v, dk, dv (B,S,KV,hd) in bf16, lse in f32;
+        # 5 products of 2 hd operations per (query, key) pair
+        t["bound_ms"], t["bound_by"] = bound_ms(2 * (4 * b * s * h * hd + 4 * b * s * kv * hd)
+                                                + 4 * b * h * s, 10 * hd * pairs, "bfloat16")
+        log_timings(what, t, "autograd of SDPA")
+        times[f"B={b} S={s}"] = t
+    key = f"B={TRAIN_BF16_BS[0]} S={TRAIN_BF16_BS[1]}"
+    report["flash_attention_bwd"] = {"max_abs_err": worst["bfloat16"],
+                                     "shape": f"{key} H=12 KV=2 hd=128 causal bf16",
+                                     **times[key], "shapes": times}
+    return report
+
+
+def leaf_group(path: str) -> str:
+    for group, keys in (("norms", ("ln1", "ln2", "final_norm")),
+                        ("attention", ("attn",)), ("mlp", ("mlp",)),
+                        ("embedding", ("tok_embed", "lm_head"))):
+        if any(f"'{k}'" in path for k in keys):
+            return group
+    return "other"
+
+
+def train_step_counts(cfg, steps: int = 1) -> dict:
+    """The kernel launches ``steps`` training steps of the dense family
+    imply: the forward's 2L + 1 K1 and L K2 calls, the layers' 2L and L
+    again where remat recomputes them, and one backward call for each
+    forward call of the step."""
+    L = cfg.num_layers
+    again = cfg.remat != "none"
+    return {"rmsnorm": steps * (2 * L + 1 + 2 * L * again),
+            "rmsnorm_bwd": steps * (2 * L + 1),
+            "flash_attention": steps * (L + L * again),
+            "flash_attention_bwd": steps * L}
+
+
+def phase_train_f32(dev) -> dict:
+    """Phase 26: full-width qwen2-1.5b in f32 (all 28 layers, B 2, S 256,
+    remat ``block``): the loss and every gradient leaf, kernel path against
+    ``plain=True`` on the same weights and tokens, the max relative error
+    per leaf group, and the launches the remat policy implies."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_items
+
+    cfg = get_config(TRAIN_ARCH).scaled(param_dtype="float32", compute_dtype="float32")
+    fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
+    params = fast.init(SEED)
+    leaves = [p.requires_grad_() for _, p in tree_items(params)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    b, s = TRAIN_F32_BS
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device=dev, generator=gen)}
+    ws = train_wrappers()
+    zero_counts(ws)
+    loss_k = fast.loss(params, batch)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in ws.items()}
+    loss_p = plain.loss(params, batch)
+    grads_p = torch.autograd.grad(loss_p, leaves)
+    log(f"f32 {TRAIN_ARCH} train B={b} S={s} remat={cfg.remat}: loss kernel "
+        f"{loss_k.item():.6f}, plain {loss_p.item():.6f}")
+    if not torch.isfinite(loss_k) or abs(float(loss_k) - float(loss_p)) > \
+            GRAD_F32_REL_TOL * abs(float(loss_p)):
+        fail(f"f32 {TRAIN_ARCH} train: loss {float(loss_k)} vs plain {float(loss_p)}")
+    rel = {}
+    for (path, _), gk, gp in zip(tree_items(params), grads_k, grads_p):
+        if not torch.isfinite(gk).all():
+            fail(f"f32 {TRAIN_ARCH} train: non-finite gradient {path}")
+        scale = float(gp.abs().max())
+        if scale == 0:
+            fail(f"f32 {TRAIN_ARCH} train: zero plain gradient {path}")
+        group = leaf_group(path)
+        rel[group] = max(rel.get(group, 0.0), max_err(gk, gp) / scale)
+    log(f"f32 {TRAIN_ARCH} train: max relative gradient error by leaf group (each leaf's "
+        f"max |kernel - plain| over its largest plain gradient): "
+        + ", ".join(f"{g} {e:.3e}" for g, e in sorted(rel.items()))
+        + f" (bound {GRAD_F32_REL_TOL})")
+    if max(rel.values()) > GRAD_F32_REL_TOL:
+        fail(f"f32 {TRAIN_ARCH} train: gradients differ beyond {GRAD_F32_REL_TOL}: {rel}")
+    want = train_step_counts(cfg)
+    log(f"f32 {TRAIN_ARCH} train: launches in one loss + backward {counts} (remat "
+        f"{cfg.remat} implies {want})")
+    if counts != want:
+        fail(f"f32 {TRAIN_ARCH} train: launches {counts} != {want}")
+    del params, leaves, grads_k, grads_p
+    return counts
+
+
+def profile_train_step(step, state, batch) -> dict:
+    """Device ms by kernel name in one training step (``torch.profiler``),
+    grouped: attention forward and backward, the norm and its backward,
+    matrix products, the optimizer's elementwise passes, the rest."""
+    by = device_breakdown(lambda: step(state, batch), iters=1, warm=0)
+    if EVENTS_KEY in by:
+        log("bf16 train step device ms by group: not measured (no profiler activity); "
+            f"whole step {by[EVENTS_KEY][0]:.2f} ms between CUDA events")
+        return {"whole step (CUDA events)": by[EVENTS_KEY][0]}
+    groups = {}
+    for name, (ms, n) in by.items():
+        low = name.lower()
+        g = ("K2-bwd" if "bwd_dkdv" in low or "bwd_dq" in low or "bwd_delta" in low else
+             "K2" if "flash_fwd" in low else
+             "K1-bwd" if "rmsnorm_bwd" in low or "rmsnorm_dscale" in low else
+             "K1" if "rmsnorm_fwd" in low else
+             "matmul" if "gemm" in low or "sm90_" in low or "cutlass" in low or "nvjet" in low
+             else "foreach (optimizer)" if "foreach" in low or "multi_tensor" in low
+             else "other")
+        ms0, n0 = groups.get(g, (0.0, 0))
+        groups[g] = (ms0 + ms, n0 + n)
+    total = sum(ms for ms, _ in groups.values())
+    log("bf16 train step device ms by group: " + "; ".join(
+        f"{g} {ms:.2f} ({100 * ms / total:.1f}%, {n} kernels)"
+        for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    log_breakdown("bf16 train step (top kernels)", dict(sorted(by.items(),
+                                                               key=lambda kv: -kv[1][0])[:12]))
+    return {g: ms for g, (ms, _) in groups.items()}
+
+
+def phase_train_bf16(dev) -> tuple[dict, dict]:
+    """Phase 27: full-width qwen2-1.5b, bf16 params with f32 master and
+    moments, through ``Trainer`` over the zero-copy data plane (B 8 x S
+    1024): 8 steps with a checkpoint at step 4; the step-8 checkpoint is
+    then removed and a second ``Trainer`` on the same directory resumes at
+    step 5 from the one at step 4, and its losses for steps 5-8 must equal
+    the uninterrupted run's within ``RESUME_LOSS_TOL``.  Prints the step ms
+    (median of steps 3-8), tokens/s, the model-FLOP share, peak device
+    memory, the losses at steps 1 and 8, the launches (the remat policy's
+    count, every step), and one step's device time by kernel group."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_BF16_BS
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tc = TrainerConfig(batch=b, seq_len=s, total_steps=TRAIN_STEPS, warmup=2,
+                       ckpt_every=TRAIN_CKPT_AT, ckpt_dir=str(ckpt), ckpt_keep=2, log_every=1,
+                       seed=SEED)
+    ws = train_wrappers()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    tr = Trainer(Model(cfg, device=dev), tc)
+    zero_counts(ws)
+    tr.run()
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in ws.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(t.numel() for t in _leaves(tr.state["params"]))
+    log(f"bf16 {TRAIN_ARCH} train: {n_params / 1e9:.4f} B parameters (param_count "
+        f"{cfg.param_count() / 1e9:.4f} B), remat {cfg.remat}: {TRAIN_STEPS} steps in "
+        f"{time.monotonic() - t0:.1f} s (state built, checkpoints' snapshots included)")
+    straight = tr.metrics_log
+    state, step_fn = tr.state, make_train_step(tr.model, tr.opt)
+    tr.close()                                   # joins the step-8 checkpoint's writer
+    want = train_step_counts(cfg, TRAIN_STEPS)
+    if counts != want:
+        fail(f"bf16 {TRAIN_ARCH} train: launches {counts} != {want}")
+    losses = [r["loss"] for r in straight]
+    if not all(map(lambda x: x == x and abs(x) < 1e4, losses)):
+        fail(f"bf16 {TRAIN_ARCH} train: losses {losses}")
+    dts = sorted(r["dt"] for r in straight[2:])
+    step_s = statistics.median(dts)
+    tokens = b * s
+    flops = 6 * cfg.param_count() * tokens
+    print(f"train step ms (median of steps 3-{TRAIN_STEPS}): {step_s * 1e3:.2f}", flush=True)
+    print(f"train tokens/s: {tokens / step_s:.0f}", flush=True)
+    print(f"train model-FLOP share (6 N tokens / (step s x 989e12)): "
+          f"{flops / (step_s * 989e12):.4f}", flush=True)
+    print(f"train peak device memory GB: {peak / 1e9:.2f}", flush=True)
+    print(f"train loss step 1: {losses[0]:.6f}  step {TRAIN_STEPS}: {losses[-1]:.6f}",
+          flush=True)
+    log(f"bf16 {TRAIN_ARCH} train: launches over {TRAIN_STEPS} steps {counts} (the remat "
+        f"policy's count); losses {[round(x, 4) for x in losses]}; step s "
+        f"{[round(r['dt'], 4) for r in straight]}; grad norms "
+        f"{[round(r['grad_norm'], 4) for r in straight]}")
+    # one more step, profiled (the run's last state; not part of any result above)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    groups = profile_train_step(step_fn, state,
+                                {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                                                         generator=gen)})
+    del state, step_fn, tr
+
+    shutil.rmtree(ckpt / f"step_{TRAIN_STEPS:010d}")
+    t0 = time.monotonic()
+    tr2 = Trainer(Model(cfg, device=dev), tc)
+    tr2.run()
+    tr2.close()
+    resumed = tr2.metrics_log
+    log(f"bf16 {TRAIN_ARCH} train: resumed from step {TRAIN_CKPT_AT} and ran to "
+        f"{TRAIN_STEPS} in {time.monotonic() - t0:.1f} s (restore included)")
+    if [r["step"] for r in resumed] != list(range(TRAIN_CKPT_AT + 1, TRAIN_STEPS + 1)):
+        fail(f"resumed run's steps {[r['step'] for r in resumed]}")
+    diffs = [abs(a["loss"] - b_["loss"]) for a, b_ in zip(resumed, straight[TRAIN_CKPT_AT:])]
+    log(f"bf16 {TRAIN_ARCH} train: resumed losses {[r['loss'] for r in resumed]} against "
+        f"uninterrupted {losses[TRAIN_CKPT_AT:]}: max |diff| {max(diffs):.3e} (bound "
+        f"{RESUME_LOSS_TOL})")
+    if max(diffs) > RESUME_LOSS_TOL:
+        fail(f"resumed losses differ from the uninterrupted run's by {max(diffs):.3e}")
+    del tr2
+    shutil.rmtree(ckpt / f"step_{TRAIN_STEPS:010d}")   # the resumed run's, saved at its end
+    faults = {}
+    for fault in RESUME_FAULTS:
+        t0 = time.monotonic()
+        got = resume_with_fault(cfg, tc, dev, fault)
+        faults[fault] = max(abs(a - b_) for a, b_ in zip(got, losses[TRAIN_CKPT_AT:]))
+        log(f"bf16 {TRAIN_ARCH} train: resumed with a planted fault, {fault}: losses {got}, "
+            f"max |diff| {faults[fault]:.3e} ({time.monotonic() - t0:.1f} s, restore included)")
+    if min(faults.values()) <= RESUME_LOSS_TOL:
+        fail(f"a planted restore fault stays within the resume bound {RESUME_LOSS_TOL}: {faults}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_s * 1e3, "groups_ms": groups}
+
+
+def resume_with_fault(cfg, tc, dev, fault: str) -> list:
+    """Steps 5-8's losses resumed from the step-4 checkpoint with one of
+    ``RESUME_FAULTS`` planted just after the restore; no checkpoint is
+    saved.  What the resume bound exists to catch."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_items
+    from repro_torch.runtime.trainer import Trainer
+
+    tr = Trainer(Model(cfg, device=dev), tc)
+    tr._init_or_restore()
+    if tr.step_num != TRAIN_CKPT_AT:
+        fail(f"resume with a fault: restored step {tr.step_num}, not {TRAIN_CKPT_AT}")
+    st = tr.state
+    with torch.no_grad():
+        if fault == "moments zeroed":
+            for t in [*_leaves(st["m"]), *_leaves(st["v"])]:
+                t.zero_()
+        elif fault == "master weights from the bf16 params":
+            params = dict(tree_items(st["params"]))
+            for path, w in tree_items(st["master"]):
+                w.copy_(params[path])
+        elif fault == "optimizer step one ahead":
+            st["step"].add_(1)
+        elif fault == "data cursor one ahead":
+            tr._next_batch()
+        else:
+            raise ValueError(fault)
+    losses = []
+    for _ in range(TRAIN_STEPS - TRAIN_CKPT_AT):
+        batch = {"tokens": torch.from_numpy(tr._next_batch()["tokens"]).to(dev)}
+        st, m = tr._step_fn(st, batch)
+        losses.append(float(m["loss"]))
+    tr.close()
+    return losses
+
+
+def family_batch(cfg, gen) -> dict:
+    import torch
+
+    b, s = FAMILY_BS
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device=gen.device,
+                                     generator=gen)}
+    if cfg.family in ("whisper", "mllama"):
+        batch.update(cross_input(cfg, b, gen))
+    return batch
+
+
+def phase_train_families(dev) -> dict:
+    """Phase 28: the 100m reduction of each family but xLSTM (head dim 64)
+    in bf16, 3 training steps (``make_train_step``, AdamW) on one random
+    batch of 4 x 256 each, kernel path against plain path at step 1 (loss
+    and grad norm, within ``FAMILY_*_REL_TOL``); then xlstm's refusal."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config, model_100m
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+
+    ws = train_wrappers()
+    launches = {}
+    for arch in FAMILY_TRAIN:
+        cfg = model_100m(arch).scaled(param_dtype="bfloat16", compute_dtype="bfloat16")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        batch = family_batch(cfg, gen)
+        out = {}
+        for name, plain in (("plain", True), ("kernel", False)):
+            model = Model(cfg, device=dev, plain=plain)
+            params = model.init(SEED)
+            if cfg.family == "mllama":
+                for k, g in MLLAMA_GATES.items():
+                    params["cross_layers"][k].fill_(g)
+            state = AdamW(lr=1e-4).init(params)
+            step = make_train_step(model, AdamW(lr=1e-4))
+            if not plain:
+                zero_counts(ws)
+            recs = []
+            for _ in range(FAMILY_STEPS if not plain else 1):
+                state, m = step(state, batch)
+                recs.append((float(m["loss"]), float(m["grad_norm"])))
+            if not plain:
+                torch.cuda.synchronize()
+                launches[f"{arch} train 100m"] = {n: w.launches for n, w in ws.items()}
+            out[name] = recs
+            del state, params, model
+        (lk, gk), (lp, gp) = out["kernel"][0], out["plain"][0]
+        ok = abs(lk - lp) <= FAMILY_LOSS_REL_TOL * abs(lp) and \
+            abs(gk - gp) <= FAMILY_GNORM_REL_TOL * abs(gp)
+        log(f"bf16 {arch} 100m train ({cfg.num_layers} layers, hd {cfg.head_dim}): step 1 loss "
+            f"kernel {lk:.5f} plain {lp:.5f}, grad norm kernel {gk:.5f} plain {gp:.5f}; losses "
+            f"{[round(x, 5) for x, _ in out['kernel']]}; launches "
+            f"{launches[f'{arch} train 100m']}")
+        if not ok or not all(x == x for x, _ in out["kernel"]):
+            fail(f"{arch} 100m train: kernel path {out['kernel'][0]} vs plain {out['plain'][0]}")
+        need = [n for n in TRAIN_KERNELS if cfg.family != "whisper" or "rmsnorm" not in n]
+        if not all(launches[f"{arch} train 100m"][n] > 0 for n in need):
+            fail(f"{arch} 100m train: a kernel was not launched: {launches[f'{arch} train 100m']}")
+    cfg = get_smoke_config("xlstm-1.3b")
+    try:
+        Model(cfg, device=dev).loss({}, {"tokens": torch.zeros((1, 4), dtype=torch.long,
+                                                                device=dev)})
+    except NotImplementedError as e:
+        log(f"xlstm on the card refuses training as it must: {str(e)[:120]}")
+    else:
+        fail("xlstm's loss on the card did not refuse (K5 has no backward kernel)")
+    return launches
+
+
+class BackwardCalls:
+    """Stands in for a backward kernel's wrapper (``rmsnorm_bwd``,
+    ``flash_attention_bwd``) in its module while the training phases run
+    (the autograd Functions call the module's name), recording each call's
+    tensors as (dtype, shape, strides) with its other arguments.  Its
+    ``launches`` is the wrapped function's, so the wrapper's own count
+    moves as before."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.seen: dict = {}
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+    def __call__(self, *args, **kw):
+        key = (tuple((a.dtype, tuple(a.shape), a.stride()) if hasattr(a, "stride") else a
+                     for a in args), tuple(sorted(kw.items())))
+        self.seen[key] = self.seen.get(key, 0) + 1
+        return self.fn(*args, **kw)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_train_shapes(dev, calls: dict) -> dict:
+    """Phase 29: every (dtype, shape, strides, mode) K1-bwd and K2-bwd ran
+    on in phases 26-28, again on unit-scale random inputs laid out as the
+    path's (``as_strided`` over a fresh buffer) against the plain backward
+    at ``TOL`` (dscale, a sum over up to 8192 rows, at 10x in f32), each
+    call twice bit for bit, and K2's forward with its logsumexp output as
+    in phase 3.  The paths' own gradients are too small to hold at an
+    absolute tolerance (a mean over up to 8192 tokens), so the layouts are
+    replayed, not the values."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_bwd,
+                                                         flash_attention_bwd_ref)
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd, rmsnorm_bwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+    def fresh(spec):
+        if spec is None:
+            return None
+        dt, shape, stride = spec
+        n = 1 + sum((d - 1) * st for d, st in zip(shape, stride)) if all(shape) else 0
+        return torch.randn(n, generator=gen, device=dev).to(dt).as_strided(shape, stride)
+
+    def name(dt):
+        return str(dt).split(".")[-1]
+
+    out = {}
+    worst = 0.0
+    for (x, r, sc, dy, dh), kw in calls["rmsnorm_bwd"].seen:
+        xt, rt, dyt, dht = fresh(x), fresh(r), fresh(dy), fresh(dh)
+        sct = torch.randn(sc[1], generator=gen, device=dev)
+        kw = dict(kw)
+        got = rmsnorm_bwd(xt, rt, sct, dyt, dht, **kw)
+        want = rmsnorm_bwd_ref(xt, rt, sct, dyt, dht, **kw)
+        what = f"rmsnorm_bwd path shape {name(x[0])} x {x[1]} strides {x[2]} residual " \
+               f"{r is not None} dh {dh is not None} {kw}"
+        worst = max(worst, check_close(f"{what} dx", got[0], want[0], name(x[0])))
+        check_close(f"{what} dscale", got[1], want[1], "float32",
+                    tol=TOL[name(x[0])] * (10 if x[0] == torch.float32 else 1))
+        again = rmsnorm_bwd(xt, rt, sct, dyt, dht, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{what}: a second call differs (not deterministic)")
+    out["rmsnorm_bwd"] = {"path_shapes": len(calls["rmsnorm_bwd"].seen),
+                          "path_max_abs_err": worst}
+    log(f"rmsnorm_bwd at the {len(calls['rmsnorm_bwd'].seen)} layouts and modes phases 26-28 "
+        f"ran, fresh inputs: max_abs_err {worst:.3e} (dx), every call repeated bit for bit")
+    worst = 0.0
+    for (q, k, v, o, do, _), kw in calls["flash_attention_bwd"].seen:
+        qt, kt, vt = fresh(q), fresh(k), fresh(v)
+        kw = dict(kw)
+        what = f"flash_attention_bwd path shape {name(q[0])} q {q[1]} k {k[1]} strides " \
+               f"{q[2]} {k[2]} {v[2]} do {do[2]} {kw}"
+        ot, lse = check_forward_lse(what, qt, kt, vt, kw["causal"], kw["scale"])
+        if ot.stride() != o[2]:
+            fail(f"{what}: the forward's output strides {ot.stride()} differ from the path's")
+        dot = fresh(do)
+        got = flash_attention_bwd(qt, kt, vt, ot, dot, lse, **kw)
+        want = flash_attention_bwd_ref(qt, kt, vt, ot, dot, **kw)
+        worst = max(worst, *(check_close(f"{what} {n}", a, w, name(q[0]))
+                             for n, a, w in zip(("dq", "dk", "dv"), got, want)))
+        again = flash_attention_bwd(qt, kt, vt, ot, dot, lse, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{what}: a second call differs (not deterministic)")
+    out["flash_attention_bwd"] = {"path_shapes": len(calls["flash_attention_bwd"].seen),
+                                  "path_max_abs_err": worst}
+    log(f"flash_attention_bwd at the {len(calls['flash_attention_bwd'].seen)} layouts and modes "
+        f"phases 26-28 ran, fresh inputs: max_abs_err {worst:.3e}, the forward's logsumexp "
+        f"within {LSE_TOL}, every call repeated bit for bit")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 REPLACES = {
@@ -1967,6 +2725,12 @@ REPLACES = {
                       "src/repro/kernels/ragged_concat/kernel.py:42"),
     "slstm_scan": ("cuda", "src/repro_torch/csrc/slstm_scan.cu",
                    "src/repro/kernels/slstm_scan/kernel.py:88"),
+    # backward kernels: no TPU kernel has one; each names the TPU kernel whose
+    # function it differentiates
+    "rmsnorm_bwd": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:25"),
+    "flash_attention_bwd": ("cuda", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:70"),
 }
 
 
@@ -2072,6 +2836,29 @@ def main() -> None:
     model_phases(ZAMBA_ARCHS, 20)
     model_phases(CROSS_ARCHS, 22, (("f32 model", phase_cross_f32),
                                    ("bf16 generation", phase_cross_bf16)))
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+
+    calls = {"rmsnorm_bwd": BackwardCalls(norm_ops, "rmsnorm_bwd"),
+             "flash_attention_bwd": BackwardCalls(flash_ops, "flash_attention_bwd")}
+    with calls["rmsnorm_bwd"], calls["flash_attention_bwd"]:
+        t0 = time.monotonic()
+        launches[f"{TRAIN_ARCH} train f32"] = phase_train_f32(dev)
+        log(f"phase 26 (f32 training gradients, {TRAIN_ARCH}) done in "
+            f"{time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        launches[f"{TRAIN_ARCH} train bf16"], train = phase_train_bf16(dev)
+        log(f"phase 27 (bf16 training with the Trainer and a resume, {TRAIN_ARCH}) done in "
+            f"{time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        launches.update(phase_train_families(dev))
+        log(f"phase 28 (training, the other families at 100m) done in "
+            f"{time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    for n, r in phase_train_shapes(dev, calls).items():
+        report[n].update(r)
+    log(f"phase 29 (the backward kernels at the training paths' layouts) done in "
+        f"{time.monotonic() - t0:.1f} s")
     log(f"all phases done in {time.monotonic() - T_START:.1f} s")
 
     kernels = []
@@ -2079,6 +2866,7 @@ def main() -> None:
         r = report[name]
         by_path = {a: c[name] for a, c in launches.items() if name in c}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
+                        "role": "backward" if name.endswith("_bwd") else "forward",
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "on_path": bool(by_path),
                         "max_abs_err": r["max_abs_err"],
@@ -2089,9 +2877,11 @@ def main() -> None:
                         "path_device_ms_per_launch": {a: p[name] for a, p in path_ms.items()
                                                       if name in p},
                         **{k: r[k] for k in ("by_seq", "hd256", "g16", "hd80", "cross", "shapes",
-                                             "variant", "cluster", "torch_add_host_ms")
+                                             "variant", "cluster", "torch_add_host_ms",
+                                             "path_shapes", "path_max_abs_err")
                            if k in r}})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "train_step_ms": train["step_ms"],
+                      "train_step_device_ms_by_group": train["groups_ms"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

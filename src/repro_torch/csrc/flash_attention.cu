@@ -62,6 +62,11 @@
 //    strides (16-byte aligned, checked by the wrapper), so the model's
 //    (B, S, H, hd) activations need no transpose.
 //
+// Each row's logsumexp (natural log, of the scaled scores) is stored in
+// `lse` (B, H, Sq) f32 when the caller passes one: the backward kernel
+// (flash_attention_bwd.cu) rebuilds the probabilities from it.  With a null
+// `lse` nothing else changes: the serving path passes null.
+//
 // Design, f32 (parity checks only; the server runs bf16): on the tensor
 // cores an f32 product is TF32 (10-bit mantissa) and would miss the 3e-5
 // f32 bound, so f32 keeps a CUDA-core kernel: 16 query rows per block,
@@ -90,8 +95,8 @@ constexpr int f32_smem() { return (kBQ * HD + kBK * (HD + 1) + kBK * HD + kBQ * 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int G, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-          Strides os, int causal, float scale) {
+          T* __restrict__ o, float* __restrict__ lse, int G, int Sq, int Sk, Strides qs,
+          Strides ks, Strides vs, Strides os, int causal, float scale) {
   constexpr int DPL = (HD + 31) / 32;         // output columns per lane; at hd 80 the
                                               // third of lanes 16-31 is past the row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -184,6 +189,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const int qpos = q0 + warp * kRows + r;
     if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qpos] = m[r] + logf(l[r]);
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
       if (HD % 32 == 0 || lane + 32 * i < HD)
@@ -206,7 +213,8 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool (&ready)[64]) {
 }
 
 template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int H,
                        int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
                        int causal, float scale, cudaStream_t stream) {
   constexpr int kSmem = f32_smem<HD>();
@@ -216,8 +224,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd<float, HD><<<grid, kWarps * 32, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H / KV, Sq, Sk, qs, ks, vs, os,
-      causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H / KV, Sq, Sk, qs, ks, vs,
+      os, causal, scale);
   return cudaGetLastError();
 }
 
@@ -227,6 +235,7 @@ constexpr int kQ = 16 * kWarps;               // query rows per block, 16 per wa
 constexpr int kK = 64;                        // keys per tile
 constexpr int kThreads = 2 * kWarps * 32;     // two groups of 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr int pow2_at_least(int n) {
   return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
@@ -287,9 +296,9 @@ __device__ __forceinline__ void set_sync(int set) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int G,
-              int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, int causal,
-              float scale_log2) {
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+              float* __restrict__ lse, int G, int Sq, int Sk, Strides qs, Strides ks,
+              Strides vs, Strides os, int causal, float scale_log2) {
   using Plan = MmaPlan<HD>;
   constexpr int SETS = Plan::kSets;
   constexpr int RB = Plan::kPitch * 2;        // bytes per tile row
@@ -451,6 +460,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       const int row = row0 + 8 * r;
       if (row >= Sq) continue;
       const float inv = 1.f / fmaxf(lr, 1e-30f);
+      if (lse != nullptr && group == 0 && t == 0)   // m in log2 units of the scaled scores
+        lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + row] =
+            (m[r] + log2f(lr)) * kLn2;
       __nv_bfloat16* orow = ob + row * os.s + c0 + 2 * t;
 #pragma unroll
       for (int n = 0; n < NO; ++n)
@@ -488,6 +500,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(lr, 1e-30f);
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + row] = (mn + log2f(lr)) * kLn2;
     __nv_bfloat16* orow = ob + row * os.s + 2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -500,7 +514,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 }
 
 template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int H,
                         int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
                         Strides os, int causal, float scale, cudaStream_t stream) {
   constexpr int kSmem = MmaPlan<HD>::kSmem;
@@ -510,20 +525,22 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   const dim3 grid((Sq + kQ - 1) / kQ, H, B);
   flash_fwd_mma<HD><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H / KV, Sq, Sk,
-      qs, ks, vs, os, causal, scale * kLog2e);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H / KV, Sq,
+      Sk, qs, ks, vs, os, causal, scale * kLog2e);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0, a cudaError_t from the
+// dtype: 0 = float32, 1 = bfloat16.  lse: null, or (B, H, Sq) f32 contiguous,
+// each row's logsumexp of its scaled scores.  Returns 0, a cudaError_t from the
 // launch, or -1 when the arguments are outside what the kernel takes.  For
 // bf16 the pointers and the strides of q, k, v and o must be 16-byte
 // aligned (the wrapper checks) and the scale positive; f32 reads scalars
 // and takes any stride and any scale.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B, int H, int KV,
+    const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B, int H,
+    int KV,
     int Sq, int Sk, int hd, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss, int causal, float scale, void* stream) {
@@ -534,21 +551,21 @@ extern "C" int flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0 && hd == 64)
-    err = launch_f32<64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_f32<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 0 && hd == 80)
-    err = launch_f32<80>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_f32<80>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 1 && hd == 80)
-    err = launch_bf16<80>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_bf16<80>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 0 && hd == 128)
-    err = launch_f32<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_f32<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 1 && hd == 64)
-    err = launch_bf16<64>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_bf16<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 0 && hd == 256)
-    err = launch_f32<256>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_f32<256>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 1 && hd == 128)
-    err = launch_bf16<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_bf16<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else if (dtype == 1 && hd == 256)
-    err = launch_bf16<256>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
+    err = launch_bf16<256>(q, k, v, o, lse, B, H, KV, Sq, Sk, qs, ks, vs, os, causal, scale, st);
   else
     return -1;
   return static_cast<int>(err);

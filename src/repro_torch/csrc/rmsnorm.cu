@@ -34,6 +34,24 @@
 //    copy.  y and h are contiguous.
 // A row is 3-8 KB per tensor on the served models' paths: splitting it over
 // several blocks or a cluster would only add a second round trip.
+//
+// Backward (`rmsnorm_bwd`, no TPU counterpart: the reference's training
+// forward differentiates the plain norm in XLA).  Per row, with h = x + r
+// in f32, rstd = rsqrt(mean(h^2) + eps), xhat = h * rstd and g = s * dy:
+//   dx = dh + rstd * (g - xhat * mean(g * xhat))   (the grad of x and of r;
+//        dh is the grad of the residual output h, or 0),
+//   dscale = sum over rows of dy * xhat            (f32; Gemma's 1 + scale
+//        has the same derivative).
+// h is formed again from x and r in f32, as the plain version does.  It is
+// bound by bytes: it reads x, r, dy, dh and writes dx (five row tensors).
+// Design: a row is held in registers by a group of threads, the whole
+// block (D > 256) or one warp (D <= 256, 8 rows to a block: qk_norm's
+// rows of head_dim); each block walks its rows with a grid stride and
+// keeps its threads' dscale sums in registers; they leave as one partial
+// row a block (`part`, nb x D f32), which a second kernel sums over the
+// blocks in block order.  No atomics: a call's result depends only on its
+// shapes, so repeated steps are bit-stable.  Loads are scalar (coalesced,
+// 2 or 4 bytes a lane): a simple first version.
 #include "common.cuh"
 
 #include <stdint.h>
@@ -223,7 +241,173 @@ int dispatch(const void* x, const void* r, const float* scale, void* y, void* h,
 #undef RMSNORM_LAUNCH
 }
 
+// ---- backward --------------------------------------------------------------
+
+constexpr int kBwdMaxThreads = 512;
+constexpr int kWarpRowsMaxD = 256;            // at or below: one warp a row, 8 rows a block
+
+// Sum of v over the row group: the warp (WARP_ROWS) or the whole block, in a
+// fixed order; every thread of the group gets the same sum.
+template <bool WARP_ROWS>
+__device__ __forceinline__ float group_sum(float v, float* red) {
+  v = warp_sum(v);
+  if constexpr (WARP_ROWS) return v;
+  __syncthreads();                            // the previous sum's readers are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) t += red[w];
+  return t;
+}
+
+template <typename T, int EPT, bool WARP_ROWS>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                   const float* __restrict__ scale, const T* __restrict__ dy,
+                   const T* __restrict__ dh, T* __restrict__ dx, float* __restrict__ part,
+                   long long rows, int d, long long sx, long long sr, float eps, int gemma) {
+  __shared__ float red[kBwdMaxThreads / 32];
+  extern __shared__ float slab[];             // WARP_ROWS: each warp's dscale sums, (rpb, d)
+  const int tpr = WARP_ROWS ? 32 : static_cast<int>(blockDim.x);
+  const int group = WARP_ROWS ? static_cast<int>(threadIdx.x >> 5) : 0;
+  const int rpb = WARP_ROWS ? static_cast<int>(blockDim.x >> 5) : 1;
+  const int li = static_cast<int>(threadIdx.x) - group * tpr;
+  const float add = gemma ? 1.f : 0.f;
+  float s[EPT], ds[EPT];
+#pragma unroll
+  for (int k = 0; k < EPT; ++k) {
+    const int e = li + k * tpr;
+    s[k] = e < d ? scale[e] + add : 0.f;
+    ds[k] = 0.f;
+  }
+  for (long long row = static_cast<long long>(blockIdx.x) * rpb + group; row < rows;
+       row += static_cast<long long>(gridDim.x) * rpb) {
+    const T* xr = x + row * sx;
+    const T* rr = r == nullptr ? nullptr : r + row * sr;
+    float h[EPT], dyf[EPT];
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < EPT; ++k) {
+      const int e = li + k * tpr;
+      h[k] = dyf[k] = 0.f;
+      if (e < d) {
+        h[k] = to_f32(xr[e]);
+        if (rr != nullptr) h[k] += to_f32(rr[e]);
+        dyf[k] = to_f32(dy[row * d + e]);
+      }
+      ss += h[k] * h[k];
+    }
+    const float rstd = rsqrtf(group_sum<WARP_ROWS>(ss, red) / static_cast<float>(d) + eps);
+    float c = 0.f;                            // sum of s * dy * h over the row
+#pragma unroll
+    for (int k = 0; k < EPT; ++k) c += s[k] * dyf[k] * h[k];
+    c = group_sum<WARP_ROWS>(c, red) * rstd * rstd / static_cast<float>(d);   // mean(g xhat) rstd
+#pragma unroll
+    for (int k = 0; k < EPT; ++k) {
+      const int e = li + k * tpr;
+      if (e < d) {
+        const float xhat = h[k] * rstd;
+        float v = rstd * (s[k] * dyf[k]) - xhat * c;
+        if (dh != nullptr) v += to_f32(dh[row * d + e]);
+        dx[row * d + e] = from_f32<T>(v);
+        ds[k] += dyf[k] * xhat;
+      }
+    }
+  }
+  float* out = part + static_cast<long long>(blockIdx.x) * d;
+  if constexpr (!WARP_ROWS) {
+#pragma unroll
+    for (int k = 0; k < EPT; ++k)
+      if (li + k * tpr < d) out[li + k * tpr] = ds[k];
+  } else {                                    // the warps' sums, added in warp order
+#pragma unroll
+    for (int k = 0; k < EPT; ++k)
+      if (li + k * tpr < d) slab[group * d + li + k * tpr] = ds[k];
+    __syncthreads();
+    for (int e = threadIdx.x; e < d; e += blockDim.x) {
+      float t = 0.f;
+      for (int w = 0; w < rpb; ++w) t += slab[w * d + e];
+      out[e] = t;
+    }
+  }
+}
+
+// dscale[e] = sum over the nb partial rows of part[i][e], in row order: 32
+// columns a block, warp w adding rows w, w + 8, ..., then the 8 warp sums in
+// warp order.
+__global__ void __launch_bounds__(256)
+rmsnorm_dscale_kernel(const float* __restrict__ part, float* __restrict__ dscale, int nb,
+                      int d) {
+  __shared__ float sums[8][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + lane;
+  float t = 0.f;
+  if (e < d)
+    for (int i = warp; i < nb; i += 8) t += part[static_cast<long long>(i) * d + e];
+  sums[warp][lane] = t;
+  __syncthreads();
+  if (warp == 0 && e < d) {
+    float total = 0.f;
+    for (int w = 0; w < 8; ++w) total += sums[w][lane];
+    dscale[e] = total;
+  }
+}
+
+template <typename T, int EPT, bool WARP_ROWS>
+cudaError_t launch_bwd(const void* x, const void* r, const float* scale, const void* dy,
+                       const void* dh, void* dx, float* part, float* dscale, long long rows,
+                       int d, long long sx, long long sr, float eps, int gemma, int threads,
+                       int nb, cudaStream_t st) {
+  const int smem = WARP_ROWS ? threads / 32 * d * 4 : 0;
+  rmsnorm_bwd_kernel<T, EPT, WARP_ROWS><<<nb, threads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r), scale, static_cast<const T*>(dy),
+      static_cast<const T*>(dh), static_cast<T*>(dx), part, rows, d, sx, sr, eps, gemma);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dscale_kernel<<<(d + 31) / 32, 256, 0, st>>>(part, dscale, nb, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(const void* x, const void* r, const float* scale, const void* dy,
+                 const void* dh, void* dx, float* part, float* dscale, long long rows, int d,
+                 long long sx, long long sr, float eps, int gemma, int nb, cudaStream_t st) {
+#define RMSNORM_BWD(EPT_, WR_, THREADS_)                                                     \
+  return static_cast<int>(launch_bwd<T, EPT_, WR_>(x, r, scale, dy, dh, dx, part, dscale,   \
+                                                    rows, d, sx, sr, eps, gemma, THREADS_,  \
+                                                    nb, st))
+  if (d <= 128) RMSNORM_BWD(4, true, 256);
+  if (d <= kWarpRowsMaxD) RMSNORM_BWD(8, true, 256);
+  const int ept = d <= 4096 ? 8 : 16;
+  const int threads = ((d + ept - 1) / ept + 31) / 32 * 32;
+  if (ept == 8) RMSNORM_BWD(8, false, threads);
+  RMSNORM_BWD(16, false, threads);
+#undef RMSNORM_BWD
+}
+
 }  // namespace
+
+// Backward of `rmsnorm_fwd` over the same x, r (may be null), scale and row
+// strides: dy (rows, d) contiguous, dh (rows, d) contiguous or null (the
+// grad of the residual output), dx (rows, d) contiguous out, part (nb, d)
+// f32 scratch, dscale (d,) f32 out.  nb = min(ceil(rows / rpb), ...) blocks
+// with rpb = 8 rows a block for d <= 256, else 1 (the wrapper's
+// `rmsnorm_bwd_blocks` rule); nb must be >= 1 and each block's rows are
+// rpb-strided from blockIdx.x * rpb.  Two launches; none for rows = 0.
+// Returns 0, a cudaError_t, or -1 for arguments outside what it takes
+// (d < 1 or d > 8192, nb < 1).
+extern "C" int rmsnorm_bwd(const void* x, const void* r, const float* scale, const void* dy,
+                           const void* dh, void* dx, float* part, float* dscale,
+                           long long rows, int d, long long sx, long long sr, float eps,
+                           int gemma, int bf16, int nb, void* stream) {
+  if (rows < 0 || d < 1 || d > 8192 || nb < 1 || nb > 0x7fffffff) return -1;
+  if (rows == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? dispatch_bwd<__nv_bfloat16>(x, r, scale, dy, dh, dx, part, dscale, rows, d,
+                                            sx, sr, eps, gemma, nb, st)
+              : dispatch_bwd<float>(x, r, scale, dy, dh, dx, part, dscale, rows, d, sx, sr,
+                                    eps, gemma, nb, st);
+}
 
 // x (rows, d) with row stride sx elements, r likewise with sr (r may be
 // null: the norm alone), scale (d,) f32, y (rows, d) contiguous and h (rows,

@@ -2,9 +2,11 @@
 
 * ``rmsnorm`` — fused residual add + RMSNorm, also the norm alone and
   Gemma's ``1 + scale`` (CUDA C++, ``csrc/rmsnorm.cu``); every full-width
-  RMSNorm of both served models goes through it;
-* ``flash_attention`` — causal GQA prefill attention (CUDA C++,
-  ``csrc/flash_attention.cu``);
+  RMSNorm of the models goes through it; its backward ``rmsnorm_bwd`` in
+  the same source;
+* ``flash_attention`` — GQA prefill attention, causal or not (CUDA C++,
+  ``csrc/flash_attention.cu``), and its backward ``flash_attention_bwd``
+  (``csrc/flash_attention_bwd.cu``);
 * ``decode_attention`` — one query per request against the KV cache,
   split over the sequence (CUDA C++, ``csrc/decode_attention.cu``);
 * ``slstm_scan`` — the sLSTM time recurrence in one cooperative launch
@@ -15,5 +17,7 @@
 
 Every ``ops`` wrapper takes the plain version only for CPU tensors; for a
 CUDA tensor it launches its kernel or raises, and counts each launch in
-its ``launches`` attribute.  Submodules import independently.
+its ``launches`` attribute.  Under grad, the two kernels with a backward
+go through ``torch.autograd.Function``s whose backwards are kernels too.
+Submodules import independently.
 """

@@ -6,6 +6,13 @@ scale or Gemma's ``(1 + scale)``, writing the new residual or not.  CPU
 tensors take the plain version; CUDA tensors launch the CUDA kernel (one
 launch counted in ``fused_rmsnorm.launches``) or raise.
 
+Training: when grad is enabled and an input requires it, a CUDA call goes
+through ``_RMSNormFn``, a ``torch.autograd.Function`` whose backward is
+the K1-bwd kernel (``rmsnorm_bwd``, one launch counted in
+``rmsnorm_bwd.launches``); CPU calls take the plain version, which
+autograd differentiates.  Under ``no_grad`` (serving) the call launches
+the forward kernel directly, with nothing saved.
+
 On the decode path a call moves a few tens of KB, so the wrapper's own host
 time, not the kernel's, is what a call costs.  It binds the C function
 once, allocates its outputs with ``torch.empty_like`` (a third of
@@ -23,9 +30,10 @@ import torch
 
 from .. import _build
 from .._device import KERNEL_DTYPES, check_launch, device_kind, on_device, stream_of
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
-__all__ = ["fused_rmsnorm", "rmsnorm_ref"]
+__all__ = ["fused_rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_blocks", "rmsnorm_bwd_ref",
+           "rmsnorm_ref"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -35,6 +43,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rmsnorm")
     lib.rmsnorm_fwd.argtypes = [_P, _P, _P, _P, _P, _L, _I, _L, _L, ctypes.c_float, _I, _I, _P]
     lib.rmsnorm_fwd.restype = _I
+    lib.rmsnorm_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _L, ctypes.c_float,
+                                _I, _I, _I, _P]
+    lib.rmsnorm_bwd.restype = _I
     lib.kernel_error_string.argtypes = [_I]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
@@ -88,9 +99,26 @@ def fused_rmsnorm(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.T
         if device_kind(*inputs) == "cpu":    # raises for mixed or other devices
             return rmsnorm_ref(x, residual, scale, eps=eps, gemma=gemma,
                                want_residual=want_residual)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or
+                                    residual is not None and residual.requires_grad):
+        out = _RMSNormFn.apply(x, residual, scale, eps, gemma, want_residual)
+        if residual is not None and want_residual:
+            return out
+        return out, x if want_residual else None
+    return _launch_fwd(x, residual, scale, eps, gemma, want_residual)
+
+
+def _check_scale(scale: torch.Tensor) -> None:
     if scale.dtype != torch.float32 or not scale.is_contiguous():
         raise TypeError(f"scale ({scale.dtype}, strides {scale.stride()}): the kernel takes "
                         "a contiguous float32 scale")
+
+
+def _launch_fwd(x, residual, scale, eps, gemma, want_residual):
+    """The forward kernel on CUDA tensors: (y, new_residual) as
+    :func:`fused_rmsnorm` returns them."""
+    d = x.shape[-1]
+    _check_scale(scale)
     sx = _row_stride(x, d, "x")
     sr = 0 if residual is None else _row_stride(residual, d, "residual")
     # contiguous for every x _row_stride accepts (dense rows, or rows with gaps)
@@ -113,3 +141,83 @@ def fused_rmsnorm(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.T
 
 
 fused_rmsnorm.launches = 0
+
+
+class _RMSNormFn(torch.autograd.Function):
+    """K1 with K1-bwd as its gradient.  Returns y, or (y, h) when a residual
+    is added and wanted.  Saves x, the residual and the scale (not h):
+    the backward forms h again in f32, as the plain version does."""
+
+    @staticmethod
+    def forward(ctx, x, residual, scale, eps, gemma, want_residual):
+        y, h = _launch_fwd(x, residual, scale, eps, gemma, want_residual)
+        ctx.save_for_backward(x, residual, scale)
+        ctx.eps, ctx.gemma = eps, gemma
+        return (y, h) if residual is not None and want_residual else y
+
+    @staticmethod
+    def backward(ctx, dy, dh=None):
+        x, residual, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, residual, scale, dy, dh, eps=ctx.eps, gemma=ctx.gemma)
+        return (dx, None if residual is None else dx,
+                dscale if ctx.needs_input_grad[2] else None, None, None, None)
+
+
+def rmsnorm_bwd_blocks(rows: int, d: int, sms: int) -> int:
+    """Blocks of one K1-bwd launch: 8 rows at a time a block (a warp each)
+    for D <= 256, else one; at most 4 a streaming multiprocessor.  Each
+    block writes one partial row of dscale, summed in block order, so the
+    result depends only on the shapes and the card."""
+    rpb = 8 if d <= 256 else 1
+    return max(1, min(-(-rows // rpb), 4 * sms))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def rmsnorm_bwd(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.Tensor,
+                dy: torch.Tensor, dh: torch.Tensor | None, *, eps: float = 1e-6,
+                gemma: bool = False):
+    """Gradient of :func:`fused_rmsnorm` at (x, residual, scale): dy the grad
+    of the normed output, dh that of the residual output (or None).
+    Returns (dx, dscale): dx in ``x.dtype``, the grad of x and of residual
+    alike; dscale (D,) f32.  CPU tensors take :func:`rmsnorm_bwd_ref`; CUDA
+    tensors launch K1-bwd (one launch counted in ``rmsnorm_bwd.launches``)
+    or raise.  D up to 8192."""
+    d = x.shape[-1]
+    if dy.shape != x.shape or dh is not None and dh.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} / dh "
+                         f"{None if dh is None else tuple(dh.shape)} must be x's "
+                         f"{tuple(x.shape)}")
+    inputs = [t for t in (x, residual, scale, dy, dh) if t is not None]
+    if device_kind(*inputs) == "cpu":
+        return rmsnorm_bwd_ref(x, residual, scale, dy, dh, eps=eps, gemma=gemma)
+    _check_scale(scale)
+    if d > 8192:
+        raise ValueError(f"rmsnorm_bwd on CUDA: D = {d} above the kernel's 8192")
+    dy = dy.to(x.dtype).contiguous()
+    dh = None if dh is None else dh.to(x.dtype).contiguous()
+    sx = _row_stride(x, d, "x")
+    sr = 0 if residual is None else _row_stride(residual, d, "residual")
+    rows = x.numel() // d if d else 0
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    # the dscale kernel writes every element; with no rows nothing launches
+    dscale = (torch.empty if rows else torch.zeros)(d, dtype=torch.float32, device=x.device)
+    if rows:
+        nb = rmsnorm_bwd_blocks(rows, d, _sm_count(x.get_device()))
+        part = torch.empty((nb, d), dtype=torch.float32, device=x.device)
+        lib = _lib()
+        with on_device(x):
+            code = lib.rmsnorm_bwd(x.data_ptr(), None if residual is None else residual.data_ptr(),
+                                   scale.data_ptr(), dy.data_ptr(),
+                                   None if dh is None else dh.data_ptr(), dx.data_ptr(),
+                                   part.data_ptr(), dscale.data_ptr(), rows, d, sx, sr, eps,
+                                   int(gemma), int(x.dtype == torch.bfloat16), nb, stream_of(x))
+        check_launch(lib, code, "rmsnorm_bwd")
+        rmsnorm_bwd.launches += 1
+    return dx, dscale
+
+
+rmsnorm_bwd.launches = 0

@@ -1,4 +1,5 @@
-"""Shared model substrate: config, init helper, RMSNorm, LayerNorm, RoPE.
+"""Shared model substrate: config, init helper, RMSNorm, LayerNorm, RoPE,
+the loss and the per-layer remat policy.
 
 Counterpart of ``repro/models/common.py``.  ``ModelConfig`` mirrors the
 reference field for field; ``pdt``/``cdt`` return torch dtypes.
@@ -6,14 +7,18 @@ reference field for field; ``pdt``/``cdt`` return torch dtypes.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 __all__ = ["ModelConfig", "rms_norm", "layer_norm", "apply_rope", "rope_freqs", "dense_init",
-           "stack_shapes", "stack_draws", "tree_at"]
+           "cross_entropy", "remat", "stack_shapes", "stack_draws", "tree_at", "tree_items",
+           "tree_map"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -62,7 +67,7 @@ class ModelConfig:
     # numerics / system
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    remat: str = "block"             # training only; read by no serving path
+    remat: str = "block"             # none | block | dots; training only (``remat``)
     seq_shard_activations: bool = False
     attn_chunk: int = 0              # reference's XLA attention strategy; the
                                      # port's prefill always runs the flash kernel
@@ -88,6 +93,52 @@ class ModelConfig:
 
     def scaled(self, **overrides) -> "ModelConfig":
         return replace(self, **overrides)
+
+    # -- analytics (the reference's, formula for formula) ----------------------
+
+    def param_count(self) -> int:
+        """Approximate parameter count (used for 6ND model-FLOPs)."""
+        d, hd = self.d_model, self.head_dim
+        attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+        if self.family == "moe":
+            ffn = 3 * d * self.d_ff * self.num_experts
+            if self.num_shared_experts:
+                ffn += 3 * d * self.d_ff_shared + d
+        elif self.family in ("xlstm", "zamba2"):
+            ffn = 0  # accounted inside block_params below
+        else:
+            ffn = 3 * d * self.d_ff
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "xlstm":
+            di = self.ssm_expand * d
+            m = 4 * d * di + 2 * di * d  # mLSTM-ish in/out + gates
+            return self.num_layers * m + emb
+        if self.family == "zamba2":
+            di = self.ssm_expand * d
+            mamba = d * (2 * di + 2 * self.ssm_state) + di * d
+            shared = attn + 3 * d * self.d_ff  # ONE shared block
+            return self.num_layers * mamba + shared + emb
+        layers = self.num_layers * (attn + ffn)
+        if self.family == "whisper":
+            layers += self.encoder_layers * (attn + 3 * d * self.d_ff)
+            layers += self.num_layers * attn  # decoder cross-attention
+        if self.family == "mllama":
+            n_cross = self.num_layers // max(self.cross_attn_every, 1)
+            layers = (self.num_layers - n_cross) * (attn + ffn) + n_cross * (attn + ffn)
+        return layers + emb
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        hd = self.head_dim
+        attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+        ffn = 3 * d * self.d_ff * self.top_k
+        if self.num_shared_experts:
+            ffn += 3 * d * self.d_ff_shared + d
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.num_layers * (attn + ffn) + emb
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +192,55 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype, *,
     return (w * std).to(dtype)
 
 
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean CE over (B, S, V) logits, f32 logsumexp; optional z-loss."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    loss = (lse - gold).mean()
+    if z_loss:
+        loss = loss + z_loss * lse.square().mean()
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# remat (the reference's ``_maybe_remat``)
+# ---------------------------------------------------------------------------
+
+_SAVED_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                        torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots``: keep matrix products' outputs, recompute the rest (the
+    reference's ``checkpoint_dots``)."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+
+
+def remat(fn, policy: str, *args):
+    """``fn(*args)`` under the per-layer remat policy:
+
+    * ``none``  — run it, keeping every activation for the backward;
+    * ``block`` — keep only its inputs and recompute it in the backward
+      (``torch.utils.checkpoint``, non-reentrant);
+    * ``dots``  — the same, but matrix products' outputs are kept and not
+      recomputed (a selective checkpoint).
+
+    All three give the same gradients.  Without grad (serving, or a
+    forward under ``no_grad``) it just runs ``fn``."""
+    if policy not in ("none", "block", "dots"):
+        raise ValueError(f"remat policy {policy!r}: expected none, block or dots")
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=_DOTS_CONTEXT)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 # ---------------------------------------------------------------------------
 # stacked parameter trees (the reference's scanned layers)
 # ---------------------------------------------------------------------------
@@ -182,3 +282,27 @@ def _copy_at(out: dict, tree: dict, idx: tuple) -> None:
             _copy_at(out[k], v, idx)
         else:
             out[k][idx].copy_(v)
+
+
+def tree_items(tree, prefix: str = ""):
+    """(path, leaf) pairs of a tree of dicts and lists, dict keys in sorted
+    order as ``jax.tree_util`` flattens them; a path reads like the
+    reference's ``keystr`` (``['params']['layers'][0]['attn']['wq']``)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], f"{prefix}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same leaves of ``rest``),
+    in a tree of the same structure, visited in :func:`tree_items`' order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)

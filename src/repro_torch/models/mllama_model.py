@@ -2,10 +2,11 @@
 cross-attention layer every ``cross_attn_every`` layers (vision frontend
 stubbed).
 
-Counterpart of ``repro/models/mllama_model.py``, serving half: ``prefill``
-takes precomputed patch embeddings (B, vision_tokens, D) beside the
-tokens, as the reference does; ``forward`` and ``loss_fn`` come with
-training (ROADMAP.md, Queue 1 item 7).  Groups of [``cross_attn_every`` -
+Counterpart of ``repro/models/mllama_model.py``: ``forward``, ``loss_fn``
+and ``prefill`` take precomputed patch embeddings (B, vision_tokens, D)
+beside the tokens, as the reference does.  Training runs each self layer
+under the config's remat policy (the reference's ``jax.checkpoint`` of
+its self-layer body); the cross layers run as they are, as there.  Groups of [``cross_attn_every`` -
 1 self-attention layers + 1 gated cross-attention layer]; GQA, SwiGLU,
 RoPE on the text self-attention only; the cross-attention output and its
 MLP are scaled by ``tanh`` of their gates, which initialise to zero as in
@@ -45,13 +46,14 @@ import torch
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 
 from .attention import attention, cross_attention_decode
-from .common import (ModelConfig, dense_init, rope_freqs, stack_draws, stack_shapes,
-                     tree_at)
+from .common import (ModelConfig, cross_entropy, dense_init, remat, rope_freqs, stack_draws,
+                     stack_shapes, tree_at)
 from .mlp import gated_mlp, init_mlp
-from .transformer import _proj, init_attn, layer_body
+from .transformer import _proj, _train_layer, init_attn, layer_body
 from .transformer import param_shapes as transformer_shapes
 
-__all__ = ["init_params", "param_shapes", "prefill", "decode_step", "init_cache", "layout"]
+__all__ = ["init_params", "param_shapes", "forward", "loss_fn", "prefill", "decode_step",
+           "init_cache", "layout"]
 
 
 def layout(cfg: ModelConfig) -> tuple[int, int]:
@@ -165,8 +167,8 @@ def _stack(params: dict, x: torch.Tensor, sin, cos, cfg: ModelConfig, cache: dic
     for g in range(ng):
         for i in range(ns):
             kv = (cache["k"][g, i], cache["v"][g, i], write_pos, lengths) if decode else None
-            x, m, kv_out = layer_body(tree_at(params["self_layers"], g, i), x, m, sin, cos,
-                                      cfg, cache=kv, plain=plain)
+            x, m, kv_out, _ = layer_body(tree_at(params["self_layers"], g, i), x, m, sin,
+                                         cos, cfg, cache=kv, plain=plain)
             if not decode:
                 cache["k"][g, i, :, :s] = kv_out[0]
                 cache["v"][g, i, :, :s] = kv_out[1]
@@ -188,6 +190,35 @@ def _head(params: dict, x: torch.Tensor, m: torch.Tensor, cfg: ModelConfig,
     xn, _ = norm(x, m, params["final_norm"]["scale"], eps=cfg.norm_eps, want_residual=False)
     table = params.get("lm_head", params["tok_embed"])
     return xn @ table.to(xn.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# training: forward + loss
+# ---------------------------------------------------------------------------
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig, *, plain: bool = False):
+    """``batch``: ``tokens`` (B, S) and ``vision`` (B, T, D).  Logits at
+    every position (B, S, V), and 0 (no auxiliary loss)."""
+    ng, ns = layout(cfg)
+    tokens, vision = batch["tokens"], batch["vision"].to(cfg.cdt)
+    x = params["tok_embed"][tokens].to(cfg.cdt)
+    sin, cos = rope_freqs(torch.arange(tokens.shape[1], device=tokens.device), cfg.head_dim,
+                          cfg.rope_theta)
+    m = None
+    for g in range(ng):
+        for i in range(ns):
+            x, m, _ = remat(_train_layer, cfg.remat, tree_at(params["self_layers"], g, i), x,
+                            m, sin, cos, cfg, plain)
+        pc = tree_at(params["cross_layers"], g)
+        ck, cv = _vision_kv(pc, vision)
+        x, m = _cross_block(pc, x, m, ck, cv, cfg, cross_len=None, plain=plain)
+    return _head(params, x, m, cfg, plain), torch.zeros((), device=tokens.device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, plain: bool = False):
+    logits, _ = forward(params, batch, cfg, plain=plain)
+    return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
 
 
 # ---------------------------------------------------------------------------

@@ -128,15 +128,24 @@ def _moe_local(x2d, router, e_gate, e_up, e_down, *, cfg, n_local: int, offset: 
                                           offset=offset, e_valid=e_valid)
     sizes = torch.bincount(se, minlength=n_local + 1).tolist()   # the one host sync
     xs = x2d[st]
-    y = xs.new_zeros(xs.shape)
     act = _act(cfg.mlp_act)
+    # serving writes each expert's rows in place; autograd cannot take an
+    # out= product, so training joins the pieces instead
+    grad = torch.is_grad_enabled()
+    y = None if grad else xs.new_zeros(xs.shape)
+    pieces = []
     start = 0
     for e, n in enumerate(sizes[:n_local]):
         if n:
             xe = xs[start:start + n]
             h = act(xe @ e_gate[e].to(xe.dtype)) * (xe @ e_up[e].to(xe.dtype))
-            torch.matmul(h, e_down[e].to(h.dtype), out=y[start:start + n])
+            if grad:
+                pieces.append(h @ e_down[e].to(h.dtype))
+            else:
+                torch.matmul(h, e_down[e].to(h.dtype), out=y[start:start + n])
         start += n
+    if grad:   # the overflow bucket's rows stay 0
+        y = torch.cat(pieces + [xs.new_zeros((sizes[n_local], d))])
     out = torch.zeros((t, d), dtype=y.dtype, device=y.device)
     out.index_add_(0, st, y * sp[:, None].to(y.dtype))
     return out, (_aux_loss(probs, flat_e, t, cfg.top_k) if aux else None)

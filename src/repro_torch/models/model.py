@@ -2,9 +2,11 @@
 
 Counterpart of ``repro/models/model.py``.  Every family of the reference is
 ported: ``dense``, ``moe``, ``xlstm``, ``zamba2``, ``whisper`` and
-``mllama``.  Whisper's and mLLaMA's prefill take the whole batch, as the
-reference's do: beside ``tokens``, the input named in ``EXTRA_INPUTS``
-(audio frames, vision patch embeddings).  A ``Model`` lives on one device:
+``mllama``.  Whisper's and mLLaMA's ``prefill``, ``forward`` and
+``loss`` take the whole batch, as the reference's do: beside ``tokens``,
+the input named in ``EXTRA_INPUTS`` (audio frames, vision patch
+embeddings).  ``loss`` and ``forward`` run with grad (training); the
+serving calls run under ``no_grad``.  A ``Model`` lives on one device:
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -54,16 +56,40 @@ class Model:
 
     # -- steps ------------------------------------------------------------------
 
-    @torch.no_grad()
-    def prefill(self, params: dict, batch: dict, *, max_seq: int | None = None):
+    def _batch_input(self, batch: dict, what: str):
+        """The family's input: the tokens, or the whole batch where it needs
+        the ``EXTRA_INPUTS`` key too (raises if that is missing)."""
         key = EXTRA_INPUTS.get(self.cfg.family)
         if key is None:
-            return self._m.prefill(params, batch["tokens"], self.cfg, max_seq=max_seq,
-                                   plain=self.plain)
+            return batch["tokens"]
         if key not in batch:
-            raise ValueError(f"{self.cfg.name}: the {self.cfg.family} family's prefill needs "
+            raise ValueError(f"{self.cfg.name}: the {self.cfg.family} family's {what} needs "
                              f"batch[{key!r}] beside 'tokens'; got keys {sorted(batch)}")
-        return self._m.prefill(params, batch, self.cfg, max_seq=max_seq, plain=self.plain)
+        return batch
+
+    def _check_trainable(self) -> None:
+        if self.cfg.family == "xlstm" and self.device.type == "cuda" and not self.plain:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training the xlstm family on the card needs a backward "
+                f"kernel for K5 (the sLSTM scan, csrc/slstm_scan.cu), which the port does not "
+                f"have yet; its output carries no gradient.  Use plain=True or device='cpu'")
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """The training loss (a scalar with grad), as the reference's ``loss``."""
+        self._check_trainable()
+        self._batch_input(batch, "loss")          # raises if the family's input is missing
+        return self._m.loss_fn(params, batch, self.cfg, plain=self.plain)
+
+    def forward(self, params: dict, batch: dict):
+        """(logits at every position (B, S, V), auxiliary loss), with grad."""
+        self._check_trainable()
+        return self._m.forward(params, self._batch_input(batch, "forward"), self.cfg,
+                               plain=self.plain)
+
+    @torch.no_grad()
+    def prefill(self, params: dict, batch: dict, *, max_seq: int | None = None):
+        return self._m.prefill(params, self._batch_input(batch, "prefill"), self.cfg,
+                               max_seq=max_seq, plain=self.plain)
 
     @torch.no_grad()
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):

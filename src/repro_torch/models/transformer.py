@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense and MoE families: init, prefill and decode.
+"""Decoder-only LM, dense and MoE families: init, training forward and
+loss, prefill and decode.
 
 Counterpart of ``repro/models/transformer.py``.  The MoE family differs
 only in its FFN: each layer holds a ``moe`` subtree in place of ``mlp``
@@ -23,6 +24,13 @@ plain versions instead):
   per-head norms of q and k go through the same kernel, norm alone, one
   call each over rows of ``head_dim``: 2L more launches a call.
 
+Training (``forward``, ``loss_fn``) runs the same layers with grad: the
+kernels then go through their ``torch.autograd.Function``s, whose
+backwards are the K1-bwd and K2-bwd kernels, and each layer runs under
+the config's remat policy (``common.remat``; with ``block`` a layer's
+forward kernels run twice a step).  The MoE family adds its load-balance
+loss, summed over layers, as the reference does.
+
 Serving state is updated in place where the reference's jit donates it:
 ``decode_step`` writes the new token's k/v into ``cache`` and bumps
 ``cache["len"]`` in place, and returns the same dict.
@@ -35,11 +43,11 @@ import torch
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 
 from .attention import attention, decode_attention_append
-from .common import ModelConfig, apply_rope, dense_init, rope_freqs
+from .common import ModelConfig, apply_rope, cross_entropy, dense_init, remat, rope_freqs
 from .mlp import gated_mlp, init_mlp, init_moe, moe_ffn
 
-__all__ = ["init_params", "param_shapes", "prefill", "decode_step", "init_cache",
-           "splice_cache"]
+__all__ = ["init_params", "param_shapes", "forward", "loss_fn", "prefill", "decode_step",
+           "init_cache", "splice_cache"]
 
 
 # ---------------------------------------------------------------------------
@@ -160,18 +168,20 @@ def attn_block(p: dict, x: torch.Tensor, sin, cos, cfg: ModelConfig, *, cache=No
 
 
 def layer_body(p: dict, x: torch.Tensor, m: torch.Tensor | None, sin, cos, cfg: ModelConfig,
-               *, cache=None, plain: bool = False):
+               *, cache=None, plain: bool = False, aux: bool = False):
     """One layer on the residual stream ``x`` plus the previous layer's FFN
     output ``m``, not yet added (None before layer 0).  Returns (x, m,
-    kv_out): the stream before this layer's FFN output, and that output
-    (the dense MLP's, or the MoE layer's without its aux loss)."""
+    kv_out, aux_loss): the stream before this layer's FFN output, that
+    output (the dense MLP's or the MoE layer's), and, when ``aux`` asks
+    for it on the MoE family, the layer's load-balance loss (else None)."""
     norm = rmsnorm_ref if plain else fused_rmsnorm
     h1, x = norm(x, m, p["ln1"]["scale"], eps=cfg.norm_eps, gemma=cfg.gemma_norm)
     h, kv_out = attn_block(p["attn"], h1, sin, cos, cfg, cache=cache, plain=plain)
     h2, x = norm(x, h, p["ln2"]["scale"], eps=cfg.norm_eps, gemma=cfg.gemma_norm)
     if cfg.family == "moe":
-        return x, moe_ffn(p["moe"], h2, cfg=cfg)[0], kv_out
-    return x, gated_mlp(p["mlp"], h2, act=cfg.mlp_act), kv_out
+        out, loss = moe_ffn(p["moe"], h2, cfg=cfg, aux=aux)
+        return x, out, kv_out, loss
+    return x, gated_mlp(p["mlp"], h2, act=cfg.mlp_act), kv_out, None
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +207,45 @@ def _final_norm(params: dict, x: torch.Tensor, m: torch.Tensor, cfg: ModelConfig
     norm = rmsnorm_ref if plain else fused_rmsnorm
     return norm(x, m, params["final_norm"]["scale"], eps=cfg.norm_eps, gemma=cfg.gemma_norm,
                 want_residual=False)[0]
+
+
+# ---------------------------------------------------------------------------
+# training: forward + loss
+# ---------------------------------------------------------------------------
+
+
+def _train_layer(p: dict, x: torch.Tensor, m: torch.Tensor | None, sin, cos,
+                 cfg: ModelConfig, plain: bool):
+    """One layer for training, the unit of remat: (x, m, aux loss or None)."""
+    x, m, _, aux = layer_body(p, x, m, sin, cos, cfg, plain=plain, aux=cfg.family == "moe")
+    return x, m, aux
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, plain: bool = False):
+    """Logits at every position (B, S, V) and the MoE load-balance loss
+    summed over layers (0 on the dense family)."""
+    s = tokens.shape[1]
+    x = _embed(params, tokens, cfg)
+    sin, cos = rope_freqs(torch.arange(s, device=tokens.device), cfg.head_dim,
+                          cfg.rope_theta)
+    m = None
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for p in params["layers"]:
+        x, m, a = remat(_train_layer, cfg.remat, p, x, m, sin, cos, cfg, plain)
+        if a is not None:
+            aux = aux + a
+    return _unembed(params, _final_norm(params, x, m, cfg, plain), cfg), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, plain: bool = False):
+    """Next-token CE over the batch's tokens (plus, on the MoE family,
+    ``router_aux_weight * aux / num_layers``)."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, tokens, cfg, plain=plain)
+    loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    if cfg.family == "moe":
+        loss = loss + cfg.router_aux_weight * aux / cfg.num_layers
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +283,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     cache = init_cache(cfg, b, max_seq, device=tokens.device)
     m = None
     for i, p in enumerate(params["layers"]):
-        x, m, (k, v) = layer_body(p, x, m, sin, cos, cfg, plain=plain)
+        x, m, (k, v), _ = layer_body(p, x, m, sin, cos, cfg, plain=plain)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     cache["len"].fill_(s)
@@ -256,7 +305,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfi
     lengths = pos + 1
     m = None
     for i, p in enumerate(params["layers"]):
-        x, m, _ = layer_body(p, x, m, sin, cos, cfg, plain=plain,
+        x, m, _, _ = layer_body(p, x, m, sin, cos, cfg, plain=plain,
                              cache=(cache["k"][i], cache["v"][i], write_pos, lengths))
     cache["len"].add_(1)
     logits = _unembed(params, _final_norm(params, x, m, cfg, plain), cfg)

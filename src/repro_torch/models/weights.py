@@ -14,7 +14,7 @@ import torch
 from . import mllama_model, transformer, whisper_model, xlstm_model, zamba2_model
 from .common import ModelConfig
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "state_from_numpy"]
 
 
 def _tensor(a, device: torch.device | str) -> torch.Tensor:
@@ -75,4 +75,16 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device: torch.device | str) 
                         for i in range(cfg.num_layers)]
         else:
             out[key] = _map(tree[key], sub, f"/{key}", device, None)
+    return out
+
+
+def state_from_numpy(state: dict, cfg: ModelConfig, device: torch.device | str) -> dict:
+    """The reference's AdamW state (``params``, ``master``, ``m``, ``v``,
+    ``step``; numpy leaves) as the port's: each tree mapped by
+    :func:`params_from_numpy` (the master and moments keep their f32), the
+    step an int32 scalar.  A gradient tree maps the same way, through
+    ``params_from_numpy``."""
+    out = {k: params_from_numpy(state[k], cfg, device) for k in ("params", "master", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                               device=device)
     return out

@@ -1,9 +1,10 @@
 """Whisper-style encoder-decoder backbone (audio frontend stubbed).
 
-Counterpart of ``repro/models/whisper_model.py``, serving half: ``prefill``
-takes precomputed frame embeddings (B, encoder_positions, D) beside the
-tokens, as the reference does; ``forward`` and ``loss_fn`` come with
-training (ROADMAP.md, Queue 1 item 7).  Pre-LayerNorm blocks, GELU MLPs
+Counterpart of ``repro/models/whisper_model.py``: ``forward``, ``loss_fn``
+and ``prefill`` take precomputed frame embeddings (B, encoder_positions,
+D) beside the tokens, as the reference does.  Training runs each encoder
+and decoder layer under the config's remat policy, where the reference
+wraps each in ``jax.checkpoint``.  Pre-LayerNorm blocks, GELU MLPs
 (tanh approximation), learned positional embeddings, no bias on q/k/v/o,
 a decoder with causal self-attention and cross-attention to the encoder
 output, tied unembedding.
@@ -32,10 +33,12 @@ import torch
 import torch.nn.functional as F
 
 from .attention import attention, cross_attention_decode, decode_attention_append
-from .common import ModelConfig, dense_init, layer_norm, stack_draws, stack_shapes, tree_at
+from .common import (ModelConfig, cross_entropy, dense_init, layer_norm, remat, stack_draws,
+                     stack_shapes, tree_at)
 from .transformer import _proj
 
-__all__ = ["init_params", "param_shapes", "encode", "prefill", "decode_step", "init_cache"]
+__all__ = ["init_params", "param_shapes", "encode", "forward", "loss_fn", "prefill",
+           "decode_step", "init_cache"]
 
 
 # ---------------------------------------------------------------------------
@@ -127,17 +130,21 @@ def _out(a: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return a.reshape(b, s, h * hd) @ wo.reshape(h * hd, -1).to(a.dtype)
 
 
+def _enc_layer(p: dict, x: torch.Tensor, plain: bool) -> torch.Tensor:
+    h = _ln(x, p["ln1"])
+    q, k, v = (_proj(h, p["attn"][w]) for w in ("wq", "wk", "wv"))
+    x = x + _out(attention(q, k, v, causal=False, plain=plain), p["attn"]["wo"])
+    return x + _mlp(p["mlp"], _ln(x, p["ln2"]))
+
+
 def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
            plain: bool = False) -> torch.Tensor:
-    """frames: (B, P, D) stub embeddings -> the encoder's output (B, P, D)."""
+    """frames: (B, P, D) stub embeddings -> the encoder's output (B, P, D).
+    With grad, each layer runs under the config's remat policy."""
     enc = params["encoder"]
     x = frames.to(cfg.cdt) + enc["pos_embed"][: frames.shape[1]].to(cfg.cdt)
     for i in range(cfg.encoder_layers):
-        p = tree_at(enc["layers"], i)
-        h = _ln(x, p["ln1"])
-        q, k, v = (_proj(h, p["attn"][w]) for w in ("wq", "wk", "wv"))
-        x = x + _out(attention(q, k, v, causal=False, plain=plain), p["attn"]["wo"])
-        x = x + _mlp(p["mlp"], _ln(x, p["ln2"]))
+        x = remat(_enc_layer, cfg.remat, tree_at(enc["layers"], i), x, plain)
     return _ln(x, enc["final_ln"])
 
 
@@ -185,6 +192,41 @@ def _dec_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict, *,
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
     dec = params["decoder"]
     return _ln(x, dec["final_ln"]) @ dec["tok_embed"].to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# training: forward + loss
+# ---------------------------------------------------------------------------
+
+
+def _dec_layer(p: dict, x: torch.Tensor, enc_out: torch.Tensor, plain: bool) -> torch.Tensor:
+    """One decoder layer for training, the unit of remat: causal
+    self-attention, cross-attention to ``enc_out``, the MLP."""
+    sa, ca = p["self_attn"], p["cross_attn"]
+    h = _ln(x, p["ln1"])
+    q, k, v = (_proj(h, sa[w]) for w in ("wq", "wk", "wv"))
+    x = x + _out(attention(q, k, v, causal=True, plain=plain), sa["wo"])
+    qx = _proj(_ln(x, p["ln2"]), ca["wq"])
+    ck, cv = _proj(enc_out, ca["wk"]), _proj(enc_out, ca["wv"])
+    x = x + _out(attention(qx, ck, cv, causal=False, plain=plain), ca["wo"])
+    return x + _mlp(p["mlp"], _ln(x, p["ln3"]))
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig, *, plain: bool = False):
+    """``batch``: ``tokens`` (B, S) and ``frames`` (B, P, D).  Logits at
+    every position (B, S, V), and 0 (no auxiliary loss)."""
+    tokens = batch["tokens"]
+    enc_out = encode(params, batch["frames"], cfg, plain=plain)
+    dec = params["decoder"]
+    x = dec["tok_embed"][tokens].to(cfg.cdt) + dec["pos_embed"][: tokens.shape[1]].to(cfg.cdt)
+    for i in range(cfg.num_layers):
+        x = remat(_dec_layer, cfg.remat, tree_at(dec["layers"], i), x, enc_out, plain)
+    return _head(params, x), torch.zeros((), device=tokens.device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, plain: bool = False):
+    logits, _ = forward(params, batch, cfg, plain=plain)
+    return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,14 @@ carry leading ``(n_groups, mlstm_per_group)`` axes, sLSTM leaves a leading
 ``(n_groups,)`` axis, and the cache's mLSTM state leaves are
 ``(ng, nm, B, ...)``, its sLSTM leaves ``(ng, B, D)``, and ``len (B,)``.
 Python loops over groups and blocks replace the nested ``lax.scan``, each
-block reading its parameters as views of the stacked leaves; the
-reference's ``jax.checkpoint`` (training only) and ``constrain`` calls
-have no counterpart here.
+block reading its parameters as views of the stacked leaves; training
+(``forward``, ``loss_fn``) runs each mLSTM block under the config's remat
+policy, where the reference wraps it in ``jax.checkpoint``.  The
+reference's ``constrain`` calls have no counterpart here.
+
+Training goes through the plain sLSTM scan only: K5 has no backward
+kernel yet, so ``Model`` refuses the family's ``forward`` and ``loss`` on
+the card unless ``plain=True``; on the CPU the plain versions train.
 
 Two places go through the Hopper kernels (``plain=True`` takes their plain
 versions instead):
@@ -35,7 +40,7 @@ import torch
 
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 
-from .common import ModelConfig, dense_init, stack_draws, tree_at
+from .common import ModelConfig, cross_entropy, dense_init, remat, stack_draws, tree_at
 from .mlp import gated_mlp
 from .xlstm import (
     init_mlstm,
@@ -50,8 +55,8 @@ from .xlstm import (
     slstm_shapes,
 )
 
-__all__ = ["init_params", "param_shapes", "prefill", "prefill_sequential", "decode_step",
-           "init_cache", "splice_cache"]
+__all__ = ["init_params", "param_shapes", "forward", "loss_fn", "prefill",
+           "prefill_sequential", "decode_step", "init_cache", "splice_cache"]
 
 
 def _layout(cfg: ModelConfig) -> tuple[int, int]:
@@ -185,6 +190,45 @@ def _head(params: dict, x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig,
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return params["tok_embed"][tokens].to(cfg.cdt)
+
+
+# -- training -------------------------------------------------------------------
+
+
+def _mlstm_layer(p: dict, ln: torch.Tensor, x: torch.Tensor, h: torch.Tensor | None,
+                 cfg: ModelConfig, plain: bool):
+    """One mLSTM block on ``x`` plus the previous block's output ``h``, the
+    unit of remat: (x, this block's output, not yet added)."""
+    norm = rmsnorm_ref if plain else fused_rmsnorm
+    xn, x = norm(x, h, ln, eps=cfg.norm_eps)
+    return x, mlstm_block(p, xn, cfg, plain=plain)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, plain: bool = False):
+    """Logits at every position (B, S, V), and 0 (no auxiliary loss)."""
+    ng, nm = _layout(cfg)
+    eps = cfg.norm_eps
+    norm = rmsnorm_ref if plain else fused_rmsnorm
+    x = _embed(params, tokens, cfg)
+    h = None
+    for g in range(ng):
+        for i in range(nm):
+            x, h = remat(_mlstm_layer, cfg.remat, tree_at(params["mlstm"], g, i),
+                         params["ln_m"]["scale"][g, i], x, h, cfg, plain)
+        if cfg.slstm_every <= 0:
+            continue
+        ps = tree_at(params["slstm"], g)
+        xn, x = norm(x, h, params["ln_s"]["scale"][g], eps=eps)
+        h = slstm_block(ps, xn, cfg, plain=plain)
+        h2, x = norm(x, h, params["ln_s2"]["scale"][g], eps=eps)
+        h = gated_mlp(ps["mlp"], h2, act="geglu")
+    return _head(params, x, h, cfg, plain), torch.zeros((), device=tokens.device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, plain: bool = False):
+    tokens = batch["tokens"]
+    logits, _ = forward(params, tokens, cfg, plain=plain)
+    return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
 # -- recurrent serving --------------------------------------------------------

@@ -9,8 +9,10 @@ reference's layout, stacked leaves and all: the Mamba leaves carry leading
 ``(ng, per, B, ...)``, the shared block's K/V per invocation ``(ng, B,
 Smax, KV, hd)`` and ``len (B,)``.  Python loops over groups and blocks
 replace the nested ``lax.scan``, each block reading its parameters as
-views of the stacked leaves; the reference's ``jax.checkpoint`` (training
-only) and ``constrain`` calls have no counterpart here.
+views of the stacked leaves; training (``forward``, ``loss_fn``) runs each
+Mamba2 block under the config's remat policy, where the reference wraps
+it in ``jax.checkpoint``.  The reference's ``constrain`` calls have no
+counterpart here.
 
 Three places go through the Hopper kernels (``plain=True`` takes their
 plain versions instead):
@@ -41,14 +43,15 @@ import torch
 
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 
-from .common import ModelConfig, dense_init, rope_freqs, stack_draws, tree_at
+from .common import (ModelConfig, cross_entropy, dense_init, remat, rope_freqs, stack_draws,
+                     tree_at)
 from .mamba2 import init_mamba, init_mamba_state, mamba_block, mamba_decode, mamba_shapes
 from .mlp import gated_mlp, init_mlp
 from .transformer import attn_block, init_attn
 from .transformer import param_shapes as transformer_shapes
 
-__all__ = ["init_params", "param_shapes", "prefill", "prefill_sequential", "decode_step",
-           "init_cache", "splice_cache", "layout"]
+__all__ = ["init_params", "param_shapes", "forward", "loss_fn", "prefill",
+           "prefill_sequential", "decode_step", "init_cache", "splice_cache", "layout"]
 
 
 def layout(cfg: ModelConfig) -> tuple[int, int]:
@@ -160,6 +163,46 @@ def _head(params: dict, x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig,
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return params["tok_embed"][tokens].to(cfg.cdt)
+
+
+# -- training -------------------------------------------------------------------
+
+
+def _mamba_layer(p: dict, ln: torch.Tensor, x: torch.Tensor, h: torch.Tensor | None,
+                 cfg: ModelConfig, plain: bool):
+    """One Mamba2 block on ``x`` plus the previous sublayer's output ``h``,
+    the unit of remat: (x, this block's output, not yet added)."""
+    norm = rmsnorm_ref if plain else fused_rmsnorm
+    xn, x = norm(x, h, ln, eps=cfg.norm_eps)
+    return x, mamba_block(p, xn, cfg, plain=plain)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, plain: bool = False):
+    """Logits at every position (B, S, V), and 0 (no auxiliary loss)."""
+    ng, per = layout(cfg)
+    eps = cfg.norm_eps
+    norm = rmsnorm_ref if plain else fused_rmsnorm
+    shared = params["shared"]
+    s = tokens.shape[1]
+    x = _embed(params, tokens, cfg)
+    sin, cos = rope_freqs(torch.arange(s, device=tokens.device), cfg.head_dim,
+                          cfg.rope_theta)
+    h = None
+    for g in range(ng):
+        for j in range(per):
+            x, h = remat(_mamba_layer, cfg.remat, tree_at(params["mamba"], g, j),
+                         params["ln_m"]["scale"][g, j], x, h, cfg, plain)
+        xn, x = norm(x, h, shared["ln1"]["scale"], eps=eps)
+        a, _ = attn_block(shared["attn"], xn, sin, cos, cfg, plain=plain)
+        xn, x = norm(x, a, shared["ln2"]["scale"], eps=eps)
+        h = gated_mlp(shared["mlp"], xn, act=cfg.mlp_act)
+    return _head(params, x, h, cfg, plain), torch.zeros((), device=tokens.device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, plain: bool = False):
+    tokens = batch["tokens"]
+    logits, _ = forward(params, tokens, cfg, plain=plain)
+    return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
 # -- serving -------------------------------------------------------------------

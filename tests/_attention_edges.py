@@ -85,3 +85,12 @@ CROSS_FLASH = [(4, 12, 12, 1500, 1500, 64), (4, 12, 12, 100, 1500, 64),
 # decode's cross-attention, one query a request over the whole K/V, as (B,
 # H, KV, Sk, hd): 3 splits of 512 (whisper) and 5 of 832 (mLLaMA) on 132 SMs
 CROSS_DECODE = [(4, 12, 12, 1500, 64), (4, 64, 8, 4096, 128)]
+# K2-bwd at the training paths' shapes, as (B, H, KV, Sq, Sk, hd, causal):
+# qwen2-1.5b at B 8 x S 1024 (12 heads over 2 at hd 128); the 100m
+# reductions at B 4 x S 256 (hd 64): qwen2's 8 heads over 2, and 8 over 8
+# for the MoE, zamba2's shared block, whisper's decoder and mLLaMA's self
+# layers; whisper's encoder over its 128 frames and its decoder's cross
+# attention to them; mLLaMA's cross layers over 64 vision tokens.
+TRAIN_FLASH = [(8, 12, 2, 1024, 1024, 128, True), (4, 8, 2, 256, 256, 64, True),
+               (4, 8, 8, 256, 256, 64, True), (4, 8, 8, 128, 128, 64, False),
+               (4, 8, 8, 256, 128, 64, False), (4, 8, 8, 256, 64, 64, False)]

@@ -12,16 +12,18 @@ import pytest
 import torch
 from _attention_edges import (CROSS_DECODE, CROSS_FLASH, DECODE_GROUPS, DECODE_SHAPES,
                               DECODE_SHAPES_GEMMA, DECODE_SHAPES_MOE, DECODE_SHAPES_ZAMBA2,
-                              GEMMA_G, GEMMA_KV, MOE_G, MOE_HD, ZAMBA_G, ZAMBA_HD,
+                              GEMMA_G, GEMMA_KV, MOE_G, MOE_HD, TRAIN_FLASH, ZAMBA_G, ZAMBA_HD,
                               decode_edge_lens, flash_edge_cases, flash_edge_cases_gemma,
                               flash_edge_cases_moe, flash_edge_cases_zamba2)
 
 from repro_torch.configs import model_100m
 from repro_torch.kernels.decode_attention.ops import (decode_attention, decode_attention_ref,
                                                       decode_row_groups, decode_split_plan)
-from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_ref, flash_attention_ref)
 from repro_torch.kernels.ragged_concat.ops import ragged_concat, ragged_concat_ref
-from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ops import (fused_rmsnorm, rmsnorm_bwd, rmsnorm_bwd_ref,
+                                             rmsnorm_ref)
 from repro_torch.kernels.slstm_scan.ops import (cluster_plan, slstm_scan, slstm_scan_plan,
                                                 slstm_scan_ref)
 from repro_torch.models import Model
@@ -725,3 +727,154 @@ def test_zamba2_kernel_path_matches_plain_path(dev, variants):
     assert decode_attention.launches - n0[decode_attention] == 4 * ng
     # ln_m and the inner norm of every block, ln1 and ln2 of every group, the final norm
     assert fused_rmsnorm.launches - n0[fused_rmsnorm] == 5 * (2 * cfg.num_layers + 2 * ng + 1)
+
+
+# -- training: the backward kernels and the loss's gradients -------------------------
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("d", [48, 52, 128, 256, 512, 1536, 2048, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 37, 384, 3000])
+@pytest.mark.parametrize("residual,gemma,want", [
+    (True, False, True), (True, True, True), (True, False, False), (False, False, False),
+    (False, True, True)], ids=["add", "add-gemma", "add-no-out", "norm", "norm-gemma"])
+def test_rmsnorm_bwd_kernel_matches_plain(dev, residual, gemma, want, rows, d, dt):
+    """K1-bwd against ``rmsnorm_bwd_ref`` in every mode the forward takes,
+    up to D = 8192 (one warp a row up to 256, a block a row above): dx at
+    the dtype's tolerance; dscale, a sum over up to 3000 rows, at 10x the
+    f32 one; and a second call bit for bit the same (no atomics)."""
+    x = _randn(dev, rows, d, dt=dt, seed=1)
+    r = _randn(dev, rows, d, dt=dt, seed=2) if residual else None
+    scale = _randn(dev, d, dt=torch.float32, seed=3)
+    dy = _randn(dev, rows, d, dt=dt, seed=4)
+    dh = _randn(dev, rows, d, dt=dt, seed=5) if residual and want else None
+    dx, ds = rmsnorm_bwd(x, r, scale, dy, dh, gemma=gemma)
+    rx, rs = rmsnorm_bwd_ref(x, r, scale, dy, dh, gemma=gemma)
+    torch.testing.assert_close(dx.float(), rx.float(), atol=_tol(dt), rtol=_tol(dt))
+    tol = 10 * _tol(torch.float32) if dt == torch.float32 else _tol(dt)
+    torch.testing.assert_close(ds, rs, atol=tol, rtol=tol)
+    dx2, ds2 = rmsnorm_bwd(x, r, scale, dy, dh, gemma=gemma)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_rmsnorm_bwd_kernel_strided_rows(dev, dt):
+    """The forward's strided rows (prefill's last position of (B, S, D))
+    through the autograd Function: the gradient lands in the strided
+    input's rows and nowhere else."""
+    base = _randn(dev, 4, 40, 1536, dt=dt, seed=6).requires_grad_()
+    res = _randn(dev, 4, 40, 1536, dt=dt, seed=7).requires_grad_()
+    scale = _randn(dev, 1536, dt=torch.float32, seed=8).requires_grad_()
+    w = _randn(dev, 4, 1, 1536, dt=dt, seed=9)
+    y, h = fused_rmsnorm(base[:, -1:], res[:, -1:], scale)
+    got = torch.autograd.grad((y.float() * w.float()).sum() + h.float().sum(), [base, res, scale])
+    y, h = rmsnorm_ref(base[:, -1:], res[:, -1:], scale)
+    want = torch.autograd.grad((y.float() * w.float()).sum() + h.float().sum(),
+                               [base, res, scale])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=10 * _tol(dt), rtol=10 * _tol(dt))
+    assert got[0][:, :-1].abs().max() == 0
+
+
+def _flash_bwd_case(dev, b, h, kv, sq, sk, hd, causal, dt, seed):
+    q = _randn(dev, b, sq, h, hd, dt=dt, seed=seed).transpose(1, 2).requires_grad_()
+    k = _randn(dev, b, sk, kv, hd, dt=dt, seed=seed + 1).transpose(1, 2).requires_grad_()
+    v = _randn(dev, b, sk, kv, hd, dt=dt, seed=seed + 2).transpose(1, 2).requires_grad_()
+    o = flash_attention(q, k, v, causal=causal)
+    do = _randn(dev, b, h, sq, hd, dt=dt, seed=seed + 3)
+    got = torch.autograd.grad(o, [q, k, v], do)
+    want = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(), do,
+                                   causal=causal)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), w.float(), atol=_tol(dt), rtol=_tol(dt),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_kernel_tile_edges(dev, hd, causal, dt):
+    """K2-bwd through the autograd Function (the forward storing each row's
+    logsumexp) against ``flash_attention_bwd_ref``: Sq and Sk over the
+    tiles' edges, equal and unequal both ways, G 1-8 (16 at hd 128)."""
+    cases = flash_edge_cases() + ([(100, 77, 16, 1, 4)] if hd == 128 else [])
+    for i, (sq, sk, g, b, kv) in enumerate(cases):
+        _flash_bwd_case(dev, b, g * kv, kv, sq, sk, hd, causal, dt, seed=10 + i)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd", CROSS_FLASH)
+def test_flash_attention_bwd_kernel_cross_shapes(dev, b, h, kv, sq, sk, hd, dt):
+    """K2-bwd non-causal with Sq != Sk at the cross-attention families'
+    shapes (whisper's 1500 frames, mLLaMA's 4096 vision tokens)."""
+    _flash_bwd_case(dev, b, h, kv, sq, sk, hd, False, dt, seed=30)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal", TRAIN_FLASH)
+def test_flash_attention_bwd_kernel_training_shapes(dev, b, h, kv, sq, sk, hd, causal, dt):
+    """K2-bwd at the training paths' shapes: qwen2-1.5b at B 8 x S 1024 and
+    the 100m reductions' self, encoder and cross attention at hd 64."""
+    _flash_bwd_case(dev, b, h, kv, sq, sk, hd, causal, dt, seed=50)
+
+
+def test_flash_attention_lse_leaves_the_output_unchanged(dev):
+    """The forward's logsumexp output is extra: with it or without, the
+    same output bit for bit, and the logsumexp of the scaled scores."""
+    from repro_torch.kernels.flash_attention.ops import _launch_fwd
+
+    for dt in DTYPES:
+        for hd in (64, 80, 128, 256):
+            q = _randn(dev, 2, 70, 8, hd, dt=dt, seed=40).transpose(1, 2)
+            k, v = (_randn(dev, 2, 70, 2, hd, dt=dt, seed=s).transpose(1, 2) for s in (41, 42))
+            lse = torch.empty((2, 8, 70), device=dev)
+            assert torch.equal(_launch_fwd(q, k, v, True, None, lse),
+                               _launch_fwd(q, k, v, True, None, None))
+            s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                             k.float().repeat_interleave(4, 1)) * hd ** -0.5
+            s = s.masked_fill(torch.ones(70, 70, dtype=torch.bool, device=dev).triu(1),
+                              float("-inf"))
+            torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen2-moe-a2.7b", "zamba2-2.7b",
+                                  "whisper-small", "llama-3.2-vision-90b"])
+def test_loss_grads_kernel_path_match_plain_path(dev, arch, monkeypatch):
+    """f32, the 100m reductions cut to few layers (hd 64, zamba2 one group
+    of 6 at hd 64): ``Model.loss`` and every gradient leaf through the
+    forward and backward kernels against ``plain=True``, each leaf within
+    1e-4 of its largest magnitude, under the config's remat (``block``);
+    the MoE routes must agree between the paths.  xLSTM is refused on the
+    card (K5 has no backward kernel)."""
+    from _grad_parity import port_loss_and_grads
+
+    cfg = model_100m(arch)
+    cfg = cfg.scaled(num_layers={"zamba2": 6, "mllama": 4}.get(cfg.family, 2))
+    fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
+    params = fast.init(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 96), device=dev, generator=gen)}
+    if cfg.family == "whisper":
+        batch["frames"] = torch.randn(2, cfg.encoder_positions, cfg.d_model, device=dev,
+                                      generator=gen)
+    if cfg.family == "mllama":
+        params["cross_layers"]["gate_attn"].fill_(0.7)
+        params["cross_layers"]["gate_mlp"].fill_(-0.5)
+        batch["vision"] = torch.randn(2, cfg.vision_tokens, cfg.d_model, device=dev,
+                                      generator=gen)
+    routes = _record_routes(monkeypatch)
+    n0 = {w: w.launches for w in (fused_rmsnorm, rmsnorm_bwd, flash_attention,
+                                  flash_attention_bwd)}
+    lk, gk = port_loss_and_grads(fast, params, batch)
+    fast_routes = routes[:]
+    routes.clear()
+    lp, gp = port_loss_and_grads(plain, params, batch)
+    if cfg.family == "moe":
+        assert _routes_agree(fast_routes, routes[:], cfg.top_k)
+    torch.testing.assert_close(lk, lp, atol=1e-5, rtol=1e-5)
+    for path, g in gp.items():
+        err = (gk[path] - g).abs().max() / g.abs().max().clamp(min=1e-30)
+        assert err <= 1e-4, (path, float(err))
+    # whisper norms with LayerNorm (plain torch): no K1 on its path
+    k1 = (fused_rmsnorm, rmsnorm_bwd)
+    assert all(w.launches > n0[w] for w in n0 if cfg.family != "whisper" or w not in k1)

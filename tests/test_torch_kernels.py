@@ -256,12 +256,15 @@ def test_wrappers_reject_bad_inputs():
 
 def test_kernel_build_layout():
     """Each CUDA source builds into its own library under the ignored
-    ``build/`` directory, named by a hash of the source and flags."""
-    assert _build.sources() == ["decode_attention", "flash_attention", "ragged_concat",
-                                "rmsnorm", "slstm_scan"]
+    ``build/`` directory, named by a hash of the source and flags; each
+    names the Pallas TPU kernel it replaces (a backward, which no TPU
+    kernel has, the kernel it differentiates) and what bounds it."""
+    assert _build.sources() == ["decode_attention", "flash_attention", "flash_attention_bwd",
+                                "ragged_concat", "rmsnorm", "slstm_scan"]
     for name in _build.sources():
         src = (_build.CSRC / f"{name}.cu").read_text()
-        assert "Replaces the Pallas TPU kernel" in src and "What bounds it" in src
+        note = "Backward of" if name.endswith("_bwd") else "Replaces the Pallas TPU kernel"
+        assert note in src and "What bounds it" in src
         assert '#include "common.cuh"' in src
         lib = _build._target(name)
         assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"

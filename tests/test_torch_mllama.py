@@ -368,3 +368,16 @@ def test_server_and_launchers_refuse_mllama():
     for main in (serve.main, fleet.main):
         with pytest.raises(SystemExit):
             main(["--arch", ARCH, "--size", "smoke", "--device", "cpu"])
+
+
+def test_loss_and_grads_match_jax(pair):
+    """``Model.loss`` on tokens and vision input, and every gradient leaf
+    (self layers, the gated cross layers with their gates set non-zero from
+    the seed, so every cross leaf gets a gradient) against
+    ``jax.value_and_grad`` of the reference's loss, f32, at 3e-5."""
+    from _grad_parity import assert_grads_match_jax
+
+    jcfg, jparams, cfg, params = pair
+    jb, tb = _batches(cfg, 2, 11, seed=8)
+    assert_grads_match_jax(lambda p: jmm.loss_fn(p, jb, jcfg), jparams,
+                           Model(cfg, device="cpu"), params, tb)

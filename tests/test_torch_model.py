@@ -526,3 +526,129 @@ def test_port_modules_load_no_jax_in_a_fresh_process():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
     assert int(n) > 20 and bad.strip() == "[]", out.stdout
+
+
+# -- training -----------------------------------------------------------------------
+
+# (case, remat): the dense and MoE smoke configs, the dense variants (qk_norm,
+# Gemma's norm, geglu, untied head) and the MoE archs' capacity path (qwen2-moe
+# at 256 tokens: 8 experts see 64 rows each)
+TRAIN_CASES = ["qwen2-1.5b-smoke", "dense-variants-100m-2L", "qwen2-moe-a2.7b-smoke",
+               "qwen3-moe-235b-a22b-smoke", "qwen2-moe-a2.7b-100m-2L"]
+
+
+def _train_pair(case: str):
+    jcfg, cfg = CASES[case][0](), CASES[case][1]()
+    jm = JaxModel(jcfg)
+    tree = _perturb_norms(jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))),
+                          np.random.default_rng(3))
+    return jm, jax.tree.map(jnp.asarray, tree), cfg, params_from_numpy(tree, cfg, "cpu")
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_loss_and_grads_match_jax(case):
+    """``Model.loss`` and every gradient leaf against
+    ``jax.value_and_grad(model.loss)`` on the same bridged weights and
+    tokens, f32, at 3e-5; the MoE archs' loss includes the load-balance
+    term (``router_aux_weight * aux / num_layers``)."""
+    from _grad_parity import assert_grads_match_jax
+
+    jm, jparams, cfg, params = _train_pair(case)
+    s = PROMPT.get(case, 12)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (2 if s < 100 else 1, s))
+    jb = {"tokens": jnp.asarray(toks, jnp.int32)}
+    # every leaf of the port's tree (the reference's stacked layers unstacked)
+    assert_grads_match_jax(lambda p: jm.loss(p, jb), jparams, Model(cfg, device="cpu"), params,
+                           {"tokens": torch.as_tensor(toks)})
+
+
+def test_moe_loss_includes_the_aux_term():
+    """The MoE loss is the CE plus ``router_aux_weight * aux / L``: zeroing
+    the weight changes it by exactly that term."""
+    from repro_torch.models import transformer
+
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    m = Model(cfg, device="cpu")
+    params = m.init(0)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12)))
+    with torch.no_grad():
+        logits, aux = transformer.forward(params, toks, cfg)
+        ce = transformer.cross_entropy(logits[:, :-1], toks[:, 1:])
+        loss = m.loss(params, {"tokens": toks})
+    assert float(aux) > 0
+    torch.testing.assert_close(loss, ce + cfg.router_aux_weight * aux / cfg.num_layers)
+
+
+def _grads(cfg, params, toks):
+    from _grad_parity import port_loss_and_grads
+
+    return port_loss_and_grads(Model(cfg, device="cpu"), params, {"tokens": toks})
+
+
+@pytest.mark.parametrize("case", ["qwen2-1.5b-smoke", "qwen2-moe-a2.7b-smoke"])
+def test_remat_policies_give_the_same_grads(case):
+    """``block``, ``dots`` and ``none`` differ only in what the backward
+    recomputes: the same loss and gradients, bit for bit on the CPU."""
+    cfg = CASES[case][1]()
+    params = Model(cfg, device="cpu").init(0)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 12)))
+    base_loss, base = _grads(cfg.scaled(remat="none"), params, toks)
+    for policy in ("block", "dots"):
+        loss, got = _grads(cfg.scaled(remat=policy), params, toks)
+        assert torch.equal(loss, base_loss), policy
+        for path, g in got.items():
+            assert torch.equal(g, base[path]), (policy, path)
+
+
+@pytest.mark.parametrize("policy", ["none", "block", "dots"])
+def test_training_goes_through_the_kernel_functions(policy, monkeypatch):
+    """The training path with the kernels' autograd ``Function``s in place
+    of their plain versions, on CPU tensors (their forward launches
+    replaced by the plain versions, their backwards taking the plain
+    backwards by themselves): the same gradients, and the count of
+    forward and backward calls each remat policy implies for the card's
+    launches: K1 2L + 1 forward calls and K2 L, plus the layers' 2L and L
+    again when the layers are recomputed (``block``, ``dots``); K1-bwd
+    2L + 1 and K2-bwd L."""
+    from _grad_parity import plain_kernel_forwards
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import transformer
+
+    plain_kernel_forwards(monkeypatch)
+    cfg = get_smoke_config("qwen2-1.5b").scaled(remat=policy)
+    params = Model(cfg, device="cpu").init(0)
+    toks = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12)))
+    _, want = _grads(cfg, params, toks)
+    n = {"k1": 0, "k2": 0, "k1_bwd": 0, "k2_bwd": 0}
+
+    def norm(x, residual, scale, *, eps=1e-6, gemma=False, want_residual=True):
+        n["k1"] += 1
+        out = rops._RMSNormFn.apply(x, residual, scale, eps, gemma, want_residual)
+        if residual is not None and want_residual:
+            return out
+        return out, x if want_residual else None
+
+    def flash(q, k, v, *, causal=True, scale=None):
+        n["k2"] += 1
+        return fops._FlashFn.apply(q, k, v, causal, scale)
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            n[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(transformer, "fused_rmsnorm", norm)
+    monkeypatch.setattr(tattn, "flash_attention", flash)
+    monkeypatch.setattr(rops, "rmsnorm_bwd", counting("k1_bwd", rops.rmsnorm_bwd))
+    monkeypatch.setattr(fops, "flash_attention_bwd", counting("k2_bwd", fops.flash_attention_bwd))
+    _, got = _grads(cfg, params, toks)
+    for path, g in got.items():
+        torch.testing.assert_close(g, want[path], atol=TOL, rtol=TOL)
+    L = cfg.num_layers
+    again = policy != "none"
+    assert n == {"k1": 2 * L + 1 + 2 * L * again, "k2": L + L * again,
+                 "k1_bwd": 2 * L + 1, "k2_bwd": L}

@@ -359,3 +359,16 @@ def test_whisper_model_without_device_does_not_fall_back_to_cpu():
         pytest.skip("a CUDA device exists here, so the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(get_smoke_config(ARCH))
+
+
+def test_loss_and_grads_match_jax(pair):
+    """``Model.loss`` on tokens and frames, and every gradient leaf (the
+    encoder, the decoder's self and cross attention, the LayerNorms, the
+    tied head) against ``jax.value_and_grad`` of the reference's loss,
+    f32, at 3e-5; the frames carry no gradient."""
+    from _grad_parity import assert_grads_match_jax
+
+    jcfg, jparams, cfg, params = pair
+    jb, tb = _batches(cfg, 2, 11, seed=8)
+    assert_grads_match_jax(lambda p: jwm.loss_fn(p, jb, jcfg), jparams,
+                           Model(cfg, device="cpu"), params, tb)

@@ -508,3 +508,16 @@ def test_serve_refuses_a_depth_that_is_not_whole_groups():
         build_config(ARCH, "smoke", layers=3)
     with pytest.raises(SystemExit):
         main(["--arch", ARCH, "--size", "smoke", "--device", "cpu", "--layers", "3"])
+
+
+def test_loss_and_grads_match_jax(pair):
+    """``Model.loss`` and every gradient leaf (the Mamba2 blocks, the one
+    shared attention block invoked per group, the norms, the head) against
+    ``jax.value_and_grad`` of the reference's loss, f32, at 3e-5."""
+    from _grad_parity import assert_grads_match_jax
+
+    jcfg, jparams, cfg, params = pair
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 11))
+    jb = {"tokens": jnp.asarray(toks, jnp.int32)}
+    assert_grads_match_jax(lambda p: jzm.loss_fn(p, jb, jcfg), jparams,
+                           Model(cfg, device="cpu"), params, {"tokens": torch.as_tensor(toks)})
