@@ -18,7 +18,9 @@ non-zero before the final line:
    and the head-dim-256 ones of flash and decode attention, must spill
    nothing), and count the tensor-core instructions (``HMMA``) in the
    built flash-attention library: the bf16 kernels must have some,
-   ``flash_fwd_mma<256>`` included; the decode-attention instantiations
+   ``flash_fwd_mma<256>`` included, and so must K2-bwd's tensor-core
+   kernels (``bwd_dkdv_mma`` and ``bwd_dq_mma`` at hd 64, 80 and 128,
+   counted in the built backward library); the decode-attention instantiations
    that G = 16 runs (``decode_fwd<T, 128, 8, 2>``) must spill nothing, and
    so must every head-dim-80 instantiation of both, ``flash_fwd_mma<80>``
    holding ``HMMA``;
@@ -2806,6 +2808,14 @@ def main() -> None:
             not all(any(f"flash_fwd_mma<{hd}>" in fn for fn in mma_kernels) for hd in (80, 256)):
         fail(f"the bf16 flash-attention kernels (hd 80 and 256 included) have no tensor-core "
              f"instructions: {hmma}")
+    # K2-bwd in bf16 at hd 64, 80 and 128: bwd_dkdv_mma<HD> and bwd_dq_mma<HD>
+    hmma = sass_counts("flash_attention_bwd", "HMMA")
+    for fn, count in hmma.items():
+        log(f"SASS flash_attention_bwd {fn}: {count} HMMA")
+    want = [f"bwd_{k}_mma<{hd}>" for k in ("dkdv", "dq") for hd in (64, 80, 128)]
+    if not all(any(w in fn and c for fn, c in hmma.items()) for w in want):
+        fail(f"the bf16 K2-bwd kernels ({', '.join(want)}) have no tensor-core instructions: "
+             f"{hmma}")
 
     t0 = time.monotonic()
     report = phase_kernels(dev)

@@ -42,16 +42,38 @@
 //        dh is the grad of the residual output h, or 0),
 //   dscale = sum over rows of dy * xhat            (f32; Gemma's 1 + scale
 //        has the same derivative).
-// h is formed again from x and r in f32, as the plain version does.  It is
-// bound by bytes: it reads x, r, dy, dh and writes dx (five row tensors).
-// Design: a row is held in registers by a group of threads, the whole
-// block (D > 256) or one warp (D <= 256, 8 rows to a block: qk_norm's
-// rows of head_dim); each block walks its rows with a grid stride and
-// keeps its threads' dscale sums in registers; they leave as one partial
-// row a block (`part`, nb x D f32), which a second kernel sums over the
-// blocks in block order.  No atomics: a call's result depends only on its
-// shapes, so repeated steps are bit-stable.  Loads are scalar (coalesced,
-// 2 or 4 bytes a lane): a simple first version.
+// h is formed again from x and r in f32, as the plain version does.
+//
+// What bounds it on the H100: bytes.  It reads x, r, dy, dh and writes dx,
+// five row tensors (126 MB at qwen2-1.5b's training rows, R 8192 x D 1536
+// in bf16: 0.038 ms at 3.35 TB/s), with about ten flops an element.  So
+// the card has to keep enough bytes in flight: at about a microsecond of
+// latency under load, some 20 KB on each SM.  The first version held a
+// row in a block of D / 8 threads with scalar loads (2 bytes a lane), read
+// dh only after two block-wide sums of two barriers each, and ran 15-16
+// rows in series in each block (0.148 ms there).
+//
+// Design: a row group of `lanes` lanes (the least power of two from 8 that
+// keeps a lane at 32 values: 8 at D <= 256, 64 at D = 1536, 256 at D =
+// 8192) holds a row in registers, 256 / lanes rows a block of 256 threads,
+// two blocks a SM (one for the widest f32 rows) and a grid stride over the
+// rows:
+//  * loads are 16-byte vectors (8 bf16 or 4 f32) of x, r, dy and dh, all of
+//    a row's issued before any arithmetic, so a row costs one dependent
+//    trip to memory; dx leaves in 16-byte stores;
+//  * one reduction a row: the pair (sum h^2, sum s dy h), as c does not
+//    depend on rstd (it is scaled by rstd^2 after the sum); by shuffles in
+//    a warp, and for a group of several warps through shared memory with
+//    one barrier a row;
+//  * dscale: each group adds dy * xhat into its own row of shared memory;
+//    a block sums its groups' rows in group order into one partial row
+//    (`part`, nb x D f32), which a second kernel sums over the blocks in
+//    block order.  No block adds into memory another block writes: a
+//    call's result depends only on its shapes, so repeated steps are
+//    bit-stable;
+//  * a row whose D is not a multiple of the vector, or whose pointers or
+//    row strides are not 16-byte aligned, takes the scalar instantiation of
+//    the same kernel: the same lanes and registers, element by element.
 #include "common.cuh"
 
 #include <stdint.h>
@@ -243,92 +265,215 @@ int dispatch(const void* x, const void* r, const float* scale, void* y, void* h,
 
 // ---- backward --------------------------------------------------------------
 
-constexpr int kBwdMaxThreads = 512;
-constexpr int kWarpRowsMaxD = 256;            // at or below: one warp a row, 8 rows a block
+constexpr int kBwdThreads = 256;              // a block: kBwdThreads / lanes row groups
+constexpr int kBwdVals = 32;                  // values of a row a lane holds, at most
 
-// Sum of v over the row group: the warp (WARP_ROWS) or the whole block, in a
-// fixed order; every thread of the group gets the same sum.
-template <bool WARP_ROWS>
-__device__ __forceinline__ float group_sum(float v, float* red) {
-  v = warp_sum(v);
-  if constexpr (WARP_ROWS) return v;
-  __syncthreads();                            // the previous sum's readers are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) t += red[w];
-  return t;
+// Lanes that hold one row of d values (a row group): the least power of two
+// from 8 to 256 that keeps a lane at kBwdVals values or fewer.  D <= 256
+// takes 8 lanes (32 rows a block), D = 1536 64 (4 rows), D = 8192 256.
+int bwd_lanes(int d) {
+  int l = 8;
+  while (l < kBwdThreads && l * kBwdVals < d) l *= 2;
+  return l;
 }
 
-template <typename T, int EPT, bool WARP_ROWS>
-__global__ void __launch_bounds__(kBwdMaxThreads)
+__device__ __forceinline__ uint4 ld16(const void* p) { return *reinterpret_cast<const uint4*>(p); }
+
+// The row group of `lanes` lanes (runtime, a power of two from 8 to 256)
+// holds one row; lane li holds vectors li, li + lanes, ... (VPL of them, N
+// values each: 16 bytes, or N elements read one by one in the scalar
+// instantiation), so a group's loads of one vector index are contiguous.
+// Every load of a row (x, r, dy, dh) is issued before any arithmetic; the
+// pair (sum h^2, sum s dy h) is reduced in one pass (c does not depend on
+// rstd: it is scaled by rstd^2 after the sum), by shuffles inside a warp
+// and, for a group of several warps, through shared memory with one
+// barrier a row (the slots alternate by step, so no second barrier).  Each
+// group adds dy * xhat into its own row of `slab` in shared memory; at the
+// end the block sums the groups' rows in group order into its partial row
+// of `part`.  The blocks walk the rows with a grid stride in lockstep (the
+// same number of steps in every group of a block).
+// Blocks a SM the compiler plans registers for: two (128 registers a
+// thread) where a row's loads fit them, one (up to 255) for the widest f32
+// vectors and the scalar instantiation's f32 copies of dy and dh.
+template <typename T, int VPL, bool VEC>
+constexpr int bwd_min_blocks() {
+  return (VEC ? VPL * Elem<T>::N * (Elem<T>::N == 4 ? 2 : 1) : VPL * Elem<T>::N * 2) <= 32 ? 2
+                                                                                            : 1;
+}
+
+template <typename T, int VPL, bool VEC>
+__global__ void __launch_bounds__(kBwdThreads, (bwd_min_blocks<T, VPL, VEC>()))
 rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
                    const float* __restrict__ scale, const T* __restrict__ dy,
                    const T* __restrict__ dh, T* __restrict__ dx, float* __restrict__ part,
-                   long long rows, int d, long long sx, long long sr, float eps, int gemma) {
-  __shared__ float red[kBwdMaxThreads / 32];
-  extern __shared__ float slab[];             // WARP_ROWS: each warp's dscale sums, (rpb, d)
-  const int tpr = WARP_ROWS ? 32 : static_cast<int>(blockDim.x);
-  const int group = WARP_ROWS ? static_cast<int>(threadIdx.x >> 5) : 0;
-  const int rpb = WARP_ROWS ? static_cast<int>(blockDim.x >> 5) : 1;
-  const int li = static_cast<int>(threadIdx.x) - group * tpr;
+                   long long rows, int d, long long sx, long long sr, float eps, int gemma,
+                   int lanes) {
+  constexpr int N = Elem<T>::N;
+  __shared__ float2 red[2][kBwdThreads / 32];  // the warps' pair sums, by step parity
+  extern __shared__ float4 slab4[];            // (rows a block, d) f32
+  float* const slab = reinterpret_cast<float*>(slab4);
+  const int tid = static_cast<int>(threadIdx.x), group = tid / lanes, li = tid % lanes;
+  const int rpb = kBwdThreads / lanes, wpr = lanes / 32;
   const float add = gemma ? 1.f : 0.f;
-  float s[EPT], ds[EPT];
-#pragma unroll
-  for (int k = 0; k < EPT; ++k) {
-    const int e = li + k * tpr;
-    s[k] = e < d ? scale[e] + add : 0.f;
-    ds[k] = 0.f;
-  }
-  for (long long row = static_cast<long long>(blockIdx.x) * rpb + group; row < rows;
-       row += static_cast<long long>(gridDim.x) * rpb) {
-    const T* xr = x + row * sx;
-    const T* rr = r == nullptr ? nullptr : r + row * sr;
-    float h[EPT], dyf[EPT];
-    float ss = 0.f;
-#pragma unroll
-    for (int k = 0; k < EPT; ++k) {
-      const int e = li + k * tpr;
-      h[k] = dyf[k] = 0.f;
+  const bool has_r = r != nullptr, has_dh = dh != nullptr;
+  for (int e = tid; e < rpb * d; e += kBwdThreads) slab[e] = 0.f;
+  __syncthreads();
+  float* const mine = slab + group * d;
+
+  // this lane's scale values of vector k (0 past d)
+  auto scale_of = [&](int k, float (&s)[N]) {
+    const int e = (li + k * lanes) * N;
+    if constexpr (VEC) {
       if (e < d) {
-        h[k] = to_f32(xr[e]);
-        if (rr != nullptr) h[k] += to_f32(rr[e]);
-        dyf[k] = to_f32(dy[row * d + e]);
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q)
+          Elem<float>::unpack(__ldg(reinterpret_cast<const uint4*>(scale + e) + q), s + 4 * q);
+#pragma unroll
+        for (int u = 0; u < N; ++u) s[u] += add;
+      } else {
+#pragma unroll
+        for (int u = 0; u < N; ++u) s[u] = 0.f;
       }
-      ss += h[k] * h[k];
+    } else {
+#pragma unroll
+      for (int u = 0; u < N; ++u) s[u] = e + u < d ? __ldg(scale + e + u) + add : 0.f;
     }
-    const float rstd = rsqrtf(group_sum<WARP_ROWS>(ss, red) / static_cast<float>(d) + eps);
-    float c = 0.f;                            // sum of s * dy * h over the row
+  };
+
+  int step = 0;
+  for (long long base = static_cast<long long>(blockIdx.x) * rpb; base < rows;
+       base += static_cast<long long>(gridDim.x) * rpb, ++step) {
+    const long long row = base + group;
+    const bool live = row < rows;
+    float h[VPL][N];
+    uint4 yw[VPL], dw[VPL];                   // VEC: dy and dh as loaded
+    float yf[VPL][N], df[VPL][N];             // scalar: dy and dh
+    if constexpr (VEC) {
+      uint4 xw[VPL], rw[VPL];
 #pragma unroll
-    for (int k = 0; k < EPT; ++k) c += s[k] * dyf[k] * h[k];
-    c = group_sum<WARP_ROWS>(c, red) * rstd * rstd / static_cast<float>(d);   // mean(g xhat) rstd
+      for (int k = 0; k < VPL; ++k) {         // every load in flight first
+        const int e = (li + k * lanes) * N;
+        xw[k] = rw[k] = yw[k] = dw[k] = make_uint4(0u, 0u, 0u, 0u);
+        if (live && e < d) {
+          xw[k] = ld16(x + row * sx + e);
+          if (has_r) rw[k] = ld16(r + row * sr + e);
+          yw[k] = ld16(dy + row * d + e);
+          if (has_dh) dw[k] = ld16(dh + row * d + e);
+        }
+      }
 #pragma unroll
-    for (int k = 0; k < EPT; ++k) {
-      const int e = li + k * tpr;
-      if (e < d) {
-        const float xhat = h[k] * rstd;
-        float v = rstd * (s[k] * dyf[k]) - xhat * c;
-        if (dh != nullptr) v += to_f32(dh[row * d + e]);
-        dx[row * d + e] = from_f32<T>(v);
-        ds[k] += dyf[k] * xhat;
+      for (int k = 0; k < VPL; ++k) {
+        Elem<T>::unpack(xw[k], h[k]);
+        if (has_r) {
+          float rf[N];
+          Elem<T>::unpack(rw[k], rf);
+#pragma unroll
+          for (int u = 0; u < N; ++u) h[k][u] += rf[u];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < VPL; ++k)
+#pragma unroll
+        for (int u = 0; u < N; ++u) {
+          const int e = (li + k * lanes) * N + u;
+          h[k][u] = yf[k][u] = df[k][u] = 0.f;
+          if (live && e < d) {
+            h[k][u] = to_f32(x[row * sx + e]);
+            if (has_r) h[k][u] += to_f32(r[row * sr + e]);
+            yf[k][u] = to_f32(dy[row * d + e]);
+            if (has_dh) df[k][u] = to_f32(dh[row * d + e]);
+          }
+        }
+    }
+    auto dy_of = [&](int k, float (&y)[N]) {
+      if constexpr (VEC) {
+        Elem<T>::unpack(yw[k], y);
+      } else {
+#pragma unroll
+        for (int u = 0; u < N; ++u) y[u] = yf[k][u];
+      }
+    };
+
+    float ss = 0.f, c = 0.f;                  // sum h^2, sum s dy h
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      float s[N], y[N];
+      scale_of(k, s);
+      dy_of(k, y);
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        ss += h[k][u] * h[k][u];
+        c += s[u] * y[u] * h[k][u];
+      }
+    }
+    if (lanes <= 32) {
+      for (int o = lanes / 2; o > 0; o >>= 1) {
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        c += __shfl_xor_sync(0xffffffffu, c, o);
+      }
+    } else {
+      ss = warp_sum(ss);
+      c = warp_sum(c);
+      if ((tid & 31) == 0) red[step & 1][tid >> 5] = make_float2(ss, c);
+      __syncthreads();
+      ss = c = 0.f;
+      for (int w = 0; w < wpr; ++w) {
+        const float2 p = red[step & 1][group * wpr + w];
+        ss += p.x;
+        c += p.y;
+      }
+    }
+    if (!live) continue;
+    const float rstd = rsqrtf(ss / static_cast<float>(d) + eps);
+    c *= rstd * rstd / static_cast<float>(d);   // mean(g xhat) rstd
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int e = (li + k * lanes) * N;
+      if (e >= d) continue;
+      float s[N], y[N], g[N], o[N];
+      scale_of(k, s);
+      dy_of(k, y);
+      if constexpr (VEC) {
+        Elem<T>::unpack(dw[k], g);            // dh, zero when there is none
+      } else {
+#pragma unroll
+        for (int u = 0; u < N; ++u) g[u] = df[k][u];
+      }
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        const float xhat = h[k][u] * rstd;
+        o[u] = rstd * (s[u] * y[u]) - xhat * c + g[u];
+        y[u] *= xhat;                         // dscale's term
+      }
+      if constexpr (VEC) {
+        *reinterpret_cast<uint4*>(dx + row * d + e) = Elem<T>::pack(o);
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q) {
+          float4* m = reinterpret_cast<float4*>(mine + e) + q;
+          float4 a = *m;
+          a.x += y[4 * q];
+          a.y += y[4 * q + 1];
+          a.z += y[4 * q + 2];
+          a.w += y[4 * q + 3];
+          *m = a;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < N; ++u)
+          if (e + u < d) {
+            dx[row * d + e + u] = from_f32<T>(o[u]);
+            mine[e + u] += y[u];
+          }
       }
     }
   }
+  __syncthreads();
   float* out = part + static_cast<long long>(blockIdx.x) * d;
-  if constexpr (!WARP_ROWS) {
-#pragma unroll
-    for (int k = 0; k < EPT; ++k)
-      if (li + k * tpr < d) out[li + k * tpr] = ds[k];
-  } else {                                    // the warps' sums, added in warp order
-#pragma unroll
-    for (int k = 0; k < EPT; ++k)
-      if (li + k * tpr < d) slab[group * d + li + k * tpr] = ds[k];
-    __syncthreads();
-    for (int e = threadIdx.x; e < d; e += blockDim.x) {
-      float t = 0.f;
-      for (int w = 0; w < rpb; ++w) t += slab[w * d + e];
-      out[e] = t;
-    }
+  for (int e = tid; e < d; e += kBwdThreads) {  // the groups' sums, added in group order
+    float t = 0.f;
+    for (int w = 0; w < rpb; ++w) t += slab[w * d + e];
+    out[e] = t;
   }
 }
 
@@ -342,8 +487,10 @@ rmsnorm_dscale_kernel(const float* __restrict__ part, float* __restrict__ dscale
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int e = blockIdx.x * 32 + lane;
   float t = 0.f;
-  if (e < d)
+  if (e < d) {
+#pragma unroll 8
     for (int i = warp; i < nb; i += 8) t += part[static_cast<long long>(i) * d + e];
+  }
   sums[warp][lane] = t;
   __syncthreads();
   if (warp == 0 && e < d) {
@@ -353,15 +500,15 @@ rmsnorm_dscale_kernel(const float* __restrict__ part, float* __restrict__ dscale
   }
 }
 
-template <typename T, int EPT, bool WARP_ROWS>
+template <typename T, int VPL, bool VEC>
 cudaError_t launch_bwd(const void* x, const void* r, const float* scale, const void* dy,
                        const void* dh, void* dx, float* part, float* dscale, long long rows,
-                       int d, long long sx, long long sr, float eps, int gemma, int threads,
+                       int d, long long sx, long long sr, float eps, int gemma, int lanes,
                        int nb, cudaStream_t st) {
-  const int smem = WARP_ROWS ? threads / 32 * d * 4 : 0;
-  rmsnorm_bwd_kernel<T, EPT, WARP_ROWS><<<nb, threads, smem, st>>>(
+  const int smem = kBwdThreads / lanes * d * 4;   // at most 256 x 32 floats
+  rmsnorm_bwd_kernel<T, VPL, VEC><<<nb, kBwdThreads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(r), scale, static_cast<const T*>(dy),
-      static_cast<const T*>(dh), static_cast<T*>(dx), part, rows, d, sx, sr, eps, gemma);
+      static_cast<const T*>(dh), static_cast<T*>(dx), part, rows, d, sx, sr, eps, gemma, lanes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   rmsnorm_dscale_kernel<<<(d + 31) / 32, 256, 0, st>>>(part, dscale, nb, d);
@@ -372,16 +519,33 @@ template <typename T>
 int dispatch_bwd(const void* x, const void* r, const float* scale, const void* dy,
                  const void* dh, void* dx, float* part, float* dscale, long long rows, int d,
                  long long sx, long long sr, float eps, int gemma, int nb, cudaStream_t st) {
-#define RMSNORM_BWD(EPT_, WR_, THREADS_)                                                     \
-  return static_cast<int>(launch_bwd<T, EPT_, WR_>(x, r, scale, dy, dh, dx, part, dscale,   \
-                                                    rows, d, sx, sr, eps, gemma, THREADS_,  \
-                                                    nb, st))
-  if (d <= 128) RMSNORM_BWD(4, true, 256);
-  if (d <= kWarpRowsMaxD) RMSNORM_BWD(8, true, 256);
-  const int ept = d <= 4096 ? 8 : 16;
-  const int threads = ((d + ept - 1) / ept + 31) / 32 * 32;
-  if (ept == 8) RMSNORM_BWD(8, false, threads);
-  RMSNORM_BWD(16, false, threads);
+  constexpr int N = Elem<T>::N;
+  const int lanes = bwd_lanes(d);
+  const int vpl = ((d + N - 1) / N + lanes - 1) / lanes;   // vectors a lane: <= kBwdVals / N
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(r) |
+                         reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(dy) |
+                         reinterpret_cast<uintptr_t>(dh) | reinterpret_cast<uintptr_t>(dx) |
+                         static_cast<uintptr_t>(sx * sizeof(T)) |
+                         static_cast<uintptr_t>(sr * sizeof(T)) |
+                         static_cast<uintptr_t>(static_cast<long long>(d) * sizeof(T));
+  const bool vec = bits % 16 == 0;
+#define RMSNORM_BWD(V)                                                                        \
+  return static_cast<int>(vec ? launch_bwd<T, V, true>(x, r, scale, dy, dh, dx, part, dscale, \
+                                                       rows, d, sx, sr, eps, gemma, lanes,    \
+                                                       nb, st)                                \
+                              : launch_bwd<T, V, false>(x, r, scale, dy, dh, dx, part,        \
+                                                        dscale, rows, d, sx, sr, eps, gemma,  \
+                                                        lanes, nb, st))
+  if (vpl <= 1) RMSNORM_BWD(1);
+  if (vpl <= 2) RMSNORM_BWD(2);
+  if (vpl <= 3) RMSNORM_BWD(3);
+  if constexpr (N == 8) {                     // bf16: at most 4
+    RMSNORM_BWD(4);
+  } else {
+    if (vpl <= 4) RMSNORM_BWD(4);
+    if (vpl <= 6) RMSNORM_BWD(6);
+    RMSNORM_BWD(8);
+  }
 #undef RMSNORM_BWD
 }
 
@@ -391,7 +555,7 @@ int dispatch_bwd(const void* x, const void* r, const float* scale, const void* d
 // strides: dy (rows, d) contiguous, dh (rows, d) contiguous or null (the
 // grad of the residual output), dx (rows, d) contiguous out, part (nb, d)
 // f32 scratch, dscale (d,) f32 out.  nb = min(ceil(rows / rpb), ...) blocks
-// with rpb = 8 rows a block for d <= 256, else 1 (the wrapper's
+// with rpb = 256 / bwd_lanes(d) rows a block (the wrapper's
 // `rmsnorm_bwd_blocks` rule); nb must be >= 1 and each block's rows are
 // rpb-strided from blockIdx.x * rpb.  Two launches; none for rows = 0.
 // Returns 0, a cudaError_t, or -1 for arguments outside what it takes

@@ -25,14 +25,24 @@ def device_kind(*tensors: torch.Tensor) -> str:
     return kind
 
 
+def _unaligned_dims(t: torch.Tensor) -> list[int]:
+    size = t.element_size()
+    return [d for d in range(t.ndim - 1) if t.shape[d] > 1 and (t.stride(d) * size) % 16]
+
+
+def is_aligned(t: torch.Tensor) -> bool:
+    """Whether ``t``'s data pointer and the byte stride of each of its dims
+    longer than 1, but the last, are multiples of 16."""
+    return t.data_ptr() % 16 == 0 and not _unaligned_dims(t)
+
+
 def check_aligned(what: str, **tensors: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless each tensor's data pointer and the byte
-    stride of each of its dims longer than 1, but the last (contiguous,
-    checked by the caller), are multiples of 16: the kernels move 16 bytes
-    a lane with ``cp.async`` or vector loads."""
+    """Raise ``ValueError`` unless each tensor is :func:`is_aligned` (the
+    last dim is contiguous, checked by the caller): the kernels move 16
+    bytes a lane with ``cp.async`` or vector loads."""
     for name, t in tensors.items():
         size = t.element_size()
-        bad = [d for d in range(t.ndim - 1) if t.shape[d] > 1 and (t.stride(d) * size) % 16]
+        bad = _unaligned_dims(t)
         if t.data_ptr() % 16 or bad:
             raise ValueError(f"{what}: {name} must be 16-byte aligned (data_ptr "
                              f"{t.data_ptr() % 16} bytes past 16, strides {t.stride()} of "

@@ -29,13 +29,16 @@ import torch
 
 from .. import _build
 from .._device import (KERNEL_DTYPES, check_aligned, check_launch, device_kind,
-                       on_device, stream_of)
+                       is_aligned, on_device, stream_of)
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_bwd_ref",
-           "flash_attention_ref", "KERNEL_HEAD_DIMS"]
+           "flash_attention_ref", "BWD_MMA_HEAD_DIMS", "KERNEL_HEAD_DIMS"]
 
 KERNEL_HEAD_DIMS = (64, 80, 128, 256)
+# K2-bwd runs bf16 on the tensor cores at these head dims (16-byte copies:
+# its tensors must be aligned); bf16 at 256 and f32 on the CUDA cores
+BWD_MMA_HEAD_DIMS = (64, 80, 128)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -152,7 +155,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     buffers seen as (B, heads, S, hd), the model's layout.  CPU tensors
     take :func:`flash_attention_bwd_ref`; CUDA tensors launch K2-bwd (one
     call, three kernels, counted in ``flash_attention_bwd.launches``) or
-    raise."""
+    raise.  bf16 at ``BWD_MMA_HEAD_DIMS`` runs on the tensor cores and
+    copies 16 bytes a lane: q, k, v and o must then be 16-byte aligned
+    (as the forward's bf16 kernel requires of q, k and v; ``do`` is copied
+    when it is not)."""
     if device_kind(q, k, v, o, do) == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, causal=causal, scale=scale)
     b, h, sq, hd = q.shape
@@ -164,8 +170,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         raise ValueError(f"o/do must be q's {tuple(q.shape)} and lse a contiguous f32 "
                          f"({b}, {h}, {sq}); got o {tuple(o.shape)}, do {tuple(do.shape)}, "
                          f"lse {None if lse is None else (tuple(lse.shape), lse.dtype)}")
+    mma = q.dtype == torch.bfloat16 and hd in BWD_MMA_HEAD_DIMS
     do = do.to(q.dtype)
-    if do.stride(-1) != 1:
+    if do.stride(-1) != 1 or mma and not is_aligned(do):
         do = do.contiguous()
     if any(t.stride(-1) != 1 for t in (q, k, v, o)):
         raise ValueError("the head dim of q, k, v and o must be contiguous (stride 1)")
@@ -173,6 +180,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty((b, sk, kvh, hd), dtype=k.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty((b, sk, kvh, hd), dtype=v.dtype, device=q.device).transpose(1, 2)
+    if mma:
+        check_aligned("flash_attention_bwd", q=q, k=k, v=v, o=o)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _lib_bwd()
     strides = [st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]]

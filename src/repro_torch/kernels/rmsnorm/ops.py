@@ -32,8 +32,8 @@ from .. import _build
 from .._device import KERNEL_DTYPES, check_launch, device_kind, on_device, stream_of
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
-__all__ = ["fused_rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_blocks", "rmsnorm_bwd_ref",
-           "rmsnorm_ref"]
+__all__ = ["fused_rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_blocks", "rmsnorm_bwd_lanes",
+           "rmsnorm_bwd_ref", "rmsnorm_ref"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -163,13 +163,25 @@ class _RMSNormFn(torch.autograd.Function):
                 dscale if ctx.needs_input_grad[2] else None, None, None, None)
 
 
+def rmsnorm_bwd_lanes(d: int) -> int:
+    """Lanes that hold one row of K1-bwd (``bwd_lanes`` in
+    ``csrc/rmsnorm.cu``): the least power of two from 8 to 256 that keeps
+    a lane at 32 values or fewer."""
+    lanes = 8
+    while lanes < 256 and lanes * 32 < d:
+        lanes *= 2
+    return lanes
+
+
 def rmsnorm_bwd_blocks(rows: int, d: int, sms: int) -> int:
-    """Blocks of one K1-bwd launch: 8 rows at a time a block (a warp each)
-    for D <= 256, else one; at most 4 a streaming multiprocessor.  Each
+    """Blocks of one K1-bwd launch: blocks of 256 threads hold 256 /
+    ``rmsnorm_bwd_lanes(d)`` rows at a time; at most 2 a streaming
+    multiprocessor (the blocks it holds at once: more would only add
+    partial rows for the dscale pass to sum).  Each
     block writes one partial row of dscale, summed in block order, so the
     result depends only on the shapes and the card."""
-    rpb = 8 if d <= 256 else 1
-    return max(1, min(-(-rows // rpb), 4 * sms))
+    rpb = 256 // rmsnorm_bwd_lanes(d)
+    return max(1, min(-(-rows // rpb), 2 * sms))
 
 
 @functools.cache

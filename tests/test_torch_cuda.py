@@ -818,6 +818,76 @@ def test_flash_attention_bwd_kernel_training_shapes(dev, b, h, kv, sq, sk, hd, c
     _flash_bwd_case(dev, b, h, kv, sq, sk, hd, causal, dt, seed=50)
 
 
+MMA_BWD_EDGES = [63, 64, 65, 127, 129]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 6, 8, 16])
+def test_flash_attention_bwd_kernel_64_tile_edges(dev, g, causal, hd, dt):
+    """K2-bwd at the edges of its 64-row query and key tiles (bf16 runs on
+    the tensor cores at hd 64, 80 and 128): Sq and Sk of 63, 64, 65, 127
+    and 129, equal and unequal both ways, G query heads over 1 or 2 KV
+    heads, q/k/v as (B, S, H, hd) buffers seen through their strides."""
+    for i, sq in enumerate(MMA_BWD_EDGES):
+        for j, sk in enumerate(MMA_BWD_EDGES):
+            kv = 1 + (i + j) % 2
+            _flash_bwd_case(dev, 2, g * kv, kv, sq, sk, hd, causal, dt, seed=60 + 5 * i + j)
+
+
+@pytest.mark.parametrize("sq", [384, 1024])
+def test_flash_attention_bwd_kernel_dk_over_many_queries(dev, sq):
+    """bf16 dK where each key's sum runs over G Sq = 3072-8192 query terms
+    with large P (15 keys, non-causal): dS enters dK's product as two bf16
+    terms (once rounded, it missed the bound at these shapes), several
+    seeds."""
+    for seed in range(4):
+        _flash_bwd_case(dev, 2, 8, 1, sq, 15, 128, False, torch.bfloat16, seed=110 + 4 * seed)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_kernel_repeated_calls(dev, hd, causal):
+    """No atomics: a bf16 K2-bwd call made twice gives dq, dk and dv bit for
+    bit the same (GQA, ragged tiles)."""
+    from repro_torch.kernels.flash_attention.ops import _launch_fwd
+
+    dt = torch.bfloat16
+    q = _randn(dev, 2, 200, 12, hd, dt=dt, seed=90).transpose(1, 2)
+    k, v = (_randn(dev, 2, 130, 2, hd, dt=dt, seed=s).transpose(1, 2) for s in (91, 92))
+    lse = torch.empty((2, 12, 200), device=dev)
+    o = _launch_fwd(q, k, v, causal, None, lse)
+    do = _randn(dev, 2, 12, 200, hd, dt=dt, seed=93)
+    first = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("d", [1536, 1535, 52])
+def test_rmsnorm_bwd_kernel_scalar_beside_vector(dev, d, dt):
+    """K1-bwd's scalar instantiation (a D that is no multiple of the 16-byte
+    vector, or rows at an unaligned stride) beside the vector one: both
+    against the plain backward, and the unaligned rows against the same
+    values in contiguous rows."""
+    rows = 300
+    buf = _randn(dev, rows, d + 1, dt=dt, seed=94)
+    x = buf[:, :d]                                  # row stride d + 1: unaligned
+    r = _randn(dev, rows, d, dt=dt, seed=95)
+    scale = _randn(dev, d, dt=torch.float32, seed=96)
+    dy, dh = (_randn(dev, rows, d, dt=dt, seed=s) for s in (97, 98))
+    strided = rmsnorm_bwd(x, r, scale, dy, dh)
+    dense = rmsnorm_bwd(x.contiguous(), r, scale, dy, dh)
+    want = rmsnorm_bwd_ref(x, r, scale, dy, dh)
+    for got in (strided, dense):
+        torch.testing.assert_close(got[0].float(), want[0].float(), atol=_tol(dt), rtol=_tol(dt))
+        tol = 10 * _tol(torch.float32) if dt == torch.float32 else _tol(dt)
+        torch.testing.assert_close(got[1], want[1], atol=tol, rtol=tol)
+    torch.testing.assert_close(strided[0].float(), dense[0].float(), atol=_tol(dt),
+                               rtol=_tol(dt))
+
+
 def test_flash_attention_lse_leaves_the_output_unchanged(dev):
     """The forward's logsumexp output is extra: with it or without, the
     same output bit for bit, and the logsumexp of the scaled scores."""

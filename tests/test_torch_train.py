@@ -27,7 +27,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention.ops import (_FlashFn, flash_attention_bwd,
                                                      flash_attention_bwd_ref, flash_attention_ref)
 from repro_torch.kernels.rmsnorm.ops import (_RMSNormFn, rmsnorm_bwd, rmsnorm_bwd_blocks,
-                                             rmsnorm_bwd_ref, rmsnorm_ref)
+                                             rmsnorm_bwd_lanes, rmsnorm_bwd_ref, rmsnorm_ref)
 from repro_torch.launch import train
 from repro_torch.models import Model
 from repro_torch.models.common import cross_entropy, tree_items
@@ -167,12 +167,16 @@ def test_rmsnorm_function_matches_autograd(with_r, gemma, want, monkeypatch):
 
 
 def test_rmsnorm_bwd_blocks_rule():
-    """K1-bwd's grid: 8 rows a block at D <= 256 (a warp a row), else one;
-    at most 4 blocks a multiprocessor; never 0."""
-    assert rmsnorm_bwd_blocks(98304, 128, 132) == 528
-    assert rmsnorm_bwd_blocks(37, 128, 132) == 5
-    assert rmsnorm_bwd_blocks(37, 1536, 132) == 37
-    assert rmsnorm_bwd_blocks(8192, 1536, 132) == 528
+    """K1-bwd's grid: a row takes the least power of two of lanes from 8 to
+    256 that holds it in 32 values a lane, a block of 256 threads 256 /
+    lanes rows (32 at D <= 256, 4 at D = 1536, 1 at 8192); at most 2
+    blocks a multiprocessor; never 0."""
+    assert [rmsnorm_bwd_lanes(d) for d in (48, 128, 256, 257, 512, 1536, 2048, 4096, 8192)] \
+        == [8, 8, 8, 16, 16, 64, 64, 128, 256]
+    assert rmsnorm_bwd_blocks(98304, 128, 132) == 264
+    assert rmsnorm_bwd_blocks(37, 128, 132) == 2
+    assert rmsnorm_bwd_blocks(37, 1536, 132) == 10
+    assert rmsnorm_bwd_blocks(8192, 1536, 132) == 264
     assert rmsnorm_bwd_blocks(1, 8192, 132) == 1
 
 
