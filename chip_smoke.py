@@ -58,7 +58,14 @@ non-zero before the final line:
    logsumexp output (the output the same bit for bit, the logsumexp that
    of the scaled scores), each timed beside its bound and the library's
    backward (autograd through ``F.rms_norm``; through SDPA) at the
-   training path's shapes;
+   training path's shapes; then K5 in save mode (hs and the final state
+   the same bit for bit as without it) and K5-bwd against its plain
+   backward (``slstm_scan_bwd_ref``) on the kernel's own saved states, in
+   f32 and bf16, at D 2048 H 4 (xlstm-1.3b) and D 512 H 8 (its 100m
+   reduction), B 1-8 and S 1-1024, from the zero state (m0 = -inf) and from
+   a random one, with cotangents on hs and on the final state, each call
+   repeated bit for bit, timed at the training shapes beside its bound
+   and the plain backward (no library call computes it);
 4. full-width qwen2-1.5b in f32: kernel path against plain path on the same
    random weights, prefill logits of 4 ragged prompts and 4 decode steps
    with the 4 slots at their ragged lengths;
@@ -122,10 +129,13 @@ non-zero before the final line:
    call, 10 flash-attention launches a prefill (8 self, 2 cross), 10
    decode-attention launches a step; 23 and 25 also print one batch's
    bf16 prefill logits on the kernel path beside the plain path's;
-26. training: full-width qwen2-1.5b in f32 (28 layers, B 2, S 256, remat
-   ``block``): ``Model.loss`` and every gradient leaf on the kernel path
-   against ``plain=True``, the max relative error per leaf group, and the
-   launches remat implies (K1 4L + 1, K1-bwd 2L + 1, K2 2L, K2-bwd L);
+26. training in f32 (B 2, S 256, remat ``block``), full-width qwen2-1.5b
+   (28 layers) and then full-width xlstm-1.3b (48 blocks, K5 and K5-bwd
+   in each of its 6 sLSTM blocks): ``Model.loss`` and every gradient leaf
+   on the kernel path against ``plain=True``, the max relative error per
+   leaf group, and the launches remat implies (qwen2: K1 4L + 1, K1-bwd
+   2L + 1, K2 2L, K2-bwd L; xlstm: K1 2L + 6 + 1 and each mLSTM block's two
+   again, K1-bwd 2L + 6 + 1, K5 and K5-bwd 6);
 27. training: full-width qwen2-1.5b in bf16 with f32 master weights and
    moments through ``repro_torch.runtime.trainer.Trainer`` over the
    zero-copy data plane, B 8 x S 1024, 8 steps with a checkpoint at step
@@ -134,17 +144,22 @@ non-zero before the final line:
    ``RESUME_LOSS_TOL``), while each of four restore faults planted in
    further resumes (moments zeroed, master weights rebuilt from the bf16
    params, the optimizer's step or the data cursor one ahead) must move
-   them beyond it; prints the step ms, tokens/s, the model-FLOP share,
-   peak device memory and the losses at steps 1 and 8, and one step's
-   device time by kernel group;
+   them beyond it; the losses must be finite and fall; prints the step
+   ms, tokens/s, the model-FLOP share, peak device memory and the losses
+   at steps 1 and 8, and one step's device time by kernel group; then full-width xlstm-1.3b in bf16 the
+   same way (``XLSTM_TRAIN_BS``, ``XLSTM_TRAIN_STEPS`` steps, no
+   checkpoint): K5 and K5-bwd launched once per sLSTM block every step,
+   the losses finite and falling, and the same measurements with K5 and
+   K5-bwd named in the step's device time;
 28. training: the 100m reductions of qwen2-1.5b, qwen2-moe-a2.7b,
-   zamba2-2.7b, whisper-small and llama-3.2-vision-90b (head dim 64) in
-   bf16, 3 steps each, kernel path against plain path at step 1; and
-   xlstm's loss on the card must refuse (K5 has no backward kernel);
-29. every dtype, shape, stride and mode K1-bwd and K2-bwd ran on in
-   phases 26-28 (recorded as they ran), again on unit-scale random inputs
-   of that layout against the plain backward, K2's forward with its
-   logsumexp output as in phase 3.
+   zamba2-2.7b, whisper-small, llama-3.2-vision-90b (head dim 64) and
+   xlstm-1.3b (d 512 over 8 heads) in bf16, 3 steps each, kernel path
+   against plain path at step 1, every kernel of the family's step
+   launched;
+29. every dtype, shape, stride and mode K1-bwd, K2-bwd and K5-bwd ran on
+   in phases 26-28 (recorded as they ran), again on unit-scale random
+   inputs of that layout against the plain backward, K2's forward with
+   its logsumexp output as in phase 3.
 
 It prints a ``{"kernels": [...]}`` line (the backward kernels with
 ``"role": "backward"``) and ends with one JSON line
@@ -339,10 +354,13 @@ def log_breakdown(what: str, by: dict) -> None:
                     sorted(by.items(), key=lambda kv: -kv[1][0])))
 
 
-def timings(kernel, plain, library, *, plain_iters: int = 20, what: str | None = None) -> dict:
+def timings(kernel, plain, library, *, plain_iters: int = 20, what: str | None = None,
+            host_iters: int = 100) -> dict:
     """Device ms per call of the kernel, its plain version and the library
     call (None where there is none); ``plain_iters`` cuts the profiled
-    calls of a plain version that issues thousands of launches per call.
+    calls of a plain version that issues thousands of launches per call,
+    ``host_iters`` the back-to-back calls of the host timing (a kernel of
+    milliseconds needs few).
     With ``what``, the kernel's window is logged by kernel name, and
     ``kernels_per_call`` counts its device activities per call (None where
     the profiler delivered none).  ``event_ms`` is the kernel's time per
@@ -354,7 +372,7 @@ def timings(kernel, plain, library, *, plain_iters: int = 20, what: str | None =
             "kernels_per_call": None if EVENTS_KEY in by else sum(n for _, n in by.values()),
             "plain_ms": device_ms(plain, iters=plain_iters, warm=1),
             "library_ms": None if library is None else device_ms(library),
-            "wall_ms": cuda_ms(kernel), "host_ms": host_ms(kernel),
+            "wall_ms": cuda_ms(kernel), "host_ms": host_ms(kernel, iters=host_iters),
             "event_ms": event_ms(kernel, 20)}
 
 
@@ -608,6 +626,7 @@ def phase_kernels(dev) -> dict:
     report.update(phase_slstm_scan(dev, rnd, dts))
     report.update(phase_ragged_concat(dev, gen))
     report.update(phase_backward_kernels(dev, gen, rnd, dts))
+    report.update(phase_slstm_bwd(dev, rnd, dts))
     return report
 
 
@@ -988,6 +1007,155 @@ def phase_slstm_scan(dev, rnd, dts) -> dict:
     return {"slstm_scan": {"max_abs_err": errs[("bfloat16", 1, 384)],
                            "shape": f"B=1 S=384 D={d} H={h} bf16 (prefill)",
                            **out[(1, 384, "bfloat16")], "shapes": shapes}}
+
+
+# K5-bwd against its plain backward, both fed the kernel's own saved states
+# (K5 in save mode): the two run the same f32 arithmetic and differ in the
+# order of the recurrent sums (dh_{t-1} sums 4 dh = 2048 terms, the gates
+# dh = 512) and in expf/log1pf/tanhf against torch's, carried back through
+# up to 1024 steps; dw_hh and db_ih sum B S terms.  Measured on the card
+# (NVIDIA H100 80GB HBM3, 700 W): at most 3.05e-05 on db (values up to 130
+# at B 8 S 1024) and 2.7e-05 on dw (up to 35), the rest under 4e-06.  So
+# each f32 output's max |kernel - plain| is held to 3e-5 of its largest
+# value (at least 1): the repo's f32 tolerance, relative to a tensor whose
+# elements sum up to 8192 rows; the bf16 outputs (dxg and dw_hh in xg's and
+# w_hh's dtype: one rounding of those f32 values, at most an ulp apart)
+# elementwise at bf16's 2e-2.
+SLSTM_BWD_TOL = 3e-5
+SLSTM_BWD_NAMES = ("dxg", "dw_hh", "db_ih", "dh0", "dc0", "dn0", "dm0")
+# (D, H) -> (B, S): xlstm-1.3b's width at B 1, 4, 8 and S 1, 16, 100, 384
+# (the serving prompts) and 1024 (the training sequence), its 100m
+# reduction's at fewer (phase 28 trains it at B 4 S 256)
+SLSTM_BWD_CASES = {(2048, 4): ((1, 1), (4, 1), (8, 1), (1, 16), (4, 16), (8, 100), (1, 384),
+                               (8, 384), (8, 1024)),
+                   (512, 8): ((1, 1), (4, 16), (8, 100), (4, 256))}
+
+
+def slstm_inputs(rnd, dev, b, s, d, h, dt, state: bool) -> list:
+    """xg, w_hh, b_ih, h0, c0, n0, m0 for the sLSTM scan: the zero state
+    (m0 = -inf) or a random one."""
+    import torch
+
+    dh = d // h
+    xg, w = rnd(b, s, 4 * d, dt=dt), rnd(h, dh, 4 * dh, dt=dt) * dh ** -0.5
+    bias = rnd(4 * d, dt=torch.float32) * 0.1
+    if state:
+        st = [rnd(b, d, dt=torch.float32) * 0.5, rnd(b, d, dt=torch.float32),
+              rnd(b, d, dt=torch.float32).abs() + 0.5, rnd(b, d, dt=torch.float32)]
+    else:
+        z = torch.zeros(b, d, device=dev)
+        st = [z, z, z, torch.full((b, d), float("-inf"), device=dev)]
+    return [xg, w, bias, *st]
+
+
+def check_slstm_bwd(what: str, got, want) -> float:
+    """K5-bwd's seven outputs against the plain backward's: each f32 one's
+    max |kernel - plain| within ``SLSTM_BWD_TOL`` of its largest value (at
+    least 1), those in bf16 elementwise at bf16's tolerance.  Returns the
+    largest max |kernel - plain|."""
+    import torch
+
+    worst = 0.0
+    for n, a, c in zip(SLSTM_BWD_NAMES, got, want):
+        if a.dtype == torch.bfloat16:
+            worst = max(worst, check_close(f"{what} {n}", a, c, "bfloat16"))
+            continue
+        if a.shape != c.shape or a.dtype != c.dtype or not torch.isfinite(a).all():
+            fail(f"{what} {n}: {a.dtype} {tuple(a.shape)} (finite: "
+                 f"{bool(torch.isfinite(a).all())}) against plain {c.dtype} {tuple(c.shape)}")
+        e, scale = max_err(a, c), max(1.0, float(c.abs().max()) if c.numel() else 0.0)
+        if e > SLSTM_BWD_TOL * scale:
+            fail(f"{what} {n}: max |kernel - plain| {e:.3e} beyond {SLSTM_BWD_TOL} x {scale:.3g}")
+        worst = max(worst, e)
+    return worst
+
+
+def slstm_bwd_bound(b, s, d, h, xbytes, wbytes) -> tuple[float, str]:
+    """K5-bwd's least time: bytes: xg, w_hh, the bias, the initial state,
+    hs, the saved c/n/m and the cotangents read once, dxg, dw_hh, db and the
+    initial state's gradients written once; operations: the f32 products
+    (the gates formed again, dh_{t-1} = dg w_hh^T and dw_hh = h^T dg: 2 B S
+    4D dh flops each) on the CUDA cores."""
+    dh = d // h
+    nbytes = 2 * b * s * 4 * d * xbytes + 2 * h * dh * 4 * dh * wbytes + 2 * 16 * d + \
+        2 * 16 * b * d + 5 * 4 * b * s * d + 16 * b * d
+    return bound_ms(nbytes, 3 * 2 * b * s * 4 * d * dh, "float32")
+
+
+def phase_slstm_bwd(dev, rnd, dts) -> dict:
+    """K5 in save mode and K5-bwd on the card.  Save mode: at D = 2048, H =
+    4, in both dtypes, hs and the final state must equal the serving
+    launch's bit for bit, and the saved last step the final (c, n, m).
+    K5-bwd: against the plain backward (``slstm_scan_bwd_ref``) on the
+    kernel's own saved states, at ``SLSTM_BWD_CASES`` in f32 and bf16, from the zero state (m0 = -inf) and from a random one,
+    with cotangents on hs and on the final state; every call twice, bit for
+    bit.  Timed (device ms by torch.profiler) at the training paths' shapes
+    beside the plain backward and the bound; no PyTorch call computes the
+    scan's backward, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels.slstm_scan.ops import (_launch_fwd, slstm_scan_bwd,
+                                                    slstm_scan_bwd_plan, slstm_scan_bwd_ref)
+
+    for dname, dt in dts.items():
+        for b, s in ((1, 16), (4, 100), (8, 384)):
+            args = slstm_inputs(rnd, dev, b, s, 2048, 4, dt, False)
+            hs0, st0, _ = _launch_fwd(*args, False)
+            hs1, st1, saved = _launch_fwd(*args, True)
+            if not (torch.equal(hs0, hs1) and all(map(torch.equal, st0, st1))):
+                fail(f"slstm_scan {dname} B={b} S={s}: save mode changes hs or the final state")
+            if not all(torch.equal(v[:, -1], f) for v, f in zip(saved, st1[1:])):
+                fail(f"slstm_scan {dname} B={b} S={s}: the saved last step is not the final "
+                     f"(c, n, m)")
+        log(f"slstm_scan {dname} save mode at B=1/4/8 S=16/100/384 D=2048 H=4: hs and the "
+            f"final state bit for bit as without it; the saved last step is the final state")
+    worst, n = {}, 0
+    for dname, dt in dts.items():
+        for (d, h), shapes in SLSTM_BWD_CASES.items():
+            for b, s in shapes:
+                for state in (False, True):
+                    args = slstm_inputs(rnd, dev, b, s, d, h, dt, state)
+                    hs, _, saved = _launch_fwd(*args, True)
+                    cot = [rnd(b, s, d, dt=torch.float32)] + \
+                        [rnd(b, d, dt=torch.float32) for _ in range(4)]
+                    got = slstm_scan_bwd(*args, hs, *saved, *cot)
+                    what = f"slstm_scan_bwd {dname} B={b} S={s} D={d} H={h} " \
+                           f"{'random' if state else 'zero'} state"
+                    e = check_slstm_bwd(what, got, slstm_scan_bwd_ref(*args, hs, *saved, *cot))
+                    if not all(map(torch.equal, got, slstm_scan_bwd(*args, hs, *saved, *cot))):
+                        fail(f"{what}: a second call differs (not deterministic)")
+                    if not state and any(torch.count_nonzero(g) for g in got[4:]):
+                        fail(f"{what}: from the zero state dc0, dn0, dm0 must be 0")
+                    worst[dname] = max(worst.get(dname, 0.0), e)
+                    n += 1
+        log(f"slstm_scan_bwd {dname}: {n} cases ((D, H): (B, S) {SLSTM_BWD_CASES}, zero and "
+            f"random state, cotangents on hs and the final state): max_abs_err "
+            f"{worst[dname]:.3e}, every call repeated bit for bit")
+        n = 0
+    times = {}
+    for b, s, d, h, dt in ((8, 1024, 2048, 4, torch.bfloat16), (4, 256, 512, 8, torch.bfloat16)):
+        dname = str(dt).split(".")[-1]
+        args = slstm_inputs(rnd, dev, b, s, d, h, dt, False)
+        hs, _, saved = _launch_fwd(*args, True)
+        dhs = rnd(b, s, d, dt=torch.float32)
+        what = f"slstm_scan_bwd {dname} B={b} S={s} D={d} H={h}"
+        check_slstm_bwd(f"{what} (timed)", slstm_scan_bwd(*args, hs, *saved, dhs),
+                        slstm_scan_bwd_ref(*args, hs, *saved, dhs))
+        t = timings(lambda: slstm_scan_bwd(*args, hs, *saved, dhs),
+                    lambda: slstm_scan_bwd_ref(*args, hs, *saved, dhs), None, plain_iters=1,
+                    what=what, host_iters=10)
+        xb = 2 if dt == torch.bfloat16 else 4
+        t["bound_ms"], t["bound_by"] = slstm_bwd_bound(b, s, d, h, xb, xb)
+        p = slstm_scan_bwd_plan(b, d, h, x_dtype=dt, w_dtype=dt)
+        t["variant"], t["blocks"], t["j"] = "grid", p.blocks, p.j
+        log_timings(f"{what} [cooperative grid: {p.blocks} blocks of J={p.j}, {p.smem} B shared "
+                    f"memory a block]", t, None)
+        times[f"B={b} S={s} D={d} H={h} {dname}"] = t
+    key = "B=8 S=1024 D=2048 H=4 bfloat16"
+    return {"slstm_scan_bwd": {"max_abs_err": worst["bfloat16"],
+                               "shape": f"{key} (xlstm-1.3b training)", **times[key],
+                               "shapes": {k: {kk: vv for kk, vv in t.items() if kk != "wall_ms"}
+                                          for k, t in times.items()}}}
 
 
 def phase_ragged_concat(dev, gen) -> dict:
@@ -2052,7 +2220,15 @@ def _leaves(tree):
 # MODEL_F32_REL_TOL, the two differ only in the order of f32 sums inside K1,
 # K2 and their backwards (~1e-6 relative a call), carried forward and back
 # through 28 layers; 1e-3 of each leaf group's largest gradient leaves room
-# for that while an indexing, masking or scaling fault is O(1).
+# for that while an indexing, masking or scaling fault is O(1).  The same
+# bound holds full-width xlstm-1.3b (B 2 x S 256), whose gradients have
+# stayed within 9.4e-05 of plain on the card (NVIDIA H100 80GB HBM3,
+# 700 W), 13x qwen2's 7.3e-06: K5 and K5-bwd use CUDA's expf, log1pf and
+# tanhf where plain torch uses its own, a few ulp apart at each step, and
+# the recurrence carries those differences through 256 steps forward and
+# 256 back in each of the 6 sLSTM blocks.  1e-3 leaves about 10x room
+# above that reading, and stays far below the O(1) error of an indexing,
+# masking or scaling fault.
 GRAD_F32_REL_TOL = 1e-3
 TRAIN_ARCH = "qwen2-1.5b"
 TRAIN_F32_BS = (2, 256)                      # B, S of phase 26
@@ -2083,17 +2259,34 @@ RESUME_FAULTS = ("moments zeroed", "master weights from the bf16 params",
 # inside the same bounds.
 FAMILY_LOSS_REL_TOL, FAMILY_GNORM_REL_TOL = 1e-2, 5e-2
 FAMILY_TRAIN = ("qwen2-1.5b", "qwen2-moe-a2.7b", "zamba2-2.7b", "whisper-small",
-                "llama-3.2-vision-90b")
+                "llama-3.2-vision-90b", "xlstm-1.3b")
 FAMILY_BS, FAMILY_STEPS = (4, 256), 3
-TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd")
+# phase 27's xLSTM run: full-width xlstm-1.3b in bf16 through the Trainer,
+# no checkpoint (the qwen2 run above covers save and resume)
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_TRAIN_BS = (8, 1024)
+XLSTM_TRAIN_STEPS = 6
+
+
+def family_kernels(cfg) -> tuple:
+    """The kernels (``train_wrappers`` names) a training step of the family
+    launches: the norms and the attention kernels, or the norms and the
+    sLSTM scan (xLSTM); whisper's LayerNorms take no K1."""
+    if cfg.family == "xlstm":
+        return ("rmsnorm", "rmsnorm_bwd", "slstm_scan", "slstm_scan_bwd")
+    if cfg.family == "whisper":
+        return ("flash_attention", "flash_attention_bwd")
+    return ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd")
 
 
 def train_wrappers() -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan, slstm_scan_bwd
 
     return {"rmsnorm": fused_rmsnorm, "rmsnorm_bwd": rmsnorm_bwd,
-            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "slstm_scan": slstm_scan, "slstm_scan_bwd": slstm_scan_bwd}
 
 
 def zero_counts(ws: dict) -> None:
@@ -2287,7 +2480,8 @@ def phase_backward_kernels(dev, gen, rnd, dts) -> dict:
 
 
 def leaf_group(path: str) -> str:
-    for group, keys in (("norms", ("ln1", "ln2", "final_norm")),
+    for group, keys in (("slstm", ("slstm",)), ("mlstm", ("mlstm",)),
+                        ("norms", ("ln1", "ln2", "final_norm", "ln_m", "ln_s", "ln_s2")),
                         ("attention", ("attn",)), ("mlp", ("mlp",)),
                         ("embedding", ("tok_embed", "lm_head"))):
         if any(f"'{k}'" in path for k in keys):
@@ -2296,30 +2490,39 @@ def leaf_group(path: str) -> str:
 
 
 def train_step_counts(cfg, steps: int = 1) -> dict:
-    """The kernel launches ``steps`` training steps of the dense family
-    imply: the forward's 2L + 1 K1 and L K2 calls, the layers' 2L and L
-    again where remat recomputes them, and one backward call for each
-    forward call of the step."""
+    """The kernel launches ``steps`` training steps imply: dense, the
+    forward's 2L + 1 K1 and L K2 calls, the layers' 2L and L again where
+    remat recomputes them; xLSTM, the forward's ``norms_per_call`` K1 calls
+    and one K5 per sLSTM block, each mLSTM block's two norms again where
+    remat recomputes it (the sLSTM blocks are not under remat); and one
+    backward call for each forward call of the step."""
     L = cfg.num_layers
     again = cfg.remat != "none"
+    if cfg.family == "xlstm":
+        ns = L // cfg.slstm_every if cfg.slstm_every > 0 else 0
+        fwd = norms_per_call(cfg)
+        return {"rmsnorm": steps * (fwd + 2 * (L - ns) * again), "rmsnorm_bwd": steps * fwd,
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "slstm_scan": steps * ns, "slstm_scan_bwd": steps * ns}
     return {"rmsnorm": steps * (2 * L + 1 + 2 * L * again),
             "rmsnorm_bwd": steps * (2 * L + 1),
             "flash_attention": steps * (L + L * again),
-            "flash_attention_bwd": steps * L}
+            "flash_attention_bwd": steps * L, "slstm_scan": 0, "slstm_scan_bwd": 0}
 
 
-def phase_train_f32(dev) -> dict:
-    """Phase 26: full-width qwen2-1.5b in f32 (all 28 layers, B 2, S 256,
-    remat ``block``): the loss and every gradient leaf, kernel path against
-    ``plain=True`` on the same weights and tokens, the max relative error
-    per leaf group, and the launches the remat policy implies."""
+def phase_train_f32(dev, arch: str) -> dict:
+    """Phase 26: a full-width model in f32 (qwen2-1.5b: all 28 layers;
+    xlstm-1.3b: all 48 blocks; B 2, S 256, remat ``block``): the loss and
+    every gradient leaf, kernel path against ``plain=True`` on the same
+    weights and tokens, the max relative error per leaf group, and the
+    launches the remat policy implies."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.models.common import tree_items
 
-    cfg = get_config(TRAIN_ARCH).scaled(param_dtype="float32", compute_dtype="float32")
+    cfg = get_config(arch).scaled(param_dtype="float32", compute_dtype="float32")
     fast, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
     params = fast.init(SEED)
     leaves = [p.requires_grad_() for _, p in tree_items(params)]
@@ -2334,48 +2537,52 @@ def phase_train_f32(dev) -> dict:
     counts = {n: w.launches for n, w in ws.items()}
     loss_p = plain.loss(params, batch)
     grads_p = torch.autograd.grad(loss_p, leaves)
-    log(f"f32 {TRAIN_ARCH} train B={b} S={s} remat={cfg.remat}: loss kernel "
+    log(f"f32 {arch} train B={b} S={s} remat={cfg.remat}: loss kernel "
         f"{loss_k.item():.6f}, plain {loss_p.item():.6f}")
     if not torch.isfinite(loss_k) or abs(float(loss_k) - float(loss_p)) > \
             GRAD_F32_REL_TOL * abs(float(loss_p)):
-        fail(f"f32 {TRAIN_ARCH} train: loss {float(loss_k)} vs plain {float(loss_p)}")
+        fail(f"f32 {arch} train: loss {float(loss_k)} vs plain {float(loss_p)}")
     rel = {}
     for (path, _), gk, gp in zip(tree_items(params), grads_k, grads_p):
         if not torch.isfinite(gk).all():
-            fail(f"f32 {TRAIN_ARCH} train: non-finite gradient {path}")
+            fail(f"f32 {arch} train: non-finite gradient {path}")
         scale = float(gp.abs().max())
         if scale == 0:
-            fail(f"f32 {TRAIN_ARCH} train: zero plain gradient {path}")
+            fail(f"f32 {arch} train: zero plain gradient {path}")
         group = leaf_group(path)
         rel[group] = max(rel.get(group, 0.0), max_err(gk, gp) / scale)
-    log(f"f32 {TRAIN_ARCH} train: max relative gradient error by leaf group (each leaf's "
+    log(f"f32 {arch} train: max relative gradient error by leaf group (each leaf's "
         f"max |kernel - plain| over its largest plain gradient): "
         + ", ".join(f"{g} {e:.3e}" for g, e in sorted(rel.items()))
         + f" (bound {GRAD_F32_REL_TOL})")
     if max(rel.values()) > GRAD_F32_REL_TOL:
-        fail(f"f32 {TRAIN_ARCH} train: gradients differ beyond {GRAD_F32_REL_TOL}: {rel}")
+        fail(f"f32 {arch} train: gradients differ beyond {GRAD_F32_REL_TOL}: {rel}")
     want = train_step_counts(cfg)
-    log(f"f32 {TRAIN_ARCH} train: launches in one loss + backward {counts} (remat "
+    log(f"f32 {arch} train: launches in one loss + backward {counts} (remat "
         f"{cfg.remat} implies {want})")
     if counts != want:
-        fail(f"f32 {TRAIN_ARCH} train: launches {counts} != {want}")
-    del params, leaves, grads_k, grads_p
+        fail(f"f32 {arch} train: launches {counts} != {want}")
+    del params, leaves, grads_k, grads_p, fast, plain
+    torch.cuda.empty_cache()
     return counts
 
 
-def profile_train_step(step, state, batch) -> dict:
+def profile_train_step(step, state, batch, what: str = "bf16 train step") -> dict:
     """Device ms by kernel name in one training step (``torch.profiler``),
-    grouped: attention forward and backward, the norm and its backward,
-    matrix products, the optimizer's elementwise passes, the rest."""
+    grouped: attention forward and backward, the norm and its backward, the
+    sLSTM scan and its backward, matrix products, the optimizer's
+    elementwise passes, the rest."""
     by = device_breakdown(lambda: step(state, batch), iters=1, warm=0)
     if EVENTS_KEY in by:
-        log("bf16 train step device ms by group: not measured (no profiler activity); "
+        log(f"{what} device ms by group: not measured (no profiler activity); "
             f"whole step {by[EVENTS_KEY][0]:.2f} ms between CUDA events")
         return {"whole step (CUDA events)": by[EVENTS_KEY][0]}
     groups = {}
     for name, (ms, n) in by.items():
         low = name.lower()
-        g = ("K2-bwd" if "bwd_dkdv" in low or "bwd_dq" in low or "bwd_delta" in low else
+        g = ("K5-bwd" if "slstm_scan_bwd" in low else
+             "K5" if "slstm_scan" in low else
+             "K2-bwd" if "bwd_dkdv" in low or "bwd_dq" in low or "bwd_delta" in low else
              "K2" if "flash_fwd" in low else
              "K1-bwd" if "rmsnorm_bwd" in low or "rmsnorm_dscale" in low else
              "K1" if "rmsnorm_fwd" in low else
@@ -2385,31 +2592,94 @@ def profile_train_step(step, state, batch) -> dict:
         ms0, n0 = groups.get(g, (0.0, 0))
         groups[g] = (ms0 + ms, n0 + n)
     total = sum(ms for ms, _ in groups.values())
-    log("bf16 train step device ms by group: " + "; ".join(
+    log(f"{what} device ms by group: " + "; ".join(
         f"{g} {ms:.2f} ({100 * ms / total:.1f}%, {n} kernels)"
         for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
-    log_breakdown("bf16 train step (top kernels)", dict(sorted(by.items(),
+    log_breakdown(f"{what} (top kernels)", dict(sorted(by.items(),
                                                                key=lambda kv: -kv[1][0])[:12]))
     return {g: ms for g, (ms, _) in groups.items()}
 
 
-def phase_train_bf16(dev) -> tuple[dict, dict]:
-    """Phase 27: full-width qwen2-1.5b, bf16 params with f32 master and
-    moments, through ``Trainer`` over the zero-copy data plane (B 8 x S
-    1024): 8 steps with a checkpoint at step 4; the step-8 checkpoint is
-    then removed and a second ``Trainer`` on the same directory resumes at
-    step 5 from the one at step 4, and its losses for steps 5-8 must equal
-    the uninterrupted run's within ``RESUME_LOSS_TOL``.  Prints the step ms
-    (median of steps 3-8), tokens/s, the model-FLOP share, peak device
-    memory, the losses at steps 1 and 8, the launches (the remat policy's
-    count, every step), and one step's device time by kernel group."""
-    import shutil
+def run_train(dev, arch: str, tc, label: str) -> tuple[dict, list, dict]:
+    """Phase 27's measured run: ``Trainer`` on full-width ``arch`` (bf16
+    params with f32 master and moments) over the zero-copy data plane, as
+    ``tc`` says.  The launches must be ``train_step_counts``' (the remat
+    policy's count; K5 and K5-bwd once per sLSTM block a step) and the
+    losses finite and falling.  Prints the step ms (median of steps 3 on),
+    tokens/s, the model-FLOP share, peak device memory and the first and
+    last losses, each line starting with ``label``, then one more step's
+    device time by kernel group (the run's last state; not part of any
+    result above).  Returns the launches, the metrics log and those
+    measurements."""
     import statistics
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = get_config(arch)
+    b, s, steps = tc.batch, tc.seq_len, tc.total_steps
+    ws = train_wrappers()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    tr = Trainer(Model(cfg, device=dev), tc)
+    zero_counts(ws)
+    tr.run()
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in ws.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(t.numel() for t in _leaves(tr.state["params"]))
+    log(f"bf16 {arch} train: {n_params / 1e9:.4f} B parameters (param_count "
+        f"{cfg.param_count() / 1e9:.4f} B), B={b} S={s}, remat {cfg.remat}: {steps} steps in "
+        f"{time.monotonic() - t0:.1f} s (state built, checkpoints' snapshots included)")
+    recs = tr.metrics_log
+    state, step_fn = tr.state, make_train_step(tr.model, tr.opt)
+    tr.close()                                   # joins the last checkpoint's writer
+    want = train_step_counts(cfg, steps)
+    if counts != want:
+        fail(f"bf16 {arch} train: launches {counts} != {want}")
+    losses = [r["loss"] for r in recs]
+    if not all(map(lambda x: x == x and abs(x) < 1e4, losses)) or not losses[-1] < losses[0]:
+        fail(f"bf16 {arch} train: losses {losses} are not finite or do not fall")
+    step_s = statistics.median(r["dt"] for r in recs[2:])
+    tokens = b * s
+    share = 6 * cfg.param_count() * tokens / (step_s * 989e12)
+    print(f"{label} step ms (median of steps 3-{steps}): {step_s * 1e3:.2f}", flush=True)
+    print(f"{label} tokens/s: {tokens / step_s:.0f}", flush=True)
+    print(f"{label} model-FLOP share (6 N tokens / (step s x 989e12)): {share:.4f}",
+          flush=True)
+    print(f"{label} peak device memory GB: {peak / 1e9:.2f}", flush=True)
+    print(f"{label} loss step 1: {losses[0]:.6f}  step {steps}: {losses[-1]:.6f}", flush=True)
+    log(f"bf16 {arch} train: launches over {steps} steps {counts} (as train_step_counts "
+        f"says); losses {[round(x, 4) for x in losses]}; step s "
+        f"{[round(r['dt'], 4) for r in recs]}; grad norms "
+        f"{[round(r['grad_norm'], 4) for r in recs]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    groups = profile_train_step(step_fn, state,
+                                {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                                                         generator=gen)},
+                                f"bf16 {arch} train step")
+    return counts, recs, {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+                          "model_flop_share": share, "peak_gb": peak / 1e9, "batch": [b, s],
+                          "losses": losses, "groups_ms": groups}
+
+
+def phase_train_bf16(dev) -> tuple[dict, dict]:
+    """Phase 27: full-width qwen2-1.5b through ``run_train`` (B 8 x S 1024,
+    8 steps with a checkpoint at step 4); the step-8 checkpoint is then
+    removed and a second ``Trainer`` on the same directory resumes at step
+    5 from the one at step 4, and its losses for steps 5-8 must equal the
+    uninterrupted run's within ``RESUME_LOSS_TOL``, while each planted
+    restore fault of ``RESUME_FAULTS`` must move them beyond it."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
@@ -2420,49 +2690,8 @@ def phase_train_bf16(dev) -> tuple[dict, dict]:
     tc = TrainerConfig(batch=b, seq_len=s, total_steps=TRAIN_STEPS, warmup=2,
                        ckpt_every=TRAIN_CKPT_AT, ckpt_dir=str(ckpt), ckpt_keep=2, log_every=1,
                        seed=SEED)
-    ws = train_wrappers()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.monotonic()
-    tr = Trainer(Model(cfg, device=dev), tc)
-    zero_counts(ws)
-    tr.run()
-    torch.cuda.synchronize()
-    counts = {n: w.launches for n, w in ws.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
-    n_params = sum(t.numel() for t in _leaves(tr.state["params"]))
-    log(f"bf16 {TRAIN_ARCH} train: {n_params / 1e9:.4f} B parameters (param_count "
-        f"{cfg.param_count() / 1e9:.4f} B), remat {cfg.remat}: {TRAIN_STEPS} steps in "
-        f"{time.monotonic() - t0:.1f} s (state built, checkpoints' snapshots included)")
-    straight = tr.metrics_log
-    state, step_fn = tr.state, make_train_step(tr.model, tr.opt)
-    tr.close()                                   # joins the step-8 checkpoint's writer
-    want = train_step_counts(cfg, TRAIN_STEPS)
-    if counts != want:
-        fail(f"bf16 {TRAIN_ARCH} train: launches {counts} != {want}")
-    losses = [r["loss"] for r in straight]
-    if not all(map(lambda x: x == x and abs(x) < 1e4, losses)):
-        fail(f"bf16 {TRAIN_ARCH} train: losses {losses}")
-    dts = sorted(r["dt"] for r in straight[2:])
-    step_s = statistics.median(dts)
-    tokens = b * s
-    flops = 6 * cfg.param_count() * tokens
-    print(f"train step ms (median of steps 3-{TRAIN_STEPS}): {step_s * 1e3:.2f}", flush=True)
-    print(f"train tokens/s: {tokens / step_s:.0f}", flush=True)
-    print(f"train model-FLOP share (6 N tokens / (step s x 989e12)): "
-          f"{flops / (step_s * 989e12):.4f}", flush=True)
-    print(f"train peak device memory GB: {peak / 1e9:.2f}", flush=True)
-    print(f"train loss step 1: {losses[0]:.6f}  step {TRAIN_STEPS}: {losses[-1]:.6f}",
-          flush=True)
-    log(f"bf16 {TRAIN_ARCH} train: launches over {TRAIN_STEPS} steps {counts} (the remat "
-        f"policy's count); losses {[round(x, 4) for x in losses]}; step s "
-        f"{[round(r['dt'], 4) for r in straight]}; grad norms "
-        f"{[round(r['grad_norm'], 4) for r in straight]}")
-    # one more step, profiled (the run's last state; not part of any result above)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    groups = profile_train_step(step_fn, state,
-                                {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device=dev,
-                                                         generator=gen)})
-    del state, step_fn, tr
+    counts, straight, measured = run_train(dev, TRAIN_ARCH, tc, "train")
+    losses = measured["losses"]
 
     shutil.rmtree(ckpt / f"step_{TRAIN_STEPS:010d}")
     t0 = time.monotonic()
@@ -2493,7 +2722,29 @@ def phase_train_bf16(dev) -> tuple[dict, dict]:
         fail(f"a planted restore fault stays within the resume bound {RESUME_LOSS_TOL}: {faults}")
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
-    return counts, {"step_ms": step_s * 1e3, "groups_ms": groups}
+    return counts, measured
+
+
+def phase_train_xlstm_bf16(dev) -> tuple[dict, dict]:
+    """Phase 27, xLSTM: full-width xlstm-1.3b (48 blocks, [7 mLSTM : 1 sLSTM]
+    x 6, d 2048, 4 heads, vocab 50,304) through ``run_train``
+    (``XLSTM_TRAIN_BS``, ``XLSTM_TRAIN_STEPS`` steps, no checkpoint), with
+    K5 and K5-bwd named in the step's device time."""
+    import shutil
+
+    import torch
+
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    b, s = XLSTM_TRAIN_BS
+    ckpt = ROOT / "build" / "train_ckpt_xlstm"      # stays empty: ckpt_every=0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tc = TrainerConfig(batch=b, seq_len=s, total_steps=XLSTM_TRAIN_STEPS, warmup=2,
+                       ckpt_every=0, ckpt_dir=str(ckpt), log_every=1, seed=SEED)
+    counts, _, measured = run_train(dev, XLSTM_ARCH, tc, "xlstm train")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts, measured
 
 
 def resume_with_fault(cfg, tc, dev, fault: str) -> list:
@@ -2546,13 +2797,14 @@ def family_batch(cfg, gen) -> dict:
 
 
 def phase_train_families(dev) -> dict:
-    """Phase 28: the 100m reduction of each family but xLSTM (head dim 64)
-    in bf16, 3 training steps (``make_train_step``, AdamW) on one random
-    batch of 4 x 256 each, kernel path against plain path at step 1 (loss
-    and grad norm, within ``FAMILY_*_REL_TOL``); then xlstm's refusal."""
+    """Phase 28: the 100m reduction of each family (head dim 64; xLSTM's
+    d 512 over 8 heads, one sLSTM block) in bf16, 3 training steps
+    (``make_train_step``, AdamW) on one random batch of 4 x 256 each, kernel
+    path against plain path at step 1 (loss and grad norm, within
+    ``FAMILY_*_REL_TOL``), every kernel of the family's step launched."""
     import torch
 
-    from repro_torch.configs import get_smoke_config, model_100m
+    from repro_torch.configs import model_100m
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import Model
     from repro_torch.optim import AdamW
@@ -2592,23 +2844,14 @@ def phase_train_families(dev) -> dict:
             f"{launches[f'{arch} train 100m']}")
         if not ok or not all(x == x for x, _ in out["kernel"]):
             fail(f"{arch} 100m train: kernel path {out['kernel'][0]} vs plain {out['plain'][0]}")
-        need = [n for n in TRAIN_KERNELS if cfg.family != "whisper" or "rmsnorm" not in n]
-        if not all(launches[f"{arch} train 100m"][n] > 0 for n in need):
+        if not all(launches[f"{arch} train 100m"][n] > 0 for n in family_kernels(cfg)):
             fail(f"{arch} 100m train: a kernel was not launched: {launches[f'{arch} train 100m']}")
-    cfg = get_smoke_config("xlstm-1.3b")
-    try:
-        Model(cfg, device=dev).loss({}, {"tokens": torch.zeros((1, 4), dtype=torch.long,
-                                                                device=dev)})
-    except NotImplementedError as e:
-        log(f"xlstm on the card refuses training as it must: {str(e)[:120]}")
-    else:
-        fail("xlstm's loss on the card did not refuse (K5 has no backward kernel)")
     return launches
 
 
 class BackwardCalls:
     """Stands in for a backward kernel's wrapper (``rmsnorm_bwd``,
-    ``flash_attention_bwd``) in its module while the training phases run
+    ``flash_attention_bwd``, ``slstm_scan_bwd``) in its module while the training phases run
     (the autograd Functions call the module's name), recording each call's
     tensors as (dtype, shape, strides) with its other arguments.  Its
     ``launches`` is the wrapped function's, so the wrapper's own count
@@ -2642,19 +2885,23 @@ class BackwardCalls:
 
 
 def phase_train_shapes(dev, calls: dict) -> dict:
-    """Phase 29: every (dtype, shape, strides, mode) K1-bwd and K2-bwd ran
-    on in phases 26-28, again on unit-scale random inputs laid out as the
-    path's (``as_strided`` over a fresh buffer) against the plain backward
-    at ``TOL`` (dscale, a sum over up to 8192 rows, at 10x in f32), each
-    call twice bit for bit, and K2's forward with its logsumexp output as
-    in phase 3.  The paths' own gradients are too small to hold at an
-    absolute tolerance (a mean over up to 8192 tokens), so the layouts are
-    replayed, not the values."""
+    """Phase 29: every (dtype, shape, strides, mode) K1-bwd, K2-bwd and
+    K5-bwd ran on in phases 26-28, again on unit-scale random inputs laid
+    out as the path's (``as_strided`` over a fresh buffer) against the plain
+    backward at ``TOL`` (dscale, a sum over up to 8192 rows, at 10x in f32;
+    K5-bwd as in phase 3, its forward inputs fresh and dense from the zero
+    state through K5 in save mode, its cotangents as the path passed them,
+    None where it passed None), each call twice bit for bit, and K2's
+    forward with its logsumexp output as in phase 3.  The paths' own
+    gradients are too small to hold at an absolute tolerance (a mean over up
+    to 8192 tokens), so the layouts are replayed, not the values."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (flash_attention_bwd,
                                                          flash_attention_bwd_ref)
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd, rmsnorm_bwd_ref
+    from repro_torch.kernels.slstm_scan.ops import (_launch_fwd, slstm_scan_bwd,
+                                                    slstm_scan_bwd_ref)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 29)
 
@@ -2707,9 +2954,31 @@ def phase_train_shapes(dev, calls: dict) -> dict:
             fail(f"{what}: a second call differs (not deterministic)")
     out["flash_attention_bwd"] = {"path_shapes": len(calls["flash_attention_bwd"].seen),
                                   "path_max_abs_err": worst}
+    worst = 0.0
+    for args, _ in calls["slstm_scan_bwd"].seen:
+        (xg, w, *_), rest = args[:7], args[7:]
+        b, s, d4 = xg[1]
+        what = f"slstm_scan_bwd path shape {name(xg[0])} xg {xg[1]} w_hh {name(w[0])} {w[1]} " \
+               f"cotangents {['-' if a is None else 'y' for a in rest[4:]]}"
+        fwd_args = slstm_inputs(lambda *sh, dt: torch.randn(sh, generator=gen, device=dev).to(dt),
+                                dev, b, s, d4 // 4, w[1][0], xg[0], False)
+        fwd_args[1] = fwd_args[1].to(w[0])
+        hs, _, saved = _launch_fwd(*fwd_args, True)
+        cot = [None if a is None else fresh(a).float() for a in rest[4:]]
+        got = slstm_scan_bwd(*fwd_args, hs, *saved, *cot)
+        worst = max(worst, check_slstm_bwd(what, got,
+                                           slstm_scan_bwd_ref(*fwd_args, hs, *saved, *cot)))
+        if not all(map(torch.equal, got, slstm_scan_bwd(*fwd_args, hs, *saved, *cot))):
+            fail(f"{what}: a second call differs (not deterministic)")
+    out["slstm_scan_bwd"] = {"path_shapes": len(calls["slstm_scan_bwd"].seen),
+                             "path_max_abs_err": worst}
     log(f"flash_attention_bwd at the {len(calls['flash_attention_bwd'].seen)} layouts and modes "
-        f"phases 26-28 ran, fresh inputs: max_abs_err {worst:.3e}, the forward's logsumexp "
+        f"phases 26-28 ran, fresh inputs: max_abs_err "
+        f"{out['flash_attention_bwd']['path_max_abs_err']:.3e}, the forward's logsumexp "
         f"within {LSE_TOL}, every call repeated bit for bit")
+    log(f"slstm_scan_bwd at the {len(calls['slstm_scan_bwd'].seen)} dtypes, shapes and "
+        f"cotangents phases 26-28 ran, fresh inputs from the zero state through K5 in save "
+        f"mode: max_abs_err {worst:.3e}, every call repeated bit for bit")
     return out
 
 
@@ -2733,6 +3002,8 @@ REPLACES = {
                     "src/repro/kernels/rmsnorm/kernel.py:25"),
     "flash_attention_bwd": ("cuda", "src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/kernels/flash_attention/kernel.py:70"),
+    "slstm_scan_bwd": ("cuda", "src/repro_torch/csrc/slstm_scan_bwd.cu",
+                       "src/repro/kernels/slstm_scan/kernel.py:88"),
 }
 
 
@@ -2848,21 +3119,28 @@ def main() -> None:
                                    ("bf16 generation", phase_cross_bf16)))
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.kernels.slstm_scan import ops as scan_ops
 
     calls = {"rmsnorm_bwd": BackwardCalls(norm_ops, "rmsnorm_bwd"),
-             "flash_attention_bwd": BackwardCalls(flash_ops, "flash_attention_bwd")}
-    with calls["rmsnorm_bwd"], calls["flash_attention_bwd"]:
-        t0 = time.monotonic()
-        launches[f"{TRAIN_ARCH} train f32"] = phase_train_f32(dev)
-        log(f"phase 26 (f32 training gradients, {TRAIN_ARCH}) done in "
-            f"{time.monotonic() - t0:.1f} s")
+             "flash_attention_bwd": BackwardCalls(flash_ops, "flash_attention_bwd"),
+             "slstm_scan_bwd": BackwardCalls(scan_ops, "slstm_scan_bwd")}
+    with calls["rmsnorm_bwd"], calls["flash_attention_bwd"], calls["slstm_scan_bwd"]:
+        for arch in (TRAIN_ARCH, XLSTM_ARCH):
+            t0 = time.monotonic()
+            launches[f"{arch} train f32"] = phase_train_f32(dev, arch)
+            log(f"phase 26 (f32 training gradients, {arch}) done in "
+                f"{time.monotonic() - t0:.1f} s")
         t0 = time.monotonic()
         launches[f"{TRAIN_ARCH} train bf16"], train = phase_train_bf16(dev)
         log(f"phase 27 (bf16 training with the Trainer and a resume, {TRAIN_ARCH}) done in "
             f"{time.monotonic() - t0:.1f} s")
         t0 = time.monotonic()
+        launches[f"{XLSTM_ARCH} train bf16"], xtrain = phase_train_xlstm_bf16(dev)
+        log(f"phase 27 (bf16 training with the Trainer, {XLSTM_ARCH}) done in "
+            f"{time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
         launches.update(phase_train_families(dev))
-        log(f"phase 28 (training, the other families at 100m) done in "
+        log(f"phase 28 (training, every family at 100m) done in "
             f"{time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     for n, r in phase_train_shapes(dev, calls).items():
@@ -2874,7 +3152,7 @@ def main() -> None:
     kernels = []
     for name, (route, source, replaces) in REPLACES.items():
         r = report[name]
-        by_path = {a: c[name] for a, c in launches.items() if name in c}
+        by_path = {a: c[name] for a, c in launches.items() if c.get(name)}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "role": "backward" if name.endswith("_bwd") else "forward",
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2891,7 +3169,8 @@ def main() -> None:
                                              "path_shapes", "path_max_abs_err")
                            if k in r}})
     print(json.dumps({"kernels": kernels, "train_step_ms": train["step_ms"],
-                      "train_step_device_ms_by_group": train["groups_ms"]}), flush=True)
+                      "train_step_device_ms_by_group": train["groups_ms"],
+                      "xlstm_train": xtrain}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -10,8 +10,11 @@
 //   m = max(log_sigmoid(f) + m', i);  i' = exp(i - m);  f' = exp(log_sigmoid(f) + m' - m)
 //   c = f' c' + i' tanh(z);  n = f' n' + i';  h = sigmoid(o) c / max(n, 1e-6)
 // from a given state (h0, c0, n0, m0), writing hs (B, S, D) and the final
-// state, all f32.  m0 = -inf makes f' = exp(-inf) = 0 on the first step, so
-// the file is built without --use_fast_math (gate_step picks its own approximations).
+// state, all f32; in "save" mode (training) the same launch also writes
+// every step's c, n and m, (B, S, D) f32 each, which the backward kernel
+// (slstm_scan_bwd.cu) reads instead of running the recurrence again.
+// m0 = -inf makes f' = exp(-inf) = 0 on the first step, so the file is
+// built without --use_fast_math (gate_step picks its own approximations).
 //
 // What bounds it on the H100: the serial chain.  Step t needs the whole
 // h_{t-1} of a head, so the S steps are S dependent rounds; the bytes
@@ -119,6 +122,7 @@ slstm_scan_grid(const TX* __restrict__ xg, const TW* __restrict__ whh,
                 const float* __restrict__ c0, const float* __restrict__ n0,
                 const float* __restrict__ m0, float* __restrict__ hs, float* __restrict__ hN,
                 float* __restrict__ cN, float* __restrict__ nN, float* __restrict__ mN,
+                float* __restrict__ cS, float* __restrict__ nS, float* __restrict__ mS,
                 float* hbuf, int B, int S, int D, int H, int J) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -205,7 +209,13 @@ slstm_scan_grid(const TX* __restrict__ xg, const TW* __restrict__ whh,
       n_s[i] = n;
       m_s[i] = m;
       const size_t o = (size_t)b * D + head * dh + j;
-      hs[((size_t)b * S + t) * D + head * dh + j] = h;
+      const size_t ot = ((size_t)b * S + t) * D + head * dh + j;
+      hs[ot] = h;
+      if (cS) {                               // save mode: every step's state
+        cS[ot] = c;
+        nS[ot] = n;
+        mS[ot] = m;
+      }
       hdst[o] = h;
       if (t == S - 1) {
         hN[o] = h;
@@ -416,7 +426,8 @@ slstm_scan_cluster(const TX* __restrict__ xg, const TW* __restrict__ whh,
                    const float* __restrict__ c0, const float* __restrict__ n0,
                    const float* __restrict__ m0, float* __restrict__ hs,
                    float* __restrict__ hN, float* __restrict__ cN, float* __restrict__ nN,
-                   float* __restrict__ mN, int B, int S, int D, int H, int J, int vec_w,
+                   float* __restrict__ mN, float* __restrict__ cS, float* __restrict__ nS,
+                   float* __restrict__ mS, int B, int S, int D, int H, int J, int vec_w,
                    int vec_x) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int VW = 16 / sizeof(TW);
@@ -525,7 +536,13 @@ slstm_scan_cluster(const TX* __restrict__ xg, const TW* __restrict__ whh,
         n_s[i] = n;
         m_s[i] = m;
         const size_t o = (size_t)b * D + head * dh + j;
-        hs[((size_t)b * S + t) * D + head * dh + j] = h;
+        const size_t ot = ((size_t)b * S + t) * D + head * dh + j;
+        hs[ot] = h;
+        if (cS) {                             // save mode: every step's state
+          cS[ot] = c;
+          nS[ot] = n;
+          mS[ot] = m;
+        }
         if (!send) {
           hN[o] = h;
           cN[o] = c;
@@ -702,8 +719,8 @@ int get_plan(int x_bf16, int w_bf16, int B, int D, int H, Plan* p) {
 template <typename TX, typename TW>
 int launch(const Plan& p, const void* xg, const void* whh, const float* bias, const float* h0,
            const float* c0, const float* n0, const float* m0, float* hs, float* hN,
-           float* cN, float* nN, float* mN, float* hbuf, int B, int S, int D, int H,
-           cudaStream_t stream) {
+           float* cN, float* nN, float* mN, float* cS, float* nS, float* mS, float* hbuf, int B,
+           int S, int D, int H, cudaStream_t stream) {
   const TX* x = static_cast<const TX*>(xg);
   const TW* w = static_cast<const TW*>(whh);
   int J = p.J;
@@ -715,14 +732,15 @@ int launch(const Plan& p, const void* xg, const void* whh, const float* bias, co
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(p.blocks, p.cluster, p.smem, stream, &attr);
     e = B == 1 ? cudaLaunchKernelEx(&cfg, slstm_scan_cluster<TX, TW, 1>, x, w, bias, h0, c0,
-                                    n0, m0, hs, hN, cN, nN, mN, B, S, D, H, J, vec_w, vec_x)
+                                    n0, m0, hs, hN, cN, nN, mN, cS, nS, mS, B, S, D, H, J,
+                                    vec_w, vec_x)
                : cudaLaunchKernelEx(&cfg, slstm_scan_cluster<TX, TW, kClusterRows>, x, w, bias,
-                                    h0, c0, n0, m0, hs, hN, cN, nN, mN, B, S, D, H, J, vec_w,
-                                    vec_x);
+                                    h0, c0, n0, m0, hs, hN, cN, nN, mN, cS, nS, mS, B, S, D, H,
+                                    J, vec_w, vec_x);
   } else {
     if (hbuf == nullptr) return -1;
-    void* args[] = {&x, &w, &bias, &h0, &c0, &n0, &m0, &hs, &hN, &cN, &nN, &mN, &hbuf,
-                    &B, &S, &D, &H, &J};
+    void* args[] = {&x,  &w,  &bias, &h0, &c0,   &n0, &m0, &hs, &hN, &cN, &nN, &mN,
+                    &cS, &nS, &mS,   &hbuf, &B, &S,  &D,  &H,  &J};
     e = cudaLaunchCooperativeKernel((void*)slstm_scan_grid<TX, TW>, dim3(p.blocks),
                                     dim3(kThreads), args, p.smem, stream);
   }
@@ -753,30 +771,34 @@ extern "C" int slstm_scan_plan(int x_bf16, int w_bf16, int B, int D, int H, int*
   return 0;
 }
 
+// cS, nS, mS: null, or (B, S, D) f32 each, into which the same launch
+// writes every step's c, n and m ("save" mode, for the backward kernel in
+// slstm_scan_bwd.cu); hs and the final state are the same either way.
 // hbuf: scratch of 2 * B * D floats, used by the grid kernel only (may be
 // null when the plan is the cluster kernel).  Returns 0, a cudaError_t, or
 // the codes of slstm_scan_plan.
 extern "C" int slstm_scan_fwd(const void* xg, const void* whh, const float* bias,
                               const float* h0, const float* c0, const float* n0,
                               const float* m0, float* hs, float* hN, float* cN, float* nN,
-                              float* mN, float* hbuf, int x_bf16, int w_bf16, int B, int S,
-                              int D, int H, void* stream) {
+                              float* mN, float* cS, float* nS, float* mS, float* hbuf,
+                              int x_bf16, int w_bf16, int B, int S, int D, int H,
+                              void* stream) {
   if (B < 1 || S < 1 || H < 1 || D % H != 0) return -1;
   Plan p;
   const int code = get_plan(x_bf16, w_bf16, B, D, H, &p);
   if (code != 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!x_bf16 && !w_bf16)
-    return launch<float, float>(p, xg, whh, bias, h0, c0, n0, m0, hs, hN, cN, nN, mN, hbuf, B,
-                                S, D, H, st);
+    return launch<float, float>(p, xg, whh, bias, h0, c0, n0, m0, hs, hN, cN, nN, mN, cS, nS,
+                                mS, hbuf, B, S, D, H, st);
   if (!x_bf16)
     return launch<float, __nv_bfloat16>(p, xg, whh, bias, h0, c0, n0, m0, hs, hN, cN, nN, mN,
-                                        hbuf, B, S, D, H, st);
+                                        cS, nS, mS, hbuf, B, S, D, H, st);
   if (!w_bf16)
     return launch<__nv_bfloat16, float>(p, xg, whh, bias, h0, c0, n0, m0, hs, hN, cN, nN, mN,
-                                        hbuf, B, S, D, H, st);
+                                        cS, nS, mS, hbuf, B, S, D, H, st);
   return launch<__nv_bfloat16, __nv_bfloat16>(p, xg, whh, bias, h0, c0, n0, m0, hs, hN, cN,
-                                              nN, mN, hbuf, B, S, D, H, st);
+                                              nN, mN, cS, nS, mS, hbuf, B, S, D, H, st);
 }
 
 // `steps` grid barriers over a cooperative grid of `grid` blocks of 256

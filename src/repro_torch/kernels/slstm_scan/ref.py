@@ -5,14 +5,19 @@ Mirrors ``repro/kernels/slstm_scan/ref.py``: gates laid out per head as
 (..., 4*dh) = [i | f | z | o], block-diagonal recurrence through w_hh
 (H, dh, 4dh), running-max stabiliser m, normaliser n.  The recurrent
 product is taken in f32 (h is f32; a bf16 w_hh is widened), as JAX's type
-promotion does in the reference."""
+promotion does in the reference.
+
+``slstm_scan_bwd_ref`` is the plain version of the backward kernel
+(``csrc/slstm_scan_bwd.cu``): an explicit reverse-time loop with torch's
+derivative rules for :func:`slstm_step`, so it equals autograd of
+:func:`slstm_scan_ref` up to rounding."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["slstm_scan_ref", "slstm_step"]
+__all__ = ["slstm_scan_bwd_ref", "slstm_scan_ref", "slstm_step"]
 
 
 def slstm_step(xg_t: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor, h_prev, c_prev,
@@ -36,14 +41,90 @@ def slstm_step(xg_t: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor, h_pre
 
 
 def slstm_scan_ref(xg: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
-                   h0: torch.Tensor, c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor):
+                   h0: torch.Tensor, c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor, *,
+                   save_states: bool = False):
     """xg: (B, S, 4D); w_hh: (H, dh, 4dh); b_ih: (4D,); h0/c0/n0/m0: (B, D).
-    Returns (hs (B, S, D) f32, (h, c, n, m) each (B, D) f32)."""
+    Returns (hs (B, S, D) f32, (h, c, n, m) each (B, D) f32), and with
+    ``save_states`` also every step's (c, n, m), (B, S, D) f32 each: what
+    the kernel's save mode writes for the backward."""
     st = tuple(t.float() for t in (h0, c0, n0, m0))
-    hs = []
+    hs, saved = [], []
     for t in range(xg.shape[1]):
         st = slstm_step(xg[:, t], w_hh, b_ih, *st)
         hs.append(st[0])
+        saved.append(st[1:])
     if not hs:
-        return xg.new_zeros((xg.shape[0], 0, xg.shape[2] // 4), dtype=torch.float32), st
-    return torch.stack(hs, dim=1), st
+        empty = xg.new_zeros((xg.shape[0], 0, xg.shape[2] // 4), dtype=torch.float32)
+        return (empty, st, (empty,) * 3) if save_states else (empty, st)
+    hs = torch.stack(hs, dim=1)
+    if save_states:
+        return hs, st, tuple(torch.stack(v, dim=1) for v in zip(*saved))
+    return hs, st
+
+
+def slstm_scan_bwd_ref(xg, w_hh, b_ih, h0, c0, n0, m0, hs, cs, ns, ms, dhs, dh_T=None,
+                       dc_T=None, dn_T=None, dm_T=None):
+    """Gradient of :func:`slstm_scan_ref` at (xg, w_hh, b_ih, h0, c0, n0, m0),
+    given its outputs ``hs`` and every step's (c, n, m) (``cs``, ``ns``,
+    ``ms``, (B, S, D) f32), the cotangent ``dhs`` of hs (None: zero) and
+    those of the final (h, c, n, m) (None: zero).  Returns (dxg in xg's
+    dtype, dw_hh in w_hh's dtype, db_ih f32, dh0, dc0, dn0, dm0 f32).
+
+    A reverse-time loop with torch's derivative rules for :func:`slstm_step`:
+    ``torch.maximum`` splits a tie in half, ``torch.clamp(n, min=1e-6)``
+    passes the gradient only where n >= 1e-6, and ``F.logsigmoid``'s
+    derivative is sigmoid(-f).  Each m-derivative is a product with f' (0
+    at m_{t-1} = -inf) or an indicator, so the zero state's first step gives
+    finite gradients and dm0 = 0.  The gates are formed again from hs, as the
+    kernel does; dw_hh and db_ih are sums over every step's gate gradient."""
+    b, s, d4 = xg.shape
+    d = d4 // 4
+    nh = w_hh.shape[0]
+    dh = d // nh
+    w = w_hh.float()
+    f32 = [t.float() for t in (h0, c0, n0, m0)]
+    hprev = torch.cat([f32[0][:, None], hs.float()[:, :-1]], dim=1)     # (B, S, D)
+    rec = torch.einsum("bshd,hdk->bshk", hprev.reshape(b, s, nh, dh), w).reshape(b, s, d4)
+    g = (xg.float() + rec) + b_ih.float()
+    gi, gf, gz, go = (t.reshape(b, s, d) for t in
+                      g.reshape(b, s, nh, 4 * dh).split(dh, -1))
+    zero = torch.zeros((b, d), dtype=torch.float32, device=xg.device)
+    carry = [zero if t is None else t.float() for t in (dh_T, dc_T, dn_T, dm_T)]
+    dh_rec, dc, dn, dm = carry
+    dhs = torch.zeros((b, s, d), dtype=torch.float32, device=xg.device) if dhs is None \
+        else dhs.float()
+    dg = torch.empty((b, s, nh, 4 * dh), dtype=torch.float32, device=xg.device)
+    for t in range(s - 1, -1, -1):
+        c, n, m = cs[:, t].float(), ns[:, t].float(), ms[:, t].float()
+        if t > 0:
+            cp, np_, mp = cs[:, t - 1].float(), ns[:, t - 1].float(), ms[:, t - 1].float()
+        else:
+            cp, np_, mp = f32[1:]
+        i_, f_, z_, o_ = gi[:, t], gf[:, t], gz[:, t], go[:, t]
+        dht = dhs[:, t] + dh_rec
+        logf = F.logsigmoid(f_)
+        a = logf + mp
+        ip, fp = torch.exp(i_ - m), torch.exp(a - m)
+        tz, so = torch.tanh(z_), torch.sigmoid(o_)
+        nc = torch.clamp(n, min=1e-6)
+        dq = dht / nc                                   # grad of sigmoid(o) c
+        dgo = dq * c * (1 - so) * so
+        dc = dc + dq * so
+        dn = dn + torch.where(n >= 1e-6, -dht * ((so * c) / nc) / nc, 0.0)
+        dfp = dc * cp + dn * np_
+        dip = dc * tz + dn
+        dgz = dc * ip * (1 - tz * tz)
+        dxa = dfp * fp                                  # through f' = exp(a - m)
+        dgia = dip * ip                                 # through i' = exp(i - m)
+        dmt = dm - dgia - dxa
+        half = torch.where(a == i_, 0.5 * dmt, 0.0)
+        da = dxa + torch.where(a > i_, dmt, half)
+        dgi = dgia + torch.where(a < i_, dmt, half)
+        dgf = da * torch.sigmoid(-f_)
+        dg[:, t] = torch.stack([v.reshape(b, nh, dh) for v in (dgi, dgf, dgz, dgo)],
+                               dim=2).reshape(b, nh, 4 * dh)
+        dh_rec = torch.einsum("bhk,hdk->bhd", dg[:, t], w).reshape(b, d)
+        dc, dn, dm = dc * fp, dn * fp, da
+    dgf32 = dg.reshape(b, s, d4)
+    dw = torch.einsum("bshd,bshk->hdk", hprev.reshape(b, s, nh, dh), dg)
+    return (dgf32.to(xg.dtype), dw.to(w_hh.dtype), dgf32.sum((0, 1)), dh_rec, dc, dn, dm)

@@ -10,8 +10,8 @@ By default it trains full-width qwen2-1.5b (28 layers, d_model 1536, bf16
 params with f32 master weights and moments, 1.54 B parameters drawn from
 ``TrainerConfig.seed``) on the GPU, through the fused RMSNorm and flash-attention
 kernels and their backward kernels.  ``--arch`` takes the archs whose loss
-takes tokens alone (``launch.serve.SERVED_ARCH_IDS``); xlstm-1.3b trains
-on the CPU only, as K5 has no backward kernel yet.  ``--resume`` is not a
+takes tokens alone (``launch.serve.SERVED_ARCH_IDS``), xlstm-1.3b
+included (its sLSTM scan through K5 and K5-bwd).  ``--resume`` is not a
 flag: a restarted run restores the latest checkpoint in ``--ckpt-dir``
 (default under the system's temporary directory) by itself.
 """
@@ -40,7 +40,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(), "agnocast-train-ckpt"))
-    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=50, help="0: no checkpoint")
     ap.add_argument("--data", choices=("zero-copy", "in-process"), default="zero-copy")
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args(argv)

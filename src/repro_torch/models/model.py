@@ -67,22 +67,13 @@ class Model:
                              f"batch[{key!r}] beside 'tokens'; got keys {sorted(batch)}")
         return batch
 
-    def _check_trainable(self) -> None:
-        if self.cfg.family == "xlstm" and self.device.type == "cuda" and not self.plain:
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the xlstm family on the card needs a backward "
-                f"kernel for K5 (the sLSTM scan, csrc/slstm_scan.cu), which the port does not "
-                f"have yet; its output carries no gradient.  Use plain=True or device='cpu'")
-
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """The training loss (a scalar with grad), as the reference's ``loss``."""
-        self._check_trainable()
         self._batch_input(batch, "loss")          # raises if the family's input is missing
         return self._m.loss_fn(params, batch, self.cfg, plain=self.plain)
 
     def forward(self, params: dict, batch: dict):
         """(logits at every position (B, S, V), auxiliary loss), with grad."""
-        self._check_trainable()
         return self._m.forward(params, self._batch_input(batch, "forward"), self.cfg,
                                plain=self.plain)
 

@@ -11,9 +11,10 @@ block reading its parameters as views of the stacked leaves; training
 policy, where the reference wraps it in ``jax.checkpoint``.  The
 reference's ``constrain`` calls have no counterpart here.
 
-Training goes through the plain sLSTM scan only: K5 has no backward
-kernel yet, so ``Model`` refuses the family's ``forward`` and ``loss`` on
-the card unless ``plain=True``; on the CPU the plain versions train.
+Training on the card goes through the same kernels: under grad the sLSTM
+scan is K5 in save mode with K5-bwd as its gradient
+(``kernels/slstm_scan/ops.py:_SlstmScanFn``); the sLSTM blocks are not
+under remat, so each runs its forward once a step.
 
 Two places go through the Hopper kernels (``plain=True`` takes their plain
 versions instead):

@@ -5,7 +5,7 @@ that waits for ROADMAP.md, Queue 1 item 8)::
 
     ZeroCopyPipeline (separate process, agnocast topics)
         └─▶ Trainer.step: tokens to the device → train_step (state in place)
-                └─▶ Checkpointer (async, atomic) every ``ckpt_every``
+                └─▶ Checkpointer (async, atomic) every ``ckpt_every`` (0: never)
                 └─▶ StragglerMonitor hook
 
 It runs on the model's device: ``cuda`` unless the ``Model`` was built
@@ -127,10 +127,10 @@ class Trainer:
             if self.step_num % self.tc.log_every == 0:
                 print(f"[trainer] step {rec['step']:5d} loss {loss:8.4f} "
                       f"gnorm {rec['grad_norm']:7.3f} {dt*1e3:7.1f} ms")
-            if self.step_num % self.tc.ckpt_every == 0:
+            if self.tc.ckpt_every and self.step_num % self.tc.ckpt_every == 0:
                 self._save()
-        if self.step_num % self.tc.ckpt_every:   # not saved by the loop's last step
-            self._save()
+        if self.tc.ckpt_every and self.step_num % self.tc.ckpt_every:
+            self._save()                         # not saved by the loop's last step
         wall = time.monotonic() - t_run
         return {"steps": self.step_num, "loss_first": losses[0] if losses else None,
                 "loss_last": losses[-1] if losses else None, "wall_s": wall,

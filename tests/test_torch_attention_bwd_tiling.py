@@ -28,6 +28,7 @@ import torch
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
 from repro_torch.kernels.flash_attention.ops import BWD_MMA_HEAD_DIMS, KERNEL_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 TILE = 64                        # query and key rows of a tile, 16 a warp
 H100_SMEM_PER_BLOCK = 232_448    # bytes a block may opt into

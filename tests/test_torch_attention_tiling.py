@@ -34,6 +34,7 @@ from repro_torch.kernels.decode_attention.ops import (KERNEL_MAX_GROUP, _row_slo
                                                       decode_split_plan)
 from repro_torch.kernels.flash_attention.ops import KERNEL_HEAD_DIMS as FLASH_HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_attention_ref
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -14,6 +14,7 @@ import torch
 
 from repro.checkpoint import Checkpointer as JaxCheckpointer
 from repro_torch.checkpoint import Checkpointer, latest_step
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 
 def _state(k=0):

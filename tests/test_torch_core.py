@@ -31,6 +31,7 @@ import repro_torch.core.registry as port_registry
 import repro_torch.obs.metrics as port_metrics
 import repro_torch.obs.trace as port_trace
 import repro_torch.serving.messages as port_serving_messages
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGES = {"reference": ref_core, "port": port_core}

@@ -24,8 +24,9 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_atte
 from repro_torch.kernels.ragged_concat.ops import ragged_concat, ragged_concat_ref
 from repro_torch.kernels.rmsnorm.ops import (fused_rmsnorm, rmsnorm_bwd, rmsnorm_bwd_ref,
                                              rmsnorm_ref)
-from repro_torch.kernels.slstm_scan.ops import (cluster_plan, slstm_scan, slstm_scan_plan,
-                                                slstm_scan_ref)
+from repro_torch.kernels.slstm_scan.ops import (_launch_fwd, cluster_plan, slstm_scan,
+                                                slstm_scan_bwd, slstm_scan_bwd_ref,
+                                                slstm_scan_plan, slstm_scan_ref)
 from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
@@ -621,6 +622,95 @@ def test_slstm_scan_kernel_repeated_calls(dev, dt):
     outs = [slstm_scan(*a) for a in calls]
     for a, o in zip(calls, outs):
         _slstm_close(o, slstm_scan_ref(*a))
+
+
+def _slstm_bwd_case(dev, b, s, d, h, dt, seed, state=False, finals=True):
+    """K5 in save mode on fresh inputs, then K5-bwd and the plain backward
+    on its saved states with random cotangents: (kernel grads, plain grads,
+    the call's arguments)."""
+    args = list(_slstm_inputs(dev, b, s, d, h, dt, seed))
+    if state:
+        args[3:] = [_randn(dev, b, d, dt=torch.float32, seed=seed + 3 + i) for i in range(4)]
+        args[5] = args[5].abs() + 0.5
+    hs, _, saved = _launch_fwd(*args, True)
+    cot = [_randn(dev, b, s, d, dt=torch.float32, seed=seed + 7)] + \
+        [_randn(dev, b, d, dt=torch.float32, seed=seed + 8 + i) if finals else None
+         for i in range(4)]
+    call = (*args, hs, *saved, *cot)
+    n = slstm_scan_bwd.launches
+    got = slstm_scan_bwd(*call)
+    assert slstm_scan_bwd.launches == n + 1
+    return got, slstm_scan_bwd_ref(*call), call
+
+
+def _slstm_bwd_close(got, want):
+    """f32 outputs within 3e-5 of their largest value (at least 1): the
+    sums over B S rows (dw_hh, db_ih) carry f32 rounding in another order;
+    bf16 outputs (dxg, dw_hh of bf16 inputs) at 2e-2."""
+    for a, c in zip(got, want):
+        assert a.dtype == c.dtype and a.shape == c.shape and torch.isfinite(a).all()
+        if a.dtype == torch.bfloat16:
+            torch.testing.assert_close(a, c, atol=2e-2, rtol=2e-2)
+        else:
+            scale = max(1.0, float(c.abs().max()) if c.numel() else 0.0)
+            assert float((a - c).abs().max()) <= 3e-5 * scale
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("b,s,d,h", [(1, 1, 2048, 4), (3, 1, 2048, 4), (5, 17, 2048, 4),
+                                     (8, 384, 2048, 4), (3, 100, 512, 8), (7, 33, 48, 4),
+                                     (2, 40, 64, 1)])
+def test_slstm_scan_bwd_kernel_matches_plain(dev, b, s, d, h, state, dt):
+    """K5-bwd against its plain backward: S = 1, B not a multiple of the
+    kernel's row chunk of 4, full width, the 100m width, narrow heads (dh
+    12 and 64), from the zero state (m0 = -inf: finite gradients, dc0, dn0
+    and dm0 exactly 0) and from a random state."""
+    got, want, _ = _slstm_bwd_case(dev, b, s, d, h, dt, seed=50 + b + s, state=state)
+    _slstm_bwd_close(got, want)
+    if not state:
+        assert all(torch.count_nonzero(g) == 0 for g in got[4:])
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_slstm_scan_bwd_kernel_repeated_calls(dev, dt):
+    """Calls in a row on one stream with other shapes, and cotangents on
+    the final state absent (None: zero) or given; each call again equals
+    the first bit for bit."""
+    cases = [_slstm_bwd_case(dev, b, s, 2048, 4, dt, seed=60 + b, finals=f)
+             for b, s, f in ((1, 100, True), (4, 1, False), (2, 17, True))]
+    for got, want, call in cases:
+        _slstm_bwd_close(got, want)
+        assert all(map(torch.equal, got, slstm_scan_bwd(*call)))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_slstm_scan_save_mode_is_bit_for_bit(dev, dt):
+    """K5 in save mode gives the serving launch's hs and final state bit for
+    bit, and its saved last step is the final (c, n, m)."""
+    args = _slstm_inputs(dev, 4, 37, 2048, 4, dt, seed=70)
+    hs0, st0, none = _launch_fwd(*args, False)
+    hs1, st1, saved = _launch_fwd(*args, True)
+    assert none is None and torch.equal(hs0, hs1) and all(map(torch.equal, st0, st1))
+    assert all(torch.equal(v[:, -1], f) for v, f in zip(saved, st1[1:]))
+
+
+def test_slstm_scan_function_launches_both_kernels(dev):
+    """Under grad the wrapper takes ``_SlstmScanFn``: one K5 launch forward,
+    one K5-bwd launch backward, gradients equal autograd of the plain
+    version on the same inputs within 1e-3: the kernel's forward (its gate
+    math's hardware exp/log) differs from the plain forward by up to 3e-5,
+    and 16 steps of the gradient carry that difference."""
+    args = [t.clone().requires_grad_(i < 3) for i, t in
+            enumerate(_slstm_inputs(dev, 2, 16, 64, 2, torch.float32, seed=80))]
+    n, nb = slstm_scan.launches, slstm_scan_bwd.launches
+    hs, _ = slstm_scan(*args)
+    got = torch.autograd.grad(hs.square().sum(), args[:3])
+    assert (slstm_scan.launches, slstm_scan_bwd.launches) == (n + 1, nb + 1)
+    hr, _ = slstm_scan_ref(*args)
+    want = torch.autograd.grad(hr.square().sum(), args[:3])
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a, c, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.uint8])

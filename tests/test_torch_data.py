@@ -15,6 +15,7 @@ from repro_torch.data import BatchSpec, InProcessPipeline, ZeroCopyPipeline
 from repro_torch.data.ordered import OrderedZeroCopyPipeline
 from repro_torch.data.packing import Packer, pack_documents, unpack_batch
 from repro_torch.data.synthetic import SyntheticCorpus
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 
 def _equal(a: dict, b: dict) -> None:

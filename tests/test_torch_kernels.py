@@ -25,6 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -260,7 +261,7 @@ def test_kernel_build_layout():
     names the Pallas TPU kernel it replaces (a backward, which no TPU
     kernel has, the kernel it differentiates) and what bounds it."""
     assert _build.sources() == ["decode_attention", "flash_attention", "flash_attention_bwd",
-                                "ragged_concat", "rmsnorm", "slstm_scan"]
+                                "ragged_concat", "rmsnorm", "slstm_scan", "slstm_scan_bwd"]
     for name in _build.sources():
         src = (_build.CSRC / f"{name}.cu").read_text()
         note = "Backward of" if name.endswith("_bwd") else "Replaces the Pallas TPU kernel"

@@ -43,6 +43,7 @@ from repro_torch.models.weights import params_from_numpy
 from repro_torch.runtime import InferenceServer
 
 from test_torch_whisper import _count_attention
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 TOL = 3e-5
 ARCH = "llama-3.2-vision-90b"

@@ -7,6 +7,7 @@ on logits whose scale is O(1); greedy tokens and cache lengths must be
 equal."""
 
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -29,6 +30,7 @@ from repro_torch.models import Model, ModelConfig
 from repro_torch.models.transformer import param_shapes
 from repro_torch.kernels.rmsnorm.ops import _row_stride
 from repro_torch.models.weights import params_from_numpy
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 3e-5
@@ -167,34 +169,53 @@ def _as_f32(a):
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
-def bf16_gaps(seed: int = 0, arch: str = "qwen2-1.5b") -> list[dict]:
-    """Per step (prefill, then two decode steps) of ``arch``'s smoke config:
-    the largest absolute logit difference of the port's bf16 run from the
-    reference's bf16 run and of each from the reference's f32 run."""
+@functools.cache
+def _jax_bf16_run(seed: int, arch: str):
+    """The reference's side of ``bf16_gaps``, which no port fault touches:
+    the bf16 weights drawn from ``seed`` (as numpy), the prompt, and each
+    step's bf16 and f32 logits (prefill, then two decode steps, each fed
+    the f32 run's greedy token).  Cached, so a planted-fault test reuses
+    its sound twin's JAX runs."""
     jcfg = jax_get_smoke_config(arch)
     jm16, jm32 = JaxModel(jcfg.scaled(**BF16)), JaxModel(jcfg)
-    cfg = get_smoke_config(arch).scaled(**BF16)
     tree = _perturb_norms(jax.tree.map(np.asarray, jm16.init(jax.random.PRNGKey(seed))),
                           np.random.default_rng(seed + 3))
     p16 = jax.tree.map(jnp.asarray, tree)
     p32 = jax.tree.map(lambda a: jnp.asarray(_as_f32(a)), tree)
-    m, params = Model(cfg, device="cpu"), params_from_numpy(tree, cfg, "cpu")
-    toks = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, (2, 13))
+    toks = np.random.default_rng(seed + 5).integers(0, jcfg.vocab_size, (2, 13))
     j16, c16 = jm16.prefill(p16, {"tokens": jnp.asarray(toks, jnp.int32)}, max_seq=32)
     j32, c32 = jm32.prefill(p32, {"tokens": jnp.asarray(toks, jnp.int32)}, max_seq=32)
+    steps = []
+    for i in range(3):
+        a, f = _as_f32(j16), _as_f32(j32)
+        steps.append((a, f))
+        if i == 2:
+            break
+        nxt = f[:, -1].argmax(-1)[:, None]
+        j16, c16 = jm16.decode_step(p16, c16, jnp.asarray(nxt, jnp.int32))
+        j32, c32 = jm32.decode_step(p32, c32, jnp.asarray(nxt, jnp.int32))
+    return tree, toks, steps
+
+
+def bf16_gaps(seed: int = 0, arch: str = "qwen2-1.5b") -> list[dict]:
+    """Per step (prefill, then two decode steps) of ``arch``'s smoke config:
+    the largest absolute logit difference of the port's bf16 run from the
+    reference's bf16 run and of each from the reference's f32 run."""
+    tree, toks, jsteps = _jax_bf16_run(seed, arch)
+    cfg = get_smoke_config(arch).scaled(**BF16)
+    m, params = Model(cfg, device="cpu"), params_from_numpy(tree, cfg, "cpu")
     t16, tc = m.prefill(params, {"tokens": torch.as_tensor(toks)}, max_seq=32)
     steps = []
-    for _ in range(3):
+    for i, (a, f) in enumerate(jsteps):
         assert t16.dtype == torch.bfloat16
-        a, b, f = _as_f32(j16), t16.float().numpy(), _as_f32(j32)
+        b = t16.float().numpy()
         steps.append({"port_vs_jax_bf16": float(np.abs(b - a).max()),
                       "port_vs_f32": float(np.abs(b - f).max()),
                       "jax_bf16_vs_f32": float(np.abs(a - f).max()),
                       "logit_scale": float(np.abs(f).max())})
-        nxt = f[:, -1].argmax(-1)[:, None]
-        j16, c16 = jm16.decode_step(p16, c16, jnp.asarray(nxt, jnp.int32))
-        j32, c32 = jm32.decode_step(p32, c32, jnp.asarray(nxt, jnp.int32))
-        t16, tc = m.decode_step(params, tc, torch.as_tensor(nxt))
+        if i < len(jsteps) - 1:
+            nxt = f[:, -1].argmax(-1)[:, None]
+            t16, tc = m.decode_step(params, tc, torch.as_tensor(nxt))
     return steps
 
 

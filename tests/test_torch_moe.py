@@ -19,6 +19,7 @@ from repro.models import mlp as jax_mlp
 from repro.models.common import ModelConfig as JaxModelConfig
 from repro_torch.models import mlp
 from repro_torch.models.common import ModelConfig
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 DT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -14,6 +14,7 @@ from repro.core.device_arena import PoolExhausted as RefExhausted
 from repro.serving.messages import GenerationGate as RefGate
 from repro_torch.core.device_arena import DevicePagePool, PoolExhausted
 from repro_torch.serving.messages import GenerationGate
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 
 def _outcome(fn):

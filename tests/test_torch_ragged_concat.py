@@ -15,6 +15,7 @@ from hypothesis import strategies as st
 
 from repro.kernels.ragged_concat.ref import ragged_concat_ref as jax_ref
 from repro_torch.kernels.ragged_concat.ops import ragged_concat
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 _JAX_DT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
            torch.int32: jnp.int32, torch.uint8: jnp.uint8}

@@ -16,6 +16,7 @@ from repro_torch.configs import model_100m
 from repro_torch.models import Model
 from repro_torch.models.weights import params_from_numpy
 from repro_torch.runtime import InferenceServer, Request
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 TINY = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=512, num_heads=2,
             num_kv_heads=1, head_dim=32)

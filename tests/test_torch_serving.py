@@ -30,6 +30,7 @@ from repro_torch.launch import fleet
 from repro_torch.models import Model
 from repro_torch.models.weights import params_from_numpy
 from repro_torch.runtime import InferenceServer, Request
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 PKGS = {"reference": (ref_core, ref_serving), "port": (port_core, port_serving)}
 

@@ -20,6 +20,7 @@ from repro.models.common import ModelConfig as JaxModelConfig
 from repro.models.xlstm import _slstm_step as jax_slstm_step
 from repro_torch.kernels.slstm_scan.ops import (cluster_plan, cluster_smem, slstm_scan,
                                                 slstm_scan_ref)
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -33,6 +33,7 @@ from repro_torch.models import Model
 from repro_torch.models.common import cross_entropy, tree_items
 from repro_torch.models.weights import params_from_numpy, state_from_numpy
 from repro_torch.optim import AdamW, cosine_schedule
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 TOL = 3e-5
 
@@ -98,6 +99,36 @@ def test_adamw_matches_jax_leaf_by_leaf(steps):
     # the master is a copy: params and master are separate storage
     assert all(p.data_ptr() != w.data_ptr() for (_, p), (_, w) in
                zip(tree_items(state["params"]), tree_items(state["master"])))
+
+
+def test_adamw_update_in_chunks_equals_one_pass(monkeypatch):
+    """The update taken a chunk of leaves at a time (the smallest chunks: a
+    leaf each) equals the one-pass update (every leaf in one chunk) bit for
+    bit, over two steps, the first clipped: every operation is elementwise
+    and the grad norm is each leaf's norm, then their norm."""
+    from repro_torch.optim import adamw
+
+    _, tree = _jax_tree(0)
+    cfg = get_smoke_config("qwen2-1.5b")
+    rng = np.random.default_rng(2)
+    grads = [params_from_numpy(jax.tree.map(
+        lambda a, s=s: (rng.standard_normal(a.shape) * s).astype(a.dtype), tree), cfg, "cpu")
+        for s in (0.3, 1e-3)]
+    leaves = [leaf for _, leaf in tree_items(grads[0])]
+    states = []
+    for chunk in (1, 1 << 40):
+        monkeypatch.setattr(adamw, "CHUNK_BYTES", chunk)
+        assert len(AdamW._chunks(leaves)) == (len(leaves) if chunk == 1 else 1)
+        opt = AdamW(lr=cosine_schedule(1e-2, 1, 10))
+        state = opt.init(params_from_numpy(tree, cfg, "cpu"))
+        for g in grads:
+            state, m = opt.update(state, g)
+        states.append((state, m))
+    (a, ma), (b, mb) = states
+    assert torch.equal(ma["grad_norm"], mb["grad_norm"])
+    for k in ("params", "master", "m", "v"):
+        for (path, x), (_, y) in zip(tree_items(a[k]), tree_items(b[k])):
+            assert torch.equal(x, y), f"{k}{path}"
 
 
 # -- the plain backwards of K1 and K2 ----------------------------------------------
@@ -239,20 +270,54 @@ def test_qwen2_full_width_param_count_is_the_tentpoles():
     assert round(cfg.param_count() / 1e9, 3) == 1.544
 
 
-def test_model_refuses_xlstm_training_on_the_card():
-    """K5 has no backward kernel: on a CUDA device without ``plain`` the
-    xLSTM family's loss and forward raise at entry, naming it (the check
-    reads the model's device; no card is needed to reach it)."""
-    m = Model(get_smoke_config("xlstm-1.3b"), device="cpu")
-    m.device = torch.device("cuda")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    for call in (m.loss, m.forward):
-        with pytest.raises(NotImplementedError, match="K5"):
-            call({}, batch)
-    m.plain = True     # the plain path is the caller's explicit choice
-    m.device = torch.device("cpu")
-    params = m.init(0)
-    assert torch.isfinite(m.loss(params, batch))
+def test_xlstm_model_on_the_card_trains_through_the_scan_function(monkeypatch):
+    """A xlstm ``Model`` marked ``cuda`` no longer refuses ``loss`` and
+    ``forward``, and under grad each sLSTM block's scan goes through
+    ``_SlstmScanFn`` (K5 in save mode, K5-bwd as its gradient): the scan
+    wrapper is made to take these CPU tensors for CUDA ones, its launches
+    replaced by the plain versions (the forward in save mode, the backward
+    ``slstm_scan_bwd_ref``), each counted.  The gradients equal the plain
+    path's; where no input requires grad, or under ``no_grad`` (prefill),
+    the scan launches without saving."""
+    from _grad_parity import port_loss_and_grads
+
+    from repro_torch.kernels.slstm_scan import ops as sops
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref, slstm_scan_ref
+
+    cfg = get_smoke_config("xlstm-1.3b")
+    n_slstm = cfg.num_layers // cfg.slstm_every
+    launches = {"fwd": [], "bwd": 0}
+
+    def launch(xg, w_hh, b_ih, h0, c0, n0, m0, save):
+        launches["fwd"].append(save)
+        if save:
+            return slstm_scan_ref(xg, w_hh, b_ih, h0, c0, n0, m0, save_states=True)
+        return (*slstm_scan_ref(xg, w_hh, b_ih, h0, c0, n0, m0), None)
+
+    def bwd(*args):
+        launches["bwd"] += 1
+        return slstm_scan_bwd_ref(*args)
+
+    plain = Model(cfg, device="cpu", plain=True)
+    params = plain.init(0)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 10)))
+    batch = {"tokens": toks}
+    want_loss, want = port_loss_and_grads(plain, params, batch)
+    monkeypatch.setattr(sops, "device_kind", lambda *t: "cuda")
+    monkeypatch.setattr(sops, "_launch_fwd", launch)
+    monkeypatch.setattr(sops, "slstm_scan_bwd", bwd)
+    m = Model(cfg, device="cpu")
+    m.device = torch.device("cuda")        # what the refusal read; no card is needed
+    loss, got = port_loss_and_grads(m, params, batch)
+    assert launches == {"fwd": [True] * n_slstm, "bwd": n_slstm}
+    _close(loss, want_loss.detach().numpy(), "loss")
+    for path, g in got.items():
+        _close(g, want[path].numpy(), path)
+    # no input requires grad (forward), or no grad at all (prefill): no save
+    logits, _ = m.forward(params, batch)
+    m.prefill(params, batch)
+    assert torch.isfinite(logits).all()
+    assert launches == {"fwd": [True] * n_slstm + [False] * 2 * n_slstm, "bwd": n_slstm}
 
 
 @pytest.mark.parametrize("data", ["in-process", "zero-copy"])

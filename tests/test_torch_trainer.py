@@ -10,6 +10,7 @@ import pytest
 from repro_torch.configs import model_100m
 from repro_torch.models import Model
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 
 def _cfg():
@@ -18,10 +19,11 @@ def _cfg():
                                           num_kv_heads=1, head_dim=32)
 
 
-def _run(tmp, total: int, zero_copy: bool = False, stop: int | None = None) -> Trainer:
+def _run(tmp, total: int, zero_copy: bool = False, stop: int | None = None,
+         ckpt_every: int = 2) -> Trainer:
     """A trainer of ``total`` steps on ``tmp``, run to ``stop`` (its end by
     default) and closed."""
-    tc = TrainerConfig(batch=2, seq_len=64, total_steps=total, ckpt_every=2, warmup=2,
+    tc = TrainerConfig(batch=2, seq_len=64, total_steps=total, ckpt_every=ckpt_every, warmup=2,
                        lr=3e-3, ckpt_dir=str(tmp), zero_copy_data=zero_copy, log_every=100)
     t = Trainer(Model(_cfg(), device="cpu"), tc)
     t.run(stop)
@@ -53,3 +55,10 @@ def test_restart_losses_equal_the_uninterrupted_run(tmp_path, zero_copy):
     assert [r["step"] for r in resumed.metrics_log] == [5, 6]
     np.testing.assert_array_equal(got, want)
     assert straight.metrics_log[-1]["loss"] < straight.metrics_log[0]["loss"]
+
+
+def test_ckpt_every_zero_saves_no_checkpoint(tmp_path):
+    """``ckpt_every=0`` trains without writing a checkpoint, in the loop or
+    at its end (what a run that only measures its steps asks for)."""
+    t = _run(tmp_path, 3, ckpt_every=0)
+    assert t.step_num == 3 and not any(tmp_path.iterdir())

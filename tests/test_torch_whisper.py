@@ -35,6 +35,7 @@ from repro_torch.models import common as tcommon
 from repro_torch.models import whisper_model as wm
 from repro_torch.models.weights import params_from_numpy
 from repro_torch.runtime import InferenceServer
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 TOL = 3e-5
 ARCH = "whisper-small"

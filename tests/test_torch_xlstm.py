@@ -32,6 +32,7 @@ from repro_torch.models import xlstm_model as xm
 from repro_torch.kernels.rmsnorm.ops import _row_stride
 from repro_torch.models.weights import params_from_numpy
 from repro_torch.runtime import InferenceServer, Request
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 TOL = 3e-5
 ARCH = "xlstm-1.3b"
@@ -340,8 +341,10 @@ def test_server_cancel_janitor(every4):
 def test_serve_entry_point_runs_xlstm_on_cpu_when_asked():
     from repro_torch.launch.serve import main
 
+    # prompts up to 59 tokens: the smoke config's mLSTM chunk is 4 tokens and
+    # its sLSTM scan a loop over steps, so the default 384 cost 20 s here
     out = main(["--arch", ARCH, "--size", "smoke", "--device", "cpu", "--requests", "3",
-                "--max-new", "4"])
+                "--max-new", "4", "--max-seq", "64"])
     assert out["completed"] == 3 and out["pool_clean"] and out["generated_tokens"] == 12
 
 

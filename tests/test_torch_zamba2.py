@@ -40,6 +40,7 @@ from repro_torch.models import mamba2 as tm2
 from repro_torch.models import zamba2_model as zm
 from repro_torch.models.weights import params_from_numpy
 from repro_torch.runtime import InferenceServer, Request
+from _port_env import port_test_env  # noqa: F401  (autouse)
 
 TOL = 3e-5
 ARCH = "zamba2-2.7b"
