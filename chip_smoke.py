@@ -59,13 +59,15 @@ non-zero before the final line:
    of the scaled scores), each timed beside its bound and the library's
    backward (autograd through ``F.rms_norm``; through SDPA) at the
    training path's shapes; then K5 in save mode (hs and the final state
-   the same bit for bit as without it) and K5-bwd against its plain
-   backward (``slstm_scan_bwd_ref``) on the kernel's own saved states, in
-   f32 and bf16, at D 2048 H 4 (xlstm-1.3b) and D 512 H 8 (its 100m
-   reduction), B 1-8 and S 1-1024, from the zero state (m0 = -inf) and from
-   a random one, with cotangents on hs and on the final state, each call
-   repeated bit for bit, timed at the training shapes beside its bound
-   and the plain backward (no library call computes it);
+   the same bit for bit as without it, the saved gates those formed from
+   hs) and K5-bwd against its plain backward (``slstm_scan_bwd_ref``) on
+   the kernel's own saved gates and states, in f32 and bf16, at D 2048 H 4
+   (xlstm-1.3b) and D 512 H 8 (its 100m reduction), B 1-8 and S 1-1024,
+   from the zero state (m0 = -inf) and from a random one, with cotangents
+   on hs and on the final state, each call repeated bit for bit (20 times
+   at the training shape), the kernel each shape ran (cluster or grid)
+   logged, timed at the training shapes beside its bound, the plain
+   backward (no library call computes it) and its exchange alone;
 4. full-width qwen2-1.5b in f32: kernel path against plain path on the same
    random weights, prefill logits of 4 ragged prompts and 4 decode steps
    with the 4 slots at their ragged lengths;
@@ -1009,18 +1011,18 @@ def phase_slstm_scan(dev, rnd, dts) -> dict:
                            **out[(1, 384, "bfloat16")], "shapes": shapes}}
 
 
-# K5-bwd against its plain backward, both fed the kernel's own saved states
-# (K5 in save mode): the two run the same f32 arithmetic and differ in the
-# order of the recurrent sums (dh_{t-1} sums 4 dh = 2048 terms, the gates
-# dh = 512) and in expf/log1pf/tanhf against torch's, carried back through
-# up to 1024 steps; dw_hh and db_ih sum B S terms.  Measured on the card
-# (NVIDIA H100 80GB HBM3, 700 W): at most 3.05e-05 on db (values up to 130
-# at B 8 S 1024) and 2.7e-05 on dw (up to 35), the rest under 4e-06.  So
-# each f32 output's max |kernel - plain| is held to 3e-5 of its largest
-# value (at least 1): the repo's f32 tolerance, relative to a tensor whose
-# elements sum up to 8192 rows; the bf16 outputs (dxg and dw_hh in xg's and
-# w_hh's dtype: one rounding of those f32 values, at most an ulp apart)
-# elementwise at bf16's 2e-2.
+# K5-bwd against its plain backward, both fed the kernel's own saved gates
+# and states (K5 in save mode): the two run the same f32 arithmetic and
+# differ in the order of the recurrent sums (dh_{t-1} sums 4 dh = 2048
+# terms) and in expf/log1pf/tanhf against torch's, carried back through up
+# to 1024 steps; dw_hh and db_ih sum B S terms.  Measured on the card
+# (NVIDIA H100 80GB HBM3, 700 W, before the gates were saved): at most
+# 3.05e-05 on db (values up to 130 at B 8 S 1024) and 2.7e-05 on dw (up to
+# 35), the rest under 4e-06.  So each f32 output's max |kernel - plain| is
+# held to 3e-5 of its largest value (at least 1): the repo's f32
+# tolerance, relative to a tensor whose elements sum up to 8192 rows; the
+# bf16 outputs (dxg and dw_hh in xg's and w_hh's dtype: one rounding of
+# those f32 values, at most an ulp apart) elementwise at bf16's 2e-2.
 SLSTM_BWD_TOL = 3e-5
 SLSTM_BWD_NAMES = ("dxg", "dw_hh", "db_ih", "dh0", "dc0", "dn0", "dm0")
 # (D, H) -> (B, S): xlstm-1.3b's width at B 1, 4, 8 and S 1, 16, 100, 384
@@ -1029,6 +1031,7 @@ SLSTM_BWD_NAMES = ("dxg", "dw_hh", "db_ih", "dh0", "dc0", "dn0", "dm0")
 SLSTM_BWD_CASES = {(2048, 4): ((1, 1), (4, 1), (8, 1), (1, 16), (4, 16), (8, 100), (1, 384),
                                (8, 384), (8, 1024)),
                    (512, 8): ((1, 1), (4, 16), (8, 100), (4, 256))}
+SLSTM_BWD_REPEATS = 20           # calls at the training shape that must agree bit for bit
 
 
 def slstm_inputs(rnd, dev, b, s, d, h, dt, state: bool) -> list:
@@ -1046,6 +1049,14 @@ def slstm_inputs(rnd, dev, b, s, d, h, dt, state: bool) -> list:
         z = torch.zeros(b, d, device=dev)
         st = [z, z, z, torch.full((b, d), float("-inf"), device=dev)]
     return [xg, w, bias, *st]
+
+
+def slstm_bwd_call(fn, args, hs, saved, *cot):
+    """``fn`` (K5-bwd's wrapper or its plain version) at the forward's
+    inputs ``args`` (xg, w_hh, b_ih, h0, c0, n0, m0), from its hs and its
+    saved gates, c, n, m."""
+    xg, w, _, *state = args
+    return fn(w, *state, hs, *saved, *cot, x_dtype=xg.dtype)
 
 
 def check_slstm_bwd(what: str, got, want) -> float:
@@ -1071,58 +1082,83 @@ def check_slstm_bwd(what: str, got, want) -> float:
 
 
 def slstm_bwd_bound(b, s, d, h, xbytes, wbytes) -> tuple[float, str]:
-    """K5-bwd's least time: bytes: xg, w_hh, the bias, the initial state,
-    hs, the saved c/n/m and the cotangents read once, dxg, dw_hh, db and the
-    initial state's gradients written once; operations: the f32 products
-    (the gates formed again, dh_{t-1} = dg w_hh^T and dw_hh = h^T dg: 2 B S
-    4D dh flops each) on the CUDA cores."""
+    """K5-bwd's least time, from the gates K5 saved: bytes: w_hh, the saved
+    gates, c/n/m, hs, the initial state and the cotangents read once; dxg,
+    dw_hh, db and the initial state's gradients written once; operations:
+    the two f32 products the call needs (dh_{t-1} = dg w_hh^T and dw_hh =
+    h^T dg: 2 B S 4D dh flops each) on the CUDA cores.  Before the gates
+    were saved the call also formed them again, a third such product."""
     dh = d // h
-    nbytes = 2 * b * s * 4 * d * xbytes + 2 * h * dh * 4 * dh * wbytes + 2 * 16 * d + \
-        2 * 16 * b * d + 5 * 4 * b * s * d + 16 * b * d
-    return bound_ms(nbytes, 3 * 2 * b * s * 4 * d * dh, "float32")
+    nbytes = b * s * 4 * d * (xbytes + 4) + 2 * h * dh * 4 * dh * wbytes + 16 * d + \
+        2 * 16 * b * d + 5 * 4 * b * s * d + 2 * 16 * b * d
+    return bound_ms(nbytes, 2 * 2 * b * s * 4 * d * dh, "float32")
 
 
 def phase_slstm_bwd(dev, rnd, dts) -> dict:
     """K5 in save mode and K5-bwd on the card.  Save mode: at D = 2048, H =
     4, in both dtypes, hs and the final state must equal the serving
-    launch's bit for bit, and the saved last step the final (c, n, m).
-    K5-bwd: against the plain backward (``slstm_scan_bwd_ref``) on the
-    kernel's own saved states, at ``SLSTM_BWD_CASES`` in f32 and bf16, from the zero state (m0 = -inf) and from a random one,
-    with cotangents on hs and on the final state; every call twice, bit for
-    bit.  Timed (device ms by torch.profiler) at the training paths' shapes
-    beside the plain backward and the bound; no PyTorch call computes the
-    scan's backward, so there is no library time."""
+    launch's bit for bit, the saved last step the final (c, n, m), and the
+    saved gates (xg + h_{t-1} w_hh) + b formed from hs within the f32
+    tolerance.  K5-bwd: against the plain backward (``slstm_scan_bwd_ref``)
+    on the kernel's own saved gates and states, at ``SLSTM_BWD_CASES`` in
+    f32 and bf16, from the zero state (m0 = -inf) and from a random one,
+    with cotangents on hs and on the final state, every call twice bit for
+    bit, the kernel (cluster or grid) each shape ran logged; at the
+    training shape ``SLSTM_BWD_REPEATS`` calls bit for bit (what catches a
+    race in the exchange).  Timed (device ms by torch.profiler) at the
+    training paths' shapes (both take the cluster kernel) beside the plain
+    backward, the bound and the exchange alone (``chain_ms``: S rounds of
+    the same bytes through the cluster's st.async and mbarrier waits); no
+    PyTorch call computes the scan's backward, so there is no library
+    time."""
     import torch
 
-    from repro_torch.kernels.slstm_scan.ops import (_launch_fwd, slstm_scan_bwd,
-                                                    slstm_scan_bwd_plan, slstm_scan_bwd_ref)
+    from repro_torch.kernels.slstm_scan.ops import (_launch_fwd, cluster_sync_loop,
+                                                    slstm_scan_bwd, slstm_scan_bwd_plan,
+                                                    slstm_scan_bwd_ref)
 
     for dname, dt in dts.items():
+        worst = 0.0
         for b, s in ((1, 16), (4, 100), (8, 384)):
             args = slstm_inputs(rnd, dev, b, s, 2048, 4, dt, False)
             hs0, st0, _ = _launch_fwd(*args, False)
             hs1, st1, saved = _launch_fwd(*args, True)
             if not (torch.equal(hs0, hs1) and all(map(torch.equal, st0, st1))):
                 fail(f"slstm_scan {dname} B={b} S={s}: save mode changes hs or the final state")
-            if not all(torch.equal(v[:, -1], f) for v, f in zip(saved, st1[1:])):
+            if not all(torch.equal(v[:, -1], f) for v, f in zip(saved[1:], st1[1:])):
                 fail(f"slstm_scan {dname} B={b} S={s}: the saved last step is not the final "
                      f"(c, n, m)")
+            xg, w, bias, h0 = args[:4]
+            hprev = torch.cat([h0[:, None], hs1[:, :-1]], dim=1).view(b, s, 4, 512)
+            rec = torch.einsum("bshd,hdk->bshk", hprev, w.float()).reshape(b, s, 4 * 2048)
+            worst = max(worst, check_close(f"slstm_scan {dname} B={b} S={s} saved gates",
+                                           saved[0], (xg.float() + rec) + bias, "float32"))
         log(f"slstm_scan {dname} save mode at B=1/4/8 S=16/100/384 D=2048 H=4: hs and the "
-            f"final state bit for bit as without it; the saved last step is the final state")
-    worst, n = {}, 0
+            f"final state bit for bit as without it; the saved last step is the final state; "
+            f"the saved gates within {worst:.3e} of (xg + h_(t-1) w_hh) + b formed from hs")
+    worst, n, logged = {}, 0, set()
     for dname, dt in dts.items():
         for (d, h), shapes in SLSTM_BWD_CASES.items():
             for b, s in shapes:
+                p = slstm_scan_bwd_plan(b, d, h, w_dtype=dt)
+                if (dname, d, h, b) not in logged:
+                    logged.add((dname, d, h, b))
+                    log(f"slstm_scan_bwd {dname} B={b} D={d} H={h}: {p.variant} kernel, "
+                        f"{p.blocks} blocks of J={p.j}"
+                        + (f", clusters of {p.cluster} over {p.rows} rows" if p.cluster else "")
+                        + f", {p.smem} B shared memory a block, {p.active} resident at once")
                 for state in (False, True):
                     args = slstm_inputs(rnd, dev, b, s, d, h, dt, state)
                     hs, _, saved = _launch_fwd(*args, True)
                     cot = [rnd(b, s, d, dt=torch.float32)] + \
                         [rnd(b, d, dt=torch.float32) for _ in range(4)]
-                    got = slstm_scan_bwd(*args, hs, *saved, *cot)
+                    got = slstm_bwd_call(slstm_scan_bwd, args, hs, saved, *cot)
                     what = f"slstm_scan_bwd {dname} B={b} S={s} D={d} H={h} " \
-                           f"{'random' if state else 'zero'} state"
-                    e = check_slstm_bwd(what, got, slstm_scan_bwd_ref(*args, hs, *saved, *cot))
-                    if not all(map(torch.equal, got, slstm_scan_bwd(*args, hs, *saved, *cot))):
+                           f"{'random' if state else 'zero'} state ({p.variant} kernel)"
+                    e = check_slstm_bwd(what, got, slstm_bwd_call(slstm_scan_bwd_ref, args, hs,
+                                                                  saved, *cot))
+                    again = slstm_bwd_call(slstm_scan_bwd, args, hs, saved, *cot)
+                    if not all(map(torch.equal, got, again)):
                         fail(f"{what}: a second call differs (not deterministic)")
                     if not state and any(torch.count_nonzero(g) for g in got[4:]):
                         fail(f"{what}: from the zero state dc0, dn0, dm0 must be 0")
@@ -1139,17 +1175,32 @@ def phase_slstm_bwd(dev, rnd, dts) -> dict:
         hs, _, saved = _launch_fwd(*args, True)
         dhs = rnd(b, s, d, dt=torch.float32)
         what = f"slstm_scan_bwd {dname} B={b} S={s} D={d} H={h}"
-        check_slstm_bwd(f"{what} (timed)", slstm_scan_bwd(*args, hs, *saved, dhs),
-                        slstm_scan_bwd_ref(*args, hs, *saved, dhs))
-        t = timings(lambda: slstm_scan_bwd(*args, hs, *saved, dhs),
-                    lambda: slstm_scan_bwd_ref(*args, hs, *saved, dhs), None, plain_iters=1,
-                    what=what, host_iters=10)
+        fn = lambda: slstm_bwd_call(slstm_scan_bwd, args, hs, saved, dhs)  # noqa: E731
+        first = fn()
+        check_slstm_bwd(f"{what} (timed)", first,
+                        slstm_bwd_call(slstm_scan_bwd_ref, args, hs, saved, dhs))
+        if (b, s) == (8, 1024):
+            for i in range(SLSTM_BWD_REPEATS - 1):
+                if not all(map(torch.equal, first, fn())):
+                    fail(f"{what}: call {i + 2} of {SLSTM_BWD_REPEATS} differs from the first "
+                         f"(a race in the exchange)")
+            log(f"{what}: {SLSTM_BWD_REPEATS} calls bit for bit the same")
+        t = timings(fn, lambda: slstm_bwd_call(slstm_scan_bwd_ref, args, hs, saved, dhs), None,
+                    plain_iters=1, what=what, host_iters=10)
         xb = 2 if dt == torch.bfloat16 else 4
         t["bound_ms"], t["bound_by"] = slstm_bwd_bound(b, s, d, h, xb, xb)
-        p = slstm_scan_bwd_plan(b, d, h, x_dtype=dt, w_dtype=dt)
-        t["variant"], t["blocks"], t["j"] = "grid", p.blocks, p.j
-        log_timings(f"{what} [cooperative grid: {p.blocks} blocks of J={p.j}, {p.smem} B shared "
-                    f"memory a block]", t, None)
+        p = slstm_scan_bwd_plan(b, d, h, w_dtype=dt)
+        t["variant"], t["cluster"], t["rows"], t["blocks"], t["j"] = \
+            p.variant, p.cluster, p.rows, p.blocks, p.j
+        t["chain_ms"] = device_ms(lambda: cluster_sync_loop(p.cluster, p.blocks // p.cluster,
+                                                            p.rows * p.j, s, dev))
+        log(f"{what}: {s} rounds of the same st.async exchange (cluster of {p.cluster}, "
+            f"{p.rows * p.j} floats to each peer) and mbarrier waits alone (the chain's floor) "
+            f"{t['chain_ms']:.5f} ms; the rest {t['ms'] - t['chain_ms']:.5f} ms, "
+            f"{1e3 * (t['ms'] - t['chain_ms']) / s:.3f} us a step")
+        log_timings(f"{what} [{p.variant} kernel: {p.blocks} blocks of J={p.j} (clusters of "
+                    f"{p.cluster}, {p.rows} rows each), {p.smem} B shared memory a block]", t,
+                    None)
         times[f"B={b} S={s} D={d} H={h} {dname}"] = t
     key = "B=8 S=1024 D=2048 H=4 bfloat16"
     return {"slstm_scan_bwd": {"max_abs_err": worst["bfloat16"],
@@ -2955,20 +3006,22 @@ def phase_train_shapes(dev, calls: dict) -> dict:
     out["flash_attention_bwd"] = {"path_shapes": len(calls["flash_attention_bwd"].seen),
                                   "path_max_abs_err": worst}
     worst = 0.0
-    for args, _ in calls["slstm_scan_bwd"].seen:
-        (xg, w, *_), rest = args[:7], args[7:]
-        b, s, d4 = xg[1]
-        what = f"slstm_scan_bwd path shape {name(xg[0])} xg {xg[1]} w_hh {name(w[0])} {w[1]} " \
-               f"cotangents {['-' if a is None else 'y' for a in rest[4:]]}"
+    for args, kw in calls["slstm_scan_bwd"].seen:
+        w, rest = args[0], args[5:]               # rest: hs, gates, cs, ns, ms, dhs, dh .. dm
+        xdt = dict(kw)["x_dtype"]
+        b, s, d = rest[0][1]
+        what = f"slstm_scan_bwd path shape xg {name(xdt)} {(b, s, 4 * d)} w_hh {name(w[0])} " \
+               f"{w[1]} cotangents {['-' if a is None else 'y' for a in rest[5:]]}"
         fwd_args = slstm_inputs(lambda *sh, dt: torch.randn(sh, generator=gen, device=dev).to(dt),
-                                dev, b, s, d4 // 4, w[1][0], xg[0], False)
+                                dev, b, s, d, w[1][0], xdt, False)
         fwd_args[1] = fwd_args[1].to(w[0])
         hs, _, saved = _launch_fwd(*fwd_args, True)
-        cot = [None if a is None else fresh(a).float() for a in rest[4:]]
-        got = slstm_scan_bwd(*fwd_args, hs, *saved, *cot)
-        worst = max(worst, check_slstm_bwd(what, got,
-                                           slstm_scan_bwd_ref(*fwd_args, hs, *saved, *cot)))
-        if not all(map(torch.equal, got, slstm_scan_bwd(*fwd_args, hs, *saved, *cot))):
+        cot = [None if a is None else fresh(a).float() for a in rest[5:]]
+        got = slstm_bwd_call(slstm_scan_bwd, fwd_args, hs, saved, *cot)
+        worst = max(worst, check_slstm_bwd(what, got, slstm_bwd_call(
+            slstm_scan_bwd_ref, fwd_args, hs, saved, *cot)))
+        if not all(map(torch.equal, got, slstm_bwd_call(slstm_scan_bwd, fwd_args, hs, saved,
+                                                        *cot))):
             fail(f"{what}: a second call differs (not deterministic)")
     out["slstm_scan_bwd"] = {"path_shapes": len(calls["slstm_scan_bwd"].seen),
                              "path_max_abs_err": worst}
@@ -3087,6 +3140,16 @@ def main() -> None:
     if not all(any(w in fn and c for fn, c in hmma.items()) for w in want):
         fail(f"the bf16 K2-bwd kernels ({', '.join(want)}) have no tensor-core instructions: "
              f"{hmma}")
+
+    hmma = sass_counts("slstm_scan_bwd", "HMMA")
+    log("SASS slstm_scan_bwd (f32 products on the CUDA cores): "
+        + ", ".join(f"{fn} {count} HMMA" for fn, count in hmma.items()))
+    # K5-bwd's cluster kernels hold up to 8 x 8 f32 sums and 8 x 16 bytes of
+    # w a thread in registers (255 at most): a spill would land on the chain
+    spilled = [k for k, _, spill in ptxas.get("slstm_scan_bwd", ())
+               if "cluster" in k and re.search(r"[1-9]\d* bytes spill", spill)]
+    if spilled:
+        fail(f"slstm_scan_bwd: cluster instantiations that spill: {spilled}")
 
     t0 = time.monotonic()
     report = phase_kernels(dev)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of the ragged concat (K4) and sLSTM scan (K5) calls, broken
-down by kernel name, at the shapes of ``chip_smoke.py``.
+"""Device time of the ragged concat (K4), sLSTM scan (K5) and sLSTM scan
+backward (K5-bwd) calls, broken down by kernel name, at the shapes of
+``chip_smoke.py``.
 
     PYTHONPATH=src python scripts/scan_concat_breakdown.py [--src DIR]   # needs an NVIDIA GPU
 
@@ -11,17 +12,27 @@ process setup.  Shapes: K4 at the concatenate node's size (lens 500000,
 3011, 2987; C = 4 f32; capacity total + 1000) beside ``torch.cat`` of the
 valid views; K5 in bf16 at D = 2048, H = 4 for B = 1, S = 16, 100, 384
 and B = 4, S = 1, the last also with the L2 cache flushed (a 64 MB buffer
-written between calls) as the decode path finds it.  Each timing comes
+written between calls) as the decode path finds it; K5 in save mode and
+K5-bwd (with its ``dw_hh`` einsum) in bf16 at xlstm-1.3b's training shape
+(B = 8, S = 1024, D = 2048, H = 4) and the 100m reduction's (B = 4, S =
+256, D = 512, H = 8), from the zero state.  K5-bwd's call is the one of
+the tree imported: before K5 saved the gates (three saved tensors) its
+wrapper took xg and b_ih; after, w_hh, the state and xg's dtype.  Each
+timing comes
 from ``torch.profiler`` over 20 calls (``chip_smoke.device_breakdown``:
 mean device time per activity times launches per call); the flush's own
 kernel is left out by name.
-Prints one line per call and one JSON line ``{"card": ..., "src": ...,
-"calls": {name: {kernel: [ms per call, launches per call]}}}``.
+The K5 serving calls' outputs (hs and the final state) are also printed
+as a sha256 digest, so two trees' runs on one card show whether they
+agree bit for bit.  Prints one line per call and one JSON line ``{"card":
+..., "src": ..., "calls": {name: {kernel: [ms per call, launches per
+call]}}, "digests": {name: digest}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -42,6 +53,7 @@ def main() -> None:
     from chip_smoke import device_breakdown as breakdown
 
     from repro_torch.kernels.ragged_concat.ops import ragged_concat
+    from repro_torch.kernels.slstm_scan import ops as scan_ops
     from repro_torch.kernels.slstm_scan.ops import slstm_scan
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -50,7 +62,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    calls = {}
+    calls, digests = {}, {}
 
     def report(name, by):
         calls[name] = by
@@ -77,11 +89,35 @@ def main() -> None:
         m0 = torch.full((b, d), float("-inf"), device=dev)
         fn = lambda: slstm_scan(xg, w, bias, z, z, z, m0)  # noqa: E731
         report(f"slstm_scan B={b} S={s}", breakdown(fn))
+        hs, st = fn()
+        digests[f"slstm_scan B={b} S={s}"] = hashlib.sha256(
+            torch.cat([hs.flatten(), *(t.flatten() for t in st)]).cpu().numpy().tobytes()
+        ).hexdigest()[:16]
         if s == 1:
             report(f"slstm_scan B={b} S={s} L2 flushed",
                    breakdown(fn, flush=lambda: flush_buf.fill_(1.0)))
-    print(json.dumps({"card": card, "src": str(Path(args.src).resolve()), "calls": calls}),
-          flush=True)
+    for b, s, d, h in ((8, 1024, 2048, 4), (4, 256, 512, 8)):
+        dh = d // h
+        xg = torch.randn(b, s, 4 * d, generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(h, dh, 4 * dh, generator=gen, device=dev) * dh ** -0.5).to(
+            torch.bfloat16)
+        bias = torch.randn(4 * d, generator=gen, device=dev) * 0.1
+        z = torch.zeros(b, d, device=dev)
+        fwd = (xg, w, bias, z, z, z, torch.full((b, d), float("-inf"), device=dev))
+        report(f"slstm_scan save mode B={b} S={s} D={d} H={h}",
+               breakdown(lambda: scan_ops._launch_fwd(*fwd, True)))
+        hs, _, saved = scan_ops._launch_fwd(*fwd, True)
+        dhs = torch.randn(b, s, d, generator=gen, device=dev)
+        if len(saved) == 3:
+            bwd = lambda: scan_ops.slstm_scan_bwd(*fwd, hs, *saved, dhs)  # noqa: E731
+        else:
+            bwd = lambda: scan_ops.slstm_scan_bwd(  # noqa: E731
+                w, *fwd[3:], hs, *saved, dhs, x_dtype=xg.dtype)
+        report(f"slstm_scan_bwd B={b} S={s} D={d} H={h}", breakdown(bwd))
+        del hs, saved
+    print(f"slstm_scan serving outputs (hs and the final state), sha256: {digests}", flush=True)
+    print(json.dumps({"card": card, "src": str(Path(args.src).resolve()), "calls": calls,
+                      "digests": digests}), flush=True)
 
 
 if __name__ == "__main__":

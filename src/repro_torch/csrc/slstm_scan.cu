@@ -11,8 +11,9 @@
 //   c = f' c' + i' tanh(z);  n = f' n' + i';  h = sigmoid(o) c / max(n, 1e-6)
 // from a given state (h0, c0, n0, m0), writing hs (B, S, D) and the final
 // state, all f32; in "save" mode (training) the same launch also writes
-// every step's c, n and m, (B, S, D) f32 each, which the backward kernel
-// (slstm_scan_bwd.cu) reads instead of running the recurrence again.
+// every step's gates g (B, S, 4D) and c, n and m ((B, S, D) each), all f32,
+// which the backward kernel (slstm_scan_bwd.cu) reads instead of running
+// the recurrence or its product again.
 // m0 = -inf makes f' = exp(-inf) = 0 on the first step, so the file is
 // built without --use_fast_math (gate_step picks its own approximations).
 //
@@ -62,13 +63,13 @@
 // state across their barriers.  The products run on CUDA cores in f32.
 #include "common.cuh"
 #include "mma.cuh"  // smem_u32, cp_async16, cp_async_commit, cp_async_wait
+#include "cluster.cuh"  // cluster_rank/size/barrier, mbar_*, st_async_peer, cp_async4
 
 #include <cooperative_groups.h>
 #include <stdint.h>
 
 #include <map>
 #include <mutex>
-#include <set>
 #include <tuple>
 #include <utility>
 
@@ -122,8 +123,8 @@ slstm_scan_grid(const TX* __restrict__ xg, const TW* __restrict__ whh,
                 const float* __restrict__ c0, const float* __restrict__ n0,
                 const float* __restrict__ m0, float* __restrict__ hs, float* __restrict__ hN,
                 float* __restrict__ cN, float* __restrict__ nN, float* __restrict__ mN,
-                float* __restrict__ cS, float* __restrict__ nS, float* __restrict__ mS,
-                float* hbuf, int B, int S, int D, int H, int J) {
+                float* __restrict__ gS, float* __restrict__ cS, float* __restrict__ nS,
+                float* __restrict__ mS, float* hbuf, int B, int S, int D, int H, int J) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   const int dh = D / H, W = 4 * J, parts = kThreads / W;
@@ -201,17 +202,23 @@ slstm_scan_grid(const TX* __restrict__ xg, const TW* __restrict__ whh,
       const float* bb = bias + (size_t)head * 4 * dh + j;
       const float* gr = g_s + b * W + jl;
       float c = c_s[i], n = n_s[i], m = m_s[i];
-      const float h = gate_step((to_f32(x[0]) + gr[0]) + bb[0],
-                                (to_f32(x[dh]) + gr[J]) + bb[dh],
-                                (to_f32(x[2 * dh]) + gr[2 * J]) + bb[2 * dh],
-                                (to_f32(x[3 * dh]) + gr[3 * J]) + bb[3 * dh], c, n, m);
+      const float gi = (to_f32(x[0]) + gr[0]) + bb[0];
+      const float gf = (to_f32(x[dh]) + gr[J]) + bb[dh];
+      const float gz = (to_f32(x[2 * dh]) + gr[2 * J]) + bb[2 * dh];
+      const float go = (to_f32(x[3 * dh]) + gr[3 * J]) + bb[3 * dh];
+      const float h = gate_step(gi, gf, gz, go, c, n, m);
       c_s[i] = c;
       n_s[i] = n;
       m_s[i] = m;
       const size_t o = (size_t)b * D + head * dh + j;
       const size_t ot = ((size_t)b * S + t) * D + head * dh + j;
       hs[ot] = h;
-      if (cS) {                               // save mode: every step's state
+      if (cS) {                               // save mode: every step's gates and state
+        float* g = gS + ((size_t)b * S + t) * 4 * D + (size_t)head * 4 * dh + j;
+        g[0] = gi;
+        g[dh] = gf;
+        g[2 * dh] = gz;
+        g[3 * dh] = go;
         cS[ot] = c;
         nS[ot] = n;
         mS[ot] = m;
@@ -242,73 +249,6 @@ constexpr int kClusterThreads = 512;
 constexpr int kColWarps = 8;                  // warps over the 16-column groups ...
 constexpr int kKSets = 2;                     // ... times the halves of the k range
 constexpr int kClusterRows = 2;               // batch rows per pass of its product
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ unsigned cluster_size() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-// Every thread of every block of the cluster: its earlier shared-memory
-// writes are seen by every thread of the cluster after.
-__device__ __forceinline__ void cluster_barrier() {
-  __syncwarp();
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(bar)) : "memory");
-}
-// One arrival that also expects `bytes` more to be written into this phase.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile("{\n"
-               ".reg .pred done;\n"
-               "WAIT:\n"
-               "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-               "@!done bra WAIT;\n"
-               "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-// 16 bytes into the shared memory of block `rank` of this cluster, at the
-// place `local` has in this block's; the write completes its bytes on that
-// block's barrier at the place of `bar`.
-__device__ __forceinline__ void st_async_peer(const float* local, uint64_t* bar, unsigned rank,
-                                              float4 v) {
-  uint32_t a, b;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_u32(local)), "r"(rank));
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(b) : "r"(smem_u32(bar)), "r"(rank));
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-               "{%1, %2, %3, %4}, [%5];"
-               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(b) : "memory");
-}
-// 4 bytes global -> shared, asynchronously (committed with the 16-byte copies).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" :: "r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-// 16 bytes of w as f32: 8 bf16 (the low half of each word first) or 4 f32.
-template <typename TW>
-__device__ __forceinline__ void unpack16(const uint4& r, float* w) {
-  const unsigned u[4] = {r.x, r.y, r.z, r.w};
-  if constexpr (sizeof(TW) == 2) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      w[2 * i] = __uint_as_float(u[i] << 16);
-      w[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = __uint_as_float(u[i]);
-  }
-}
 
 // Sum a[c] over the 32 lanes for each of the 16 columns c: a reduce-scatter
 // in 16 + 8 + 4 + 2 + 1 shuffles.  Lanes 2i and 2i+1 end with column
@@ -426,9 +366,9 @@ slstm_scan_cluster(const TX* __restrict__ xg, const TW* __restrict__ whh,
                    const float* __restrict__ c0, const float* __restrict__ n0,
                    const float* __restrict__ m0, float* __restrict__ hs,
                    float* __restrict__ hN, float* __restrict__ cN, float* __restrict__ nN,
-                   float* __restrict__ mN, float* __restrict__ cS, float* __restrict__ nS,
-                   float* __restrict__ mS, int B, int S, int D, int H, int J, int vec_w,
-                   int vec_x) {
+                   float* __restrict__ mN, float* __restrict__ gS, float* __restrict__ cS,
+                   float* __restrict__ nS, float* __restrict__ mS, int B, int S, int D, int H,
+                   int J, int vec_w, int vec_x) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int VW = 16 / sizeof(TW);
   const unsigned cs = cluster_size(), rank = cluster_rank();
@@ -528,17 +468,23 @@ slstm_scan_cluster(const TX* __restrict__ xg, const TW* __restrict__ whh,
         const float* g0 = g_s + b * W + jl;
         const float* g1 = g0 + Bp * W;
         float c = c_s[i], n = n_s[i], m = m_s[i];
-        h = gate_step((to_f32(x[0]) + (g0[0] + g1[0])) + b_s[jl],
-                      (to_f32(x[J]) + (g0[J] + g1[J])) + b_s[J + jl],
-                      (to_f32(x[2 * J]) + (g0[2 * J] + g1[2 * J])) + b_s[2 * J + jl],
-                      (to_f32(x[3 * J]) + (g0[3 * J] + g1[3 * J])) + b_s[3 * J + jl], c, n, m);
+        const float gi = (to_f32(x[0]) + (g0[0] + g1[0])) + b_s[jl];
+        const float gf = (to_f32(x[J]) + (g0[J] + g1[J])) + b_s[J + jl];
+        const float gz = (to_f32(x[2 * J]) + (g0[2 * J] + g1[2 * J])) + b_s[2 * J + jl];
+        const float go = (to_f32(x[3 * J]) + (g0[3 * J] + g1[3 * J])) + b_s[3 * J + jl];
+        h = gate_step(gi, gf, gz, go, c, n, m);
         c_s[i] = c;
         n_s[i] = n;
         m_s[i] = m;
         const size_t o = (size_t)b * D + head * dh + j;
         const size_t ot = ((size_t)b * S + t) * D + head * dh + j;
         hs[ot] = h;
-        if (cS) {                             // save mode: every step's state
+        if (cS) {                             // save mode: every step's gates and state
+          float* g = gS + ((size_t)b * S + t) * 4 * D + (size_t)head * 4 * dh + j;
+          g[0] = gi;
+          g[dh] = gf;
+          g[2 * dh] = gz;
+          g[3 * dh] = go;
           cS[ot] = c;
           nS[ot] = n;
           mS[ot] = m;
@@ -611,40 +557,11 @@ struct Plan {
 
 std::mutex g_mu;
 std::map<std::tuple<int, int, int, int, int, int>, Plan> g_plans;
-std::set<std::pair<int, const void*>> g_ready;  // (device, kernel) with attributes set
-
-// Once per device and kernel: the opt-in shared memory (and, for a cluster
-// kernel, clusters of up to 16 blocks).  Called under g_mu.
-cudaError_t prepare(int dev, const void* kernel, int max_smem, bool cluster) {
-  if (g_ready.count({dev, kernel})) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       max_smem);
-  if (e == cudaSuccess && cluster)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess) g_ready.insert({dev, kernel});
-  return e;
-}
 
 template <typename TX, typename TW>
 const void* cluster_kernel(int B) {
   return B == 1 ? (const void*)slstm_scan_cluster<TX, TW, 1>
                 : (const void*)slstm_scan_cluster<TX, TW, kClusterRows>;
-}
-
-cudaLaunchConfig_t cluster_config(int blocks, int cs, size_t smem, cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cs;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
 }
 
 // The cluster kernel where a cluster's shared memory holds a head's w_hh
@@ -667,7 +584,7 @@ int make_plan(int dev, int B, int D, int H, Plan* p) {
     e = prepare(dev, kernel, max_smem, true);
     if (e != cudaSuccess) return static_cast<int>(e);
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(H * cs, cs, smem, 0, &attr);
+    const cudaLaunchConfig_t cfg = cluster_config(H * cs, cs, kClusterThreads, smem, 0, &attr);
     int active = 0;
     e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -719,8 +636,8 @@ int get_plan(int x_bf16, int w_bf16, int B, int D, int H, Plan* p) {
 template <typename TX, typename TW>
 int launch(const Plan& p, const void* xg, const void* whh, const float* bias, const float* h0,
            const float* c0, const float* n0, const float* m0, float* hs, float* hN,
-           float* cN, float* nN, float* mN, float* cS, float* nS, float* mS, float* hbuf, int B,
-           int S, int D, int H, cudaStream_t stream) {
+           float* cN, float* nN, float* mN, float* gS, float* cS, float* nS, float* mS,
+           float* hbuf, int B, int S, int D, int H, cudaStream_t stream) {
   const TX* x = static_cast<const TX*>(xg);
   const TW* w = static_cast<const TW*>(whh);
   int J = p.J;
@@ -730,17 +647,18 @@ int launch(const Plan& p, const void* xg, const void* whh, const float* bias, co
     const int vec_w = reinterpret_cast<uintptr_t>(whh) % 16 == 0 && dh * sizeof(TW) % 16 == 0;
     const int vec_x = reinterpret_cast<uintptr_t>(xg) % 16 == 0 && dh * sizeof(TX) % 16 == 0;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(p.blocks, p.cluster, p.smem, stream, &attr);
+    const cudaLaunchConfig_t cfg =
+        cluster_config(p.blocks, p.cluster, kClusterThreads, p.smem, stream, &attr);
     e = B == 1 ? cudaLaunchKernelEx(&cfg, slstm_scan_cluster<TX, TW, 1>, x, w, bias, h0, c0,
-                                    n0, m0, hs, hN, cN, nN, mN, cS, nS, mS, B, S, D, H, J,
+                                    n0, m0, hs, hN, cN, nN, mN, gS, cS, nS, mS, B, S, D, H, J,
                                     vec_w, vec_x)
                : cudaLaunchKernelEx(&cfg, slstm_scan_cluster<TX, TW, kClusterRows>, x, w, bias,
-                                    h0, c0, n0, m0, hs, hN, cN, nN, mN, cS, nS, mS, B, S, D, H,
-                                    J, vec_w, vec_x);
+                                    h0, c0, n0, m0, hs, hN, cN, nN, mN, gS, cS, nS, mS, B, S, D,
+                                    H, J, vec_w, vec_x);
   } else {
     if (hbuf == nullptr) return -1;
-    void* args[] = {&x,  &w,  &bias, &h0, &c0,   &n0, &m0, &hs, &hN, &cN, &nN, &mN,
-                    &cS, &nS, &mS,   &hbuf, &B, &S,  &D,  &H,  &J};
+    void* args[] = {&x,  &w,  &bias, &h0, &c0, &n0,   &m0, &hs, &hN, &cN, &nN, &mN,
+                    &gS, &cS, &nS,   &mS, &hbuf, &B, &S,  &D,  &H,  &J};
     e = cudaLaunchCooperativeKernel((void*)slstm_scan_grid<TX, TW>, dim3(p.blocks),
                                     dim3(kThreads), args, p.smem, stream);
   }
@@ -771,34 +689,31 @@ extern "C" int slstm_scan_plan(int x_bf16, int w_bf16, int B, int D, int H, int*
   return 0;
 }
 
-// cS, nS, mS: null, or (B, S, D) f32 each, into which the same launch
-// writes every step's c, n and m ("save" mode, for the backward kernel in
-// slstm_scan_bwd.cu); hs and the final state are the same either way.
-// hbuf: scratch of 2 * B * D floats, used by the grid kernel only (may be
-// null when the plan is the cluster kernel).  Returns 0, a cudaError_t, or
-// the codes of slstm_scan_plan.
+// gS, cS, nS, mS: null, or (B, S, 4D) f32 and (B, S, D) f32 each, into
+// which the same launch writes every step's gates (as gate_step receives
+// them, in xg's layout) and its c, n and m ("save" mode, for the backward
+// kernel in slstm_scan_bwd.cu); hs and the final state are the same either
+// way.  hbuf: scratch of 2 * B * D floats, used by the grid kernel only (may
+// be null when the plan is the cluster kernel).  Returns 0, a cudaError_t,
+// or the codes of slstm_scan_plan.
 extern "C" int slstm_scan_fwd(const void* xg, const void* whh, const float* bias,
                               const float* h0, const float* c0, const float* n0,
                               const float* m0, float* hs, float* hN, float* cN, float* nN,
-                              float* mN, float* cS, float* nS, float* mS, float* hbuf,
-                              int x_bf16, int w_bf16, int B, int S, int D, int H,
+                              float* mN, float* gS, float* cS, float* nS, float* mS,
+                              float* hbuf, int x_bf16, int w_bf16, int B, int S, int D, int H,
                               void* stream) {
   if (B < 1 || S < 1 || H < 1 || D % H != 0) return -1;
   Plan p;
   const int code = get_plan(x_bf16, w_bf16, B, D, H, &p);
   if (code != 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!x_bf16 && !w_bf16)
-    return launch<float, float>(p, xg, whh, bias, h0, c0, n0, m0, hs, hN, cN, nN, mN, cS, nS,
-                                mS, hbuf, B, S, D, H, st);
-  if (!x_bf16)
-    return launch<float, __nv_bfloat16>(p, xg, whh, bias, h0, c0, n0, m0, hs, hN, cN, nN, mN,
-                                        cS, nS, mS, hbuf, B, S, D, H, st);
-  if (!w_bf16)
-    return launch<__nv_bfloat16, float>(p, xg, whh, bias, h0, c0, n0, m0, hs, hN, cN, nN, mN,
-                                        cS, nS, mS, hbuf, B, S, D, H, st);
-  return launch<__nv_bfloat16, __nv_bfloat16>(p, xg, whh, bias, h0, c0, n0, m0, hs, hN, cN,
-                                              nN, mN, cS, nS, mS, hbuf, B, S, D, H, st);
+#define SLSTM_FWD_ARGS \
+  p, xg, whh, bias, h0, c0, n0, m0, hs, hN, cN, nN, mN, gS, cS, nS, mS, hbuf, B, S, D, H, st
+  if (!x_bf16 && !w_bf16) return launch<float, float>(SLSTM_FWD_ARGS);
+  if (!x_bf16) return launch<float, __nv_bfloat16>(SLSTM_FWD_ARGS);
+  if (!w_bf16) return launch<__nv_bfloat16, float>(SLSTM_FWD_ARGS);
+  return launch<__nv_bfloat16, __nv_bfloat16>(SLSTM_FWD_ARGS);
+#undef SLSTM_FWD_ARGS
 }
 
 // `steps` grid barriers over a cooperative grid of `grid` blocks of 256
@@ -815,7 +730,7 @@ extern "C" int slstm_grid_sync_loop(int grid, int steps, void* stream) {
 
 // `steps` rounds of the cluster kernel's h exchange (`floats` f32 from each
 // block to each of its `cluster` peers, a multiple of 4) and cluster
-// barrier, over `clusters` clusters of 256 threads a block.
+// barrier, over `clusters` clusters of 512 threads a block.
 extern "C" int slstm_cluster_sync_loop(int cluster, int clusters, int floats, int steps,
                                        void* stream) {
   if (cluster < 1 || cluster > 16 || clusters < 1 || floats < 4 || floats % 4 || steps < 0)
@@ -832,8 +747,8 @@ extern "C" int slstm_cluster_sync_loop(int cluster, int clusters, int floats, in
   const size_t smem = 16 + (size_t)(2 * cluster + 1) * floats * 4;
   if (smem > (size_t)max_smem) return -1;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(cluster * clusters, cluster, smem,
-                                                static_cast<cudaStream_t>(stream), &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(cluster * clusters, cluster, kClusterThreads,
+                                                smem, static_cast<cudaStream_t>(stream), &attr);
   e = cudaLaunchKernelEx(&cfg, cluster_sync_loop, steps, floats);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

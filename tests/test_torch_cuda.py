@@ -24,9 +24,10 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_atte
 from repro_torch.kernels.ragged_concat.ops import ragged_concat, ragged_concat_ref
 from repro_torch.kernels.rmsnorm.ops import (fused_rmsnorm, rmsnorm_bwd, rmsnorm_bwd_ref,
                                              rmsnorm_ref)
-from repro_torch.kernels.slstm_scan.ops import (_launch_fwd, cluster_plan, slstm_scan,
-                                                slstm_scan_bwd, slstm_scan_bwd_ref,
-                                                slstm_scan_plan, slstm_scan_ref)
+from repro_torch.kernels.slstm_scan.ops import (_launch_fwd, bwd_cluster_plan, cluster_plan,
+                                                slstm_scan, slstm_scan_bwd, slstm_scan_bwd_plan,
+                                                slstm_scan_bwd_ref, slstm_scan_plan,
+                                                slstm_scan_ref)
 from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
@@ -626,8 +627,8 @@ def test_slstm_scan_kernel_repeated_calls(dev, dt):
 
 def _slstm_bwd_case(dev, b, s, d, h, dt, seed, state=False, finals=True):
     """K5 in save mode on fresh inputs, then K5-bwd and the plain backward
-    on its saved states with random cotangents: (kernel grads, plain grads,
-    the call's arguments)."""
+    on its saved gates and states with random cotangents: (kernel grads,
+    plain grads, the call's positional arguments; xg's dtype is ``dt``)."""
     args = list(_slstm_inputs(dev, b, s, d, h, dt, seed))
     if state:
         args[3:] = [_randn(dev, b, d, dt=torch.float32, seed=seed + 3 + i) for i in range(4)]
@@ -636,11 +637,11 @@ def _slstm_bwd_case(dev, b, s, d, h, dt, seed, state=False, finals=True):
     cot = [_randn(dev, b, s, d, dt=torch.float32, seed=seed + 7)] + \
         [_randn(dev, b, d, dt=torch.float32, seed=seed + 8 + i) if finals else None
          for i in range(4)]
-    call = (*args, hs, *saved, *cot)
+    call = (args[1], *args[3:], hs, *saved, *cot)
     n = slstm_scan_bwd.launches
-    got = slstm_scan_bwd(*call)
+    got = slstm_scan_bwd(*call, x_dtype=dt)
     assert slstm_scan_bwd.launches == n + 1
-    return got, slstm_scan_bwd_ref(*call), call
+    return got, slstm_scan_bwd_ref(*call, x_dtype=dt), call
 
 
 def _slstm_bwd_close(got, want):
@@ -660,12 +661,16 @@ def _slstm_bwd_close(got, want):
 @pytest.mark.parametrize("state", [False, True])
 @pytest.mark.parametrize("b,s,d,h", [(1, 1, 2048, 4), (3, 1, 2048, 4), (5, 17, 2048, 4),
                                      (8, 384, 2048, 4), (3, 100, 512, 8), (7, 33, 48, 4),
-                                     (2, 40, 64, 1)])
+                                     (2, 40, 64, 1), (3, 20, 12, 2)])
 def test_slstm_scan_bwd_kernel_matches_plain(dev, b, s, d, h, state, dt):
     """K5-bwd against its plain backward: S = 1, B not a multiple of the
-    kernel's row chunk of 4, full width, the 100m width, narrow heads (dh
-    12 and 64), from the zero state (m0 = -inf: finite gradients, dc0, dn0
-    and dm0 exactly 0) and from a random state."""
+    product's pass of rows, full width (bf16: the cluster kernel; f32: the
+    grid kernel), the 100m width and narrow heads (dh 12, 64, and 6, not a
+    multiple of 4; the cluster kernel in both dtypes), from the zero state
+    (m0 = -inf: finite gradients, dc0, dn0 and dm0 exactly 0) and from a
+    random state."""
+    plan = slstm_scan_bwd_plan(b, d, h, w_dtype=dt)
+    assert plan.variant == ("grid" if (d, dt) == (2048, torch.float32) else "cluster")
     got, want, _ = _slstm_bwd_case(dev, b, s, d, h, dt, seed=50 + b + s, state=state)
     _slstm_bwd_close(got, want)
     if not state:
@@ -681,18 +686,43 @@ def test_slstm_scan_bwd_kernel_repeated_calls(dev, dt):
              for b, s, f in ((1, 100, True), (4, 1, False), (2, 17, True))]
     for got, want, call in cases:
         _slstm_bwd_close(got, want)
-        assert all(map(torch.equal, got, slstm_scan_bwd(*call)))
+        assert all(map(torch.equal, got, slstm_scan_bwd(*call, x_dtype=dt)))
+
+
+def test_slstm_scan_bwd_plan_variants(dev):
+    """K5-bwd's plan: at full width bf16 takes clusters of 16 blocks of J =
+    32, as many groups of rows as the card's clusters give each head, and
+    f32 (4 MiB of w_hh a head) the cooperative grid; at the 100m width both
+    dtypes take clusters of one block.  The cluster plans are the rule of
+    ``bwd_cluster_plan`` with the card's own count of clusters."""
+    budget = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for b, d, h in ((1, 2048, 4), (4, 2048, 4), (8, 2048, 4), (4, 512, 8), (8, 512, 8)):
+        for dt in DTYPES:
+            p = slstm_scan_bwd_plan(b, d, h, w_dtype=dt)
+            want = bwd_cluster_plan(b, d, h, dt.itemsize, budget, p.active)
+            if (d, dt) == (2048, torch.float32):
+                assert p.variant == "grid" and p.cluster == 0 and want is None
+                continue
+            assert p.variant == "cluster" and p.active >= 1
+            assert (p.cluster, p.j, p.rows, p.blocks, p.smem) == want
+            assert (p.cluster, p.j) == ((16, 32) if d == 2048 else (1, 64))
 
 
 @pytest.mark.parametrize("dt", DTYPES)
 def test_slstm_scan_save_mode_is_bit_for_bit(dev, dt):
     """K5 in save mode gives the serving launch's hs and final state bit for
-    bit, and its saved last step is the final (c, n, m)."""
+    bit, its saved last step is the final (c, n, m), and its saved gates
+    are (xg + h_{t-1} . w_hh) + b formed from its own hs, within f32's
+    3e-5 (the product's sums in another order)."""
     args = _slstm_inputs(dev, 4, 37, 2048, 4, dt, seed=70)
     hs0, st0, none = _launch_fwd(*args, False)
     hs1, st1, saved = _launch_fwd(*args, True)
     assert none is None and torch.equal(hs0, hs1) and all(map(torch.equal, st0, st1))
-    assert all(torch.equal(v[:, -1], f) for v, f in zip(saved, st1[1:]))
+    assert all(torch.equal(v[:, -1], f) for v, f in zip(saved[1:], st1[1:]))
+    xg, w, bias, h0 = args[:4]
+    hprev = torch.cat([h0[:, None], hs1[:, :-1]], dim=1).view(4, 37, 4, 512)
+    rec = torch.einsum("bshd,hdk->bshk", hprev, w.float()).reshape(4, 37, 4 * 2048)
+    torch.testing.assert_close(saved[0], (xg.float() + rec) + bias, atol=3e-5, rtol=3e-5)
 
 
 def test_slstm_scan_function_launches_both_kernels(dev):

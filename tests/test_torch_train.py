@@ -294,9 +294,9 @@ def test_xlstm_model_on_the_card_trains_through_the_scan_function(monkeypatch):
             return slstm_scan_ref(xg, w_hh, b_ih, h0, c0, n0, m0, save_states=True)
         return (*slstm_scan_ref(xg, w_hh, b_ih, h0, c0, n0, m0), None)
 
-    def bwd(*args):
+    def bwd(*args, **kw):
         launches["bwd"] += 1
-        return slstm_scan_bwd_ref(*args)
+        return slstm_scan_bwd_ref(*args, **kw)
 
     plain = Model(cfg, device="cpu", plain=True)
     params = plain.init(0)
