@@ -8,7 +8,7 @@ dense, xLSTM, MoE and Zamba2 families; ``Model.prefill`` and
 ``decode_step`` for Whisper and mLLaMA, whose prefill takes frames or a
 vision input that no request carries; training through ``Trainer``,
 ``Model.loss`` and the backward kernels) on the GPU, never the JAX
-reference package, in twenty-nine phases; any failed phase exits
+reference package, in thirty phases; any failed phase exits
 non-zero before the final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
@@ -147,7 +147,9 @@ non-zero before the final line:
    further resumes (moments zeroed, master weights rebuilt from the bf16
    params, the optimizer's step or the data cursor one ahead) must move
    them beyond it; the losses must be finite and fall; prints the step
-   ms, tokens/s, the model-FLOP share, peak device memory and the losses
+   ms, tokens/s, the model-FLOP share (from ``param_count`` and from the
+   step's FLOPs as the dry run counts them on ``meta``), peak device
+   memory beside the count's peak of live storages, and the losses
    at steps 1 and 8, and one step's device time by kernel group; then full-width xlstm-1.3b in bf16 the
    same way (``XLSTM_TRAIN_BS``, ``XLSTM_TRAIN_STEPS`` steps, no
    checkpoint): K5 and K5-bwd launched once per sLSTM block every step,
@@ -161,7 +163,19 @@ non-zero before the final line:
 29. every dtype, shape, stride and mode K1-bwd, K2-bwd and K5-bwd ran on
    in phases 26-28 (recorded as they ran), again on unit-scale random
    inputs of that layout against the plain backward, K2's forward with
-   its logsumexp output as in phase 3.
+   its logsumexp output as in phase 3;
+30. the step builders of ``repro_torch.launch.steps`` on full-width
+   qwen2-1.5b and xlstm-1.3b in bf16 (4 prompts of 384 tokens, then 8
+   greedy steps): each greedy token equal to ``Model(..., plain=True)``'s
+   but at a near tie of the plain logits, the path's kernels launched;
+   the cost count (``repro_torch.launch.cost_analysis``) of qwen2-1.5b's
+   prefill step, its decode step over filled caches and its train step
+   (B 8 x S 1024) and of xlstm-1.3b's prefill (B 1 x S 384) on the card,
+   each equal to the count on ``meta`` in FLOPs and bytes; then the dry
+   run's whole grid (``python -m repro_torch.launch.dryrun --all``,
+   started in a child process after phase 2, on the host's CPU): no cell
+   ``error``, skipped cells for the reference's reason, its roofline
+   table and wall time.
 
 It prints a ``{"kernels": [...]}`` line (the backward kernels with
 ``"role": "backward"``) and ends with one JSON line
@@ -182,9 +196,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 T_START = time.monotonic()
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): the least-time bounds
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # bf16 tensor cores; f32 CUDA cores
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}              # tests/test_kernels.py:17-18
 # sLSTM scan, kernel vs plain: the two differ only in the order of the f32
 # recurrent sums, carried through up to 384 dependent steps; the
@@ -387,8 +398,20 @@ def log_timings(what: str, t: dict, library: str | None) -> None:
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    """The least time on the card (``repro_torch.launch.mesh.HW``: the H100
+    SXM's published dense peaks, bf16 on the tensor cores, f32 on the CUDA
+    cores) for ``nbytes`` moved and ``flops`` done in ``dtype``."""
+    from repro_torch.launch.mesh import HW
+
+    peak = HW.PEAK_BF16_FLOPS if dtype == "bfloat16" else HW.PEAK_F32_FLOPS
+    tb, tf = nbytes / HW.HBM_BW, flops / peak
     return (1e3 * max(tb, tf), "bytes" if tb >= tf else "operations")
+
+
+def cost_bound(cost: tuple, dtype: str) -> tuple[float, str]:
+    """:func:`bound_ms` of a kernel's ``cost`` (FLOPs, bytes): the formula
+    the dry run's count reads too."""
+    return bound_ms(cost[1], cost[0], dtype)
 
 
 def max_err(a, b) -> float:
@@ -485,8 +508,11 @@ def phase_kernels(dev) -> dict:
                                   flash_edge_cases, flash_edge_cases_gemma, flash_edge_cases_moe,
                                   flash_edge_cases_zamba2)
 
-    from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
+    from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_attention_cost,
+                                                          decode_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_attention_cost,
+                                                         flash_attention_ref)
     from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
 
     gen = torch.Generator(device=dev)
@@ -543,9 +569,8 @@ def phase_kernels(dev) -> dict:
                     lambda: flash_attention_ref(q, k, v, causal=True),
                     lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
                                                            enable_gqa=True))
-        nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
-        flops = 4 * hd * h * b * (s * (s + 1) // 2)
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, "bfloat16")
+        t["bound_ms"], t["bound_by"] = cost_bound(flash_attention_cost(b, h, kv, s, s, hd, 2),
+                                                  "bfloat16")
         log_timings(f"flash_attention bf16 B=1 H=12 KV=2 S={s} hd=128", t, "SDPA")
         by_seq[s] = t
     report["flash_attention"] = {"max_abs_err": errs[("bfloat16", cases[0])],
@@ -603,8 +628,8 @@ def phase_kernels(dev) -> dict:
                 lambda: F.scaled_dot_product_attention(q4, kct, vct, attn_mask=mask,
                                                        enable_gqa=True))
     n_valid = sum(min(max(n, 0), s) for n in lens)
-    nbytes = 2 * (2 * b * h * hd + 2 * n_valid * kv * hd) + 4 * b
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 4 * hd * h * n_valid, "bfloat16")
+    t["bound_ms"], t["bound_by"] = cost_bound(decode_attention_cost(b, h, kv, hd, n_valid, 2),
+                                              "bfloat16")
     log_timings(f"decode_attention bf16 B=4 H=12 KV=2 S=512 hd=128 lens={lens}", t, "SDPA")
     report["decode_attention"] = {"max_abs_err": errs[("bfloat16", tuple(lens))],
                                   "shape": f"B=4 H=12 KV=2 S=512 hd=128 lens={lens} bf16", **t}
@@ -647,10 +672,12 @@ def phase_attention_shape(dev, rnd, dts, *, g: int, kv: int, hd: int, flash_edge
     from _attention_edges import decode_edge_lens
 
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_attention_cost,
                                                           decode_attention_ref,
                                                           decode_row_groups,
                                                           decode_split_plan)
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_attention_cost,
+                                                         flash_attention_ref)
 
     h = g * kv
     shape = f"hd={hd} G={g} KV={kv}"
@@ -679,8 +706,8 @@ def phase_attention_shape(dev, rnd, dts, *, g: int, kv: int, hd: int, flash_edge
                     lambda: flash_attention_ref(q, k, v, causal=True),
                     lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
                                                            enable_gqa=True))
-        t["bound_ms"], t["bound_by"] = bound_ms(2 * (2 * s_ * h * hd + 2 * s_ * kv * hd),
-                                                4 * hd * h * (s_ * (s_ + 1) // 2), "bfloat16")
+        t["bound_ms"], t["bound_by"] = cost_bound(
+            flash_attention_cost(1, h, kv, s_, s_, hd, 2), "bfloat16")
         log_timings(f"flash_attention bf16 B=1 H={h} KV={kv} S={s_} hd={hd}", t, "SDPA")
         flash[f"S={s_}"] = {**{k_: v_ for k_, v_ in t.items() if k_ != "wall_ms"},
                             "max_abs_err": worst[("flash", "bfloat16")]}
@@ -718,8 +745,8 @@ def phase_attention_shape(dev, rnd, dts, *, g: int, kv: int, hd: int, flash_edge
                 lambda: F.scaled_dot_product_attention(q4, kct, vct, attn_mask=mask,
                                                        enable_gqa=True))
     n_valid = sum(path_lens)
-    t["bound_ms"], t["bound_by"] = bound_ms(2 * (2 * b * h * hd + 2 * n_valid * kv * hd) + 4 * b,
-                                            4 * hd * h * n_valid, "bfloat16")
+    t["bound_ms"], t["bound_by"] = cost_bound(decode_attention_cost(b, h, kv, hd, n_valid, 2),
+                                              "bfloat16")
     log_timings(f"decode_attention bf16 B=4 H={h} KV={kv} S=512 hd={hd} lens={path_lens}", t,
                 "SDPA")
     decode = {k_: v_ for k_, v_ in t.items() if k_ != "wall_ms"}
@@ -746,10 +773,12 @@ def phase_cross_shapes(dev, rnd, dts) -> tuple[dict, dict]:
     from _attention_edges import CROSS_DECODE, CROSS_FLASH, decode_edge_lens
 
     from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                          decode_attention_cost,
                                                           decode_attention_ref,
                                                           decode_row_groups,
                                                           decode_split_plan)
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_attention_cost,
+                                                         flash_attention_ref)
 
     flash, decode = {}, {}
     for b, h, kv, sq, sk, hd in CROSS_FLASH:
@@ -766,8 +795,8 @@ def phase_cross_shapes(dev, rnd, dts) -> tuple[dict, dict]:
                     lambda: flash_attention_ref(q, k, v, causal=False),
                     lambda: F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True),
                     plain_iters=5)
-        t["bound_ms"], t["bound_by"] = bound_ms(2 * (2 * b * sq * h * hd + 2 * b * sk * kv * hd),
-                                                4 * hd * h * b * sq * sk, "bfloat16")
+        t["bound_ms"], t["bound_by"] = cost_bound(
+            flash_attention_cost(b, h, kv, sq, sk, hd, 2, causal=False), "bfloat16")
         log(f"flash_attention {shape}: max_abs_err f32 {errs['float32']:.3e}, bf16 "
             f"{errs['bfloat16']:.3e}")
         log_timings(f"flash_attention bf16 {shape}", t, "SDPA")
@@ -793,8 +822,8 @@ def phase_cross_shapes(dev, rnd, dts) -> tuple[dict, dict]:
         t = timings(lambda: decode_attention(qd, kt, vt, lt),
                     lambda: decode_attention_ref(qd, kt, vt, lt),
                     lambda: F.scaled_dot_product_attention(q4, kct, vct, enable_gqa=True))
-        t["bound_ms"], t["bound_by"] = bound_ms(2 * (2 * b * h * hd + 2 * b * s_ * kv * hd) + 4 * b,
-                                                4 * hd * h * b * s_, "bfloat16")
+        t["bound_ms"], t["bound_by"] = cost_bound(
+            decode_attention_cost(b, h, kv, hd, b * s_, 2), "bfloat16")
         log(f"decode_attention {shape}: P={per}, {ns} splits; max_abs_err f32 "
             f"{errs['float32']:.3e}, bf16 {errs['bfloat16']:.3e}")
         log_timings(f"decode_attention bf16 {shape}", t, "SDPA")
@@ -818,7 +847,7 @@ def phase_rmsnorm(dev, gen, rnd, dts) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, fused_rmsnorm_cost, rmsnorm_ref
 
     def cmp(what, got, ref, dname):
         (y, h), (yr, hr) = got, ref
@@ -877,8 +906,8 @@ def phase_rmsnorm(dev, gen, rnd, dts) -> dict:
                     lambda: rmsnorm_ref(x, None, sc, eps=1e-6, want_residual=False),
                     lambda: F.rms_norm(x, (128,), sc16, 1e-6))
         # x read once, y written once, the f32 scale read once
-        t["bound_ms"], t["bound_by"] = bound_ms(2 * rows * 128 * 2 + 128 * 4, 4 * rows * 128,
-                                                "bfloat16")
+        t["bound_ms"], t["bound_by"] = cost_bound(
+            fused_rmsnorm_cost(rows, 128, 2, residual=False, want_residual=False), "bfloat16")
         log_timings(f"rmsnorm bf16 qk_norm R={rows} D=128 (norm alone, no residual out)", t,
                     "F.rms_norm")
         qk_times[f"qk_norm R={rows} D=128 bf16"] = {k: v for k, v in t.items() if k != "wall_ms"}
@@ -893,8 +922,7 @@ def phase_rmsnorm(dev, gen, rnd, dts) -> dict:
                     lambda: rmsnorm_ref(x, r, sc, eps=1e-6),
                     lambda: F.rms_norm(hsum, (d,), sc16, 1e-6))
         # x and r read once, y and h written once, the f32 scale read once
-        t["bound_ms"], t["bound_by"] = bound_ms(4 * rows * d * 2 + d * 4, 6 * rows * d,
-                                                "bfloat16")
+        t["bound_ms"], t["bound_by"] = cost_bound(fused_rmsnorm_cost(rows, d, 2), "bfloat16")
         # the wrapper and one torch.add in turns, for their ratio
         pair = host_ms_each({"k1": lambda: fused_rmsnorm(x, r, sc, eps=1e-6),
                              "add": lambda: torch.add(x, r)}, reps=9)
@@ -922,8 +950,8 @@ def phase_slstm_scan(dev, rnd, dts) -> dict:
     import torch
 
     from repro_torch.kernels.slstm_scan.ops import (cluster_sync_loop, grid_sync_loop,
-                                                    slstm_scan, slstm_scan_plan,
-                                                    slstm_scan_ref)
+                                                    slstm_scan, slstm_scan_cost,
+                                                    slstm_scan_plan, slstm_scan_ref)
 
     d, h = 2048, 4
     dh = d // h
@@ -967,11 +995,8 @@ def phase_slstm_scan(dev, rnd, dts) -> dict:
         log(f"slstm_scan {dname} B=2 S=8 from a carried state vs plain: max_abs_err {e:.3e}")
 
     def bound(b, s, wbytes):
-        # bytes: xg, w_hh, b and the state in once, hs and the state out once;
-        # operations: the f32 recurrent product (h is f32), on CUDA cores
-        nbytes = 2 * b * s * 4 * d * (2 if wbytes == 4 else 1) + wbytes * h * dh * 4 * dh + \
-            4 * 4 * d + 16 * b * d + 4 * b * s * d + 16 * b * d
-        return bound_ms(nbytes, 2 * b * s * 4 * d * dh, "float32")
+        # xg in w_hh's type; the f32 recurrent product on the CUDA cores
+        return cost_bound(slstm_scan_cost(b, s, d, h, wbytes, wbytes), "float32")
 
     flush_buf = torch.empty(64 * 2 ** 20 // 4, device=dev)      # 64 MB > the 50 MB L2
     out = {}
@@ -1082,16 +1107,12 @@ def check_slstm_bwd(what: str, got, want) -> float:
 
 
 def slstm_bwd_bound(b, s, d, h, xbytes, wbytes) -> tuple[float, str]:
-    """K5-bwd's least time, from the gates K5 saved: bytes: w_hh, the saved
-    gates, c/n/m, hs, the initial state and the cotangents read once; dxg,
-    dw_hh, db and the initial state's gradients written once; operations:
-    the two f32 products the call needs (dh_{t-1} = dg w_hh^T and dw_hh =
-    h^T dg: 2 B S 4D dh flops each) on the CUDA cores.  Before the gates
-    were saved the call also formed them again, a third such product."""
-    dh = d // h
-    nbytes = b * s * 4 * d * (xbytes + 4) + 2 * h * dh * 4 * dh * wbytes + 16 * d + \
-        2 * 16 * b * d + 5 * 4 * b * s * d + 2 * 16 * b * d
-    return bound_ms(nbytes, 2 * 2 * b * s * 4 * d * dh, "float32")
+    """K5-bwd's least time (``slstm_scan_bwd_cost``: the two f32 products
+    the call needs, on the CUDA cores).  Before the gates were saved the
+    call also formed them again, a third such product."""
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan_bwd_cost
+
+    return cost_bound(slstm_scan_bwd_cost(b, s, d, h, xbytes, wbytes), "float32")
 
 
 def phase_slstm_bwd(dev, rnd, dts) -> dict:
@@ -1216,7 +1237,8 @@ def phase_ragged_concat(dev, gen) -> dict:
     timed beside ``torch.cat``, and required to be one kernel per call."""
     import torch
 
-    from repro_torch.kernels.ragged_concat.ops import ragged_concat, ragged_concat_ref
+    from repro_torch.kernels.ragged_concat.ops import (ragged_concat, ragged_concat_cost,
+                                                       ragged_concat_ref)
 
     lens = [500_000, 3_011, 2_987]
     n, lmax, c = len(lens), max(lens), 4
@@ -1242,8 +1264,8 @@ def phase_ragged_concat(dev, gen) -> dict:
         log("ragged_concat: kernels per call not measured (no profiler activity)")
     elif t["kernels_per_call"] != 1:
         fail(f"ragged_concat: {t['kernels_per_call']:g} kernels per call, not one")
-    nbytes = 4 * c * (sum(lens) + cap) + 8 * n
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 0, "float32")
+    t["bound_ms"], t["bound_by"] = cost_bound(ragged_concat_cost(n, c, 4, sum(lens), cap),
+                                              "float32")
     log_timings(f"ragged_concat f32 lens={lens} C={c} capacity={cap}", t, "torch.cat")
     return {"ragged_concat": {"max_abs_err": 0.0, "shape": f"N=3 lens={lens} C=4 f32", **t}}
 
@@ -1549,6 +1571,7 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
     import numpy as np
     import torch
 
+    from repro_torch.launch.mesh import HW
     from repro_torch.launch.serve import make_requests, run, warmup
     from repro_torch.models import Model
     from repro_torch.runtime.server import InferenceServer
@@ -1622,18 +1645,18 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
                            for n, t in p["moe"].items() if n.startswith("e_"))
         active = e * (1 - (1 - k / e) ** SLOTS)
         read = weight_bytes - expert_bytes * (1 - active / e)
-        log(f"{arch} decode-round bound {1e3 * read / HBM_BYTES_PER_S:.3f} ms ({read / 1e9:.3f} "
+        log(f"{arch} decode-round bound {1e3 * read / HW.HBM_BW:.3f} ms ({read / 1e9:.3f} "
             f"GB: {SLOTS * k} routes a layer reach {active:.1f} of {e} experts in expectation, "
             f"{expert_bytes / 1e9:.3f} GB of experts in all) / 3.35 TB/s)")
         moe_bytes = (weight_bytes, expert_bytes, e)
     elif cfg.family == "zamba2":
         parts = zamba2_round_bytes(params, cfg, srv._cache)
         no_kv = sum(parts.values())
-        log(f"{arch} decode-round bound without the K/V {1e3 * no_kv / HBM_BYTES_PER_S:.3f} ms "
+        log(f"{arch} decode-round bound without the K/V {1e3 * no_kv / HW.HBM_BW:.3f} ms "
             f"({no_kv / 1e9:.3f} GB: " + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
             + " GB) / 3.35 TB/s")
     else:
-        bound_step = 1e3 * (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S
+        bound_step = 1e3 * (weight_bytes + 2 * state_bytes) / HW.HBM_BW
         log(f"{arch} decode-round bound {bound_step:.3f} ms ((weights {weight_bytes / 1e9:.3f} "
             f"GB + 2 x state {state_bytes / 1e9:.3f} GB) / 3.35 TB/s)")
     again = run(srv, requests("again"))      # the same prompts again: run-to-run spread
@@ -1655,14 +1678,14 @@ def phase_serve_bf16(dev, arch: str) -> tuple[dict, dict]:
         kv_bytes = path_ms["kv_tokens"] * kv_row
         read = no_kv + kv_bytes
         log(f"{arch} decode-round bound for the profiled rounds: "
-            f"{1e3 * read / HBM_BYTES_PER_S:.3f} ms ({read / 1e9:.3f} GB: the above and "
+            f"{1e3 * read / HW.HBM_BW:.3f} ms ({read / 1e9:.3f} GB: the above and "
             f"{kv_bytes / 1e9:.3f} GB of valid K/V, {path_ms['kv_tokens']:.1f} cached positions "
             f"over the slots a round)")
     if cfg.family == "moe":      # the bound for the experts the profiled rounds reached
         weight_bytes, expert_bytes, e = moe_bytes
         read = weight_bytes - expert_bytes * (1 - path_ms["moe"]["active_experts"] / e)
         log(f"{arch} decode-round bound for the profiled rounds' routes: "
-            f"{1e3 * read / HBM_BYTES_PER_S:.3f} ms ({read / 1e9:.3f} GB, "
+            f"{1e3 * read / HW.HBM_BW:.3f} ms ({read / 1e9:.3f} GB, "
             f"{path_ms['moe']['active_experts']:.2f} of {e} experts a layer)")
 
     plain_model = Model(cfg, device=dev, plain=True)
@@ -1885,6 +1908,8 @@ def phase_cross_bf16(dev, arch: str) -> tuple[dict, dict]:
     import numpy as np
     import torch
 
+    from repro_torch.launch.mesh import HW
+
     ws = wrappers()
     names = PATH_KERNELS[arch]
     cfg, model, params = cross_model(dev, arch, "bfloat16")
@@ -1936,7 +1961,7 @@ def phase_cross_bf16(dev, arch: str) -> tuple[dict, dict]:
     mid = [lens[0] + MAX_NEW // 2] * CROSS_BATCH     # the first batch's middle step
     parts = cross_round_bytes(params, cfg, mid)
     read = sum(parts.values())
-    log(f"{arch} decode-step bound {1e3 * read / HBM_BYTES_PER_S:.3f} ms ({read / 1e9:.3f} GB: "
+    log(f"{arch} decode-step bound {1e3 * read / HW.HBM_BW:.3f} ms ({read / 1e9:.3f} GB: "
         + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
         + f" GB at lengths {mid[0]}) / 3.35 TB/s")
 
@@ -1971,7 +1996,7 @@ def phase_cross_bf16(dev, arch: str) -> tuple[dict, dict]:
     lens_now = state["cache"]["len"].tolist()
     parts = cross_round_bytes(params, cfg, [n - 2 for n in lens_now])
     read = sum(parts.values())
-    log(f"{arch} decode-step bound for the profiled steps: {1e3 * read / HBM_BYTES_PER_S:.3f} "
+    log(f"{arch} decode-step bound for the profiled steps: {1e3 * read / HW.HBM_BW:.3f} "
         f"ms ({read / 1e9:.3f} GB) against device busy {windows[1]['busy_ms']:.3f} ms and wall "
         f"{windows[1]['wall_ms']:.3f} ms a step")
 
@@ -2405,8 +2430,9 @@ def phase_backward_kernels(dev, gen, rnd, dts) -> dict:
 
     from repro_torch.kernels.flash_attention.ops import (_launch_fwd, flash_attention,
                                                          flash_attention_bwd,
+                                                         flash_attention_bwd_cost,
                                                          flash_attention_bwd_ref)
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd, rmsnorm_bwd_ref
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd, rmsnorm_bwd_cost, rmsnorm_bwd_ref
 
     report = {}
     modes = {"add": (True, False, True), "add-gemma": (True, True, True),
@@ -2449,10 +2475,7 @@ def phase_backward_kernels(dev, gen, rnd, dts) -> dict:
         t = timings(lambda: rmsnorm_bwd(x, r, sc, dy, dh),
                     lambda: rmsnorm_bwd_ref(x, r, sc, dy, dh),
                     lambda: torch.autograd.grad(y, [xr, sc16], dy, retain_graph=True))
-        # x, r, dy, dh read once, dx written once (bf16), the scale read and
-        # dscale written (f32); ~10 operations an element
-        t["bound_ms"], t["bound_by"] = bound_ms(5 * rows * d * 2 + 2 * d * 4, 10 * rows * d,
-                                                "bfloat16")
+        t["bound_ms"], t["bound_by"] = cost_bound(rmsnorm_bwd_cost(rows, d, 2), "bfloat16")
         log_timings(what, t, "autograd of F.rms_norm")
         times[f"R={rows} D={d} bf16"] = t
     report["rmsnorm_bwd"] = {"max_abs_err": worst["bfloat16"], "shape": "R=8192 D=1536 bf16",
@@ -2516,11 +2539,8 @@ def phase_backward_kernels(dev, gen, rnd, dts) -> dict:
                     lambda: flash_attention_bwd_ref(q, k, v, o, do, causal=True),
                     lambda: torch.autograd.grad(oc, [qc, kc, vc], do, retain_graph=True),
                     plain_iters=5)
-        pairs = b * h * (s * (s + 1) // 2)
-        # q, o, dO, dq (B,S,H,hd), k, v, dk, dv (B,S,KV,hd) in bf16, lse in f32;
-        # 5 products of 2 hd operations per (query, key) pair
-        t["bound_ms"], t["bound_by"] = bound_ms(2 * (4 * b * s * h * hd + 4 * b * s * kv * hd)
-                                                + 4 * b * h * s, 10 * hd * pairs, "bfloat16")
+        t["bound_ms"], t["bound_by"] = cost_bound(
+            flash_attention_bwd_cost(b, h, kv, s, s, hd, 2), "bfloat16")
         log_timings(what, t, "autograd of SDPA")
         times[f"B={b} S={s}"] = t
     key = f"B={TRAIN_BF16_BS[0]} S={TRAIN_BF16_BS[1]}"
@@ -2667,6 +2687,7 @@ def run_train(dev, arch: str, tc, label: str) -> tuple[dict, list, dict]:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HW
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import Model
     from repro_torch.runtime.trainer import Trainer
@@ -2698,12 +2719,22 @@ def run_train(dev, arch: str, tc, label: str) -> tuple[dict, list, dict]:
         fail(f"bf16 {arch} train: losses {losses} are not finite or do not fall")
     step_s = statistics.median(r["dt"] for r in recs[2:])
     tokens = b * s
-    share = 6 * cfg.param_count() * tokens / (step_s * 989e12)
+    share = 6 * cfg.param_count() * tokens / (step_s * HW.PEAK_BF16_FLOPS)
+    counted = meta_count(arch, "train", b, s)
+    counted_share = counted.flops / (step_s * HW.PEAK_BF16_FLOPS)
+    roof_s = counted.flops_bf16 / HW.PEAK_BF16_FLOPS + counted.flops_f32 / HW.PEAK_F32_FLOPS
     print(f"{label} step ms (median of steps 3-{steps}): {step_s * 1e3:.2f}", flush=True)
     print(f"{label} tokens/s: {tokens / step_s:.0f}", flush=True)
     print(f"{label} model-FLOP share (6 N tokens / (step s x 989e12)): {share:.4f}",
           flush=True)
+    print(f"{label} model-FLOP share from the counted FLOPs ({counted.flops:.4e} a step, "
+          f"{counted.flops_f32:.4e} of them f32; counted / (step s x 989e12)): "
+          f"{counted_share:.4f}; the count's compute bound (bf16 at 989e12, f32 at 67e12) "
+          f"{roof_s * 1e3:.2f} ms, {roof_s / step_s:.4f} of the step", flush=True)
     print(f"{label} peak device memory GB: {peak / 1e9:.2f}", flush=True)
+    print(f"{label} the count's peak of live storages GB: {counted.memory['peak_bytes'] / 1e9:.2f}"
+          f" beside max_memory_allocated {peak / 1e9:.2f} (gap "
+          f"{(peak - counted.memory['peak_bytes']) / 1e9:+.2f})", flush=True)
     print(f"{label} loss step 1: {losses[0]:.6f}  step {steps}: {losses[-1]:.6f}", flush=True)
     log(f"bf16 {arch} train: launches over {steps} steps {counts} (as train_step_counts "
         f"says); losses {[round(x, 4) for x in losses]}; step s "
@@ -2715,7 +2746,10 @@ def run_train(dev, arch: str, tc, label: str) -> tuple[dict, list, dict]:
                                                          generator=gen)},
                                 f"bf16 {arch} train step")
     return counts, recs, {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
-                          "model_flop_share": share, "peak_gb": peak / 1e9, "batch": [b, s],
+                          "model_flop_share": share, "counted_flop_share": counted_share,
+                          "counted_flops": counted.flops,
+                          "counted_peak_gb": counted.memory["peak_bytes"] / 1e9,
+                          "peak_gb": peak / 1e9, "batch": [b, s],
                           "losses": losses, "groups_ms": groups}
 
 
@@ -3038,6 +3072,254 @@ def phase_train_shapes(dev, calls: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the step builders on the card, the cost count, the dry run
+# ---------------------------------------------------------------------------
+
+STEP_BS = (4, PROMPT_MAX)        # B prompts of the served prompts' longest length
+STEP_DECODE = 8                  # greedy steps after the prefill, into MAX_SEQ positions
+# A greedy token of the kernel path may differ from the plain path's only at
+# a near tie of the plain path's bf16 logits: its top logit within this of
+# the kernel path's token's (the bf16 logit bounds of the CPU parity tests,
+# tests/test_torch_model.py and tests/test_torch_xlstm.py)
+STEP_TIE = {TRAIN_ARCH: 0.06, XLSTM_ARCH: 0.045}
+COUNT_XLSTM_BS = (1, PROMPT_MAX)  # xlstm-1.3b's prefill, counted on the card and on meta
+DRYRUN_TIMEOUT_S = 600
+LONG_500K_WHY = "500k decode needs sub-quadratic attention (SSM/hybrid only)"
+
+
+class DryRun:
+    """The dry run's whole grid (``python -m repro_torch.launch.dryrun
+    --all``) in a child process started after the build, at low priority,
+    on one thread and with no card (it counts on ``meta``), while the card
+    runs phases 3-29; records and log in ``build/dryrun``.  :meth:`finish`
+    waits for it; if the script ends first the child is killed."""
+
+    def __init__(self):
+        import atexit
+        import os
+        import shutil
+
+        self.out = ROOT / "build" / "dryrun"
+        shutil.rmtree(self.out, ignore_errors=True)
+        self.out.mkdir(parents=True)
+        self.log_path = self.out / "dryrun.log"
+        self.log = open(self.log_path, "w")
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1",
+               "CUDA_VISIBLE_DEVICES": ""}
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--out", str(self.out)],
+            stdout=self.log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT),
+            preexec_fn=lambda: os.nice(10))
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self) -> tuple[int, float]:
+        """(exit code, the grid's wall seconds: start to its log's last write)."""
+        import os
+
+        try:
+            code = self.proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail(f"the dry run's grid did not end within {DRYRUN_TIMEOUT_S} s")
+        self.log.close()
+        return code, os.path.getmtime(self.log_path) - self.t0
+
+
+_META_COUNTS: dict = {}
+
+
+def meta_count(arch: str, kind: str, b: int, s: int):
+    """The cost count on ``meta`` of full-width ``arch``'s ``kind`` step (B
+    ``b`` x S ``s``; decode over a cache of ``s`` positions, prefill into
+    ``MAX_SEQ``), as the dry run counts a cell; cached."""
+    key = (arch, kind, b, s)
+    if key not in _META_COUNTS:
+        import torch
+
+        from repro_torch.configs import get_config
+        from repro_torch.launch.cost_analysis import count
+        from repro_torch.launch.dryrun import count_cell
+        from repro_torch.launch.steps import make_decode_step, make_prefill_step
+        from repro_torch.models import Model, Workload
+
+        model = Model(get_config(arch), device="meta")
+        params = model.abstract_params()
+        tokens = torch.empty((b, 1 if kind == "decode" else s), dtype=torch.int32,
+                             device="meta")
+        if kind == "train":
+            out = count_cell(model, Workload("chip_smoke", s, b, "train"))
+        elif kind == "prefill":
+            out = count(make_prefill_step(model, Workload("chip_smoke", MAX_SEQ, b, kind)),
+                        params, {"tokens": tokens})
+        else:
+            cache = model.abstract_cache(b, s)
+            out = count(make_decode_step(model), params, cache, tokens)
+        _META_COUNTS[key] = out
+    return _META_COUNTS[key]
+
+
+def same_count(what: str, card, meta) -> None:
+    """The count of a step on the card must equal its count on ``meta``
+    exactly, in FLOPs and in bytes."""
+    if (card.flops, card.bytes) != (meta.flops, meta.bytes):
+        diff = {k: (card.ops.get(k), meta.ops.get(k)) for k in sorted(set(card.ops) | set(meta.ops))
+                if card.ops.get(k) != meta.ops.get(k)}
+        fail(f"{what}: counted on the card {card.flops:.6e} FLOPs, {card.bytes:.6e} bytes; on "
+             f"meta {meta.flops:.6e}, {meta.bytes:.6e}; ops that differ {diff}")
+    log(f"{what}: counted on the card = counted on meta: {card.flops:.6e} FLOPs, "
+        f"{card.bytes:.6e} bytes ({sum(v['calls'] for v in card.ops.values())} ops; kernels "
+        f"{card.kernels()}); peak of live storages {card.memory['peak_bytes'] / 1e9:.3f} GB "
+        f"on the card, {meta.memory['peak_bytes'] / 1e9:.3f} GB on meta")
+
+
+def step_builders(dev, arch: str) -> dict:
+    """``make_prefill_step`` and ``make_decode_step`` on full-width ``arch``
+    in bf16: ``STEP_BS`` prompts prefilled into ``MAX_SEQ`` positions, then
+    ``STEP_DECODE`` greedy steps, each fed the kernel path's token; the
+    plain path (``Model(..., plain=True)``) runs the same steps on the same
+    tokens and its greedy token (the argmax of its logits, as the builder
+    takes it) must equal the kernel path's but at a near tie
+    (``STEP_TIE``).  The launch counters, set to 0 just before the kernel
+    path's first step and read after its last, must show the path's
+    kernels.  Then the prefill step and a decode step over caches filled to
+    capacity are counted on the card, each against its count on ``meta``.
+    Returns the launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cost_analysis import count
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import Model, Workload
+
+    cfg = get_config(arch)
+    b, s = STEP_BS
+    model, plain = Model(cfg, device=dev), Model(cfg, device=dev, plain=True)
+    params = model.init(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device=dev, generator=gen,
+                                     dtype=torch.int32)}
+    wl = Workload("chip_smoke", MAX_SEQ, b, "prefill")
+    prefill, decode = make_prefill_step(model, wl), make_decode_step(model)
+    ws = wrappers()
+    zero_counts(ws)
+    logits, cache = prefill(params, batch)
+    launches_prefill = {n: w.launches for n, w in ws.items()}
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    p_logits, p_cache = make_prefill_step(plain, wl)(params, batch)
+    flips, equal = [], 0
+
+    def held(step: int, got: torch.Tensor, ref_logits: torch.Tensor) -> None:
+        nonlocal equal
+        ref = ref_logits[:, -1].float()
+        want = ref.argmax(-1)
+        for r in range(b):
+            g, w = int(got[r, 0]), int(want[r])
+            if g == w:
+                equal += 1
+                continue
+            gap = float(ref[r, w] - ref[r, g])
+            if gap > STEP_TIE[arch]:
+                fail(f"{arch} step builders: step {step} row {r}: kernel path's token {g}, "
+                     f"plain path's {w}, its logits {gap:.4f} apart (near tie: <= "
+                     f"{STEP_TIE[arch]})")
+            flips.append((step, r, round(gap, 5)))
+
+    held(0, tok, p_logits)
+    tokens = [tok]
+    for step in range(1, STEP_DECODE + 1):
+        nxt, cache = decode(params, cache, tokens[-1])
+        p_logits, p_cache = plain.decode_step(params, p_cache, tokens[-1])
+        held(step, nxt, p_logits)
+        tokens.append(nxt)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in ws.items()}
+    want = PATH_KERNELS[arch]
+    if not all(launches[n] > 0 for n in want):
+        fail(f"{arch} step builders: launches {launches}: each of {want} must be launched")
+    log(f"{arch} step builders (bf16, B={b} S={s}, {STEP_DECODE} greedy steps): greedy tokens "
+        f"equal to the plain path's in {equal} of {b * (STEP_DECODE + 1)}, near-tie flips "
+        f"(step, row, plain logit gap) {flips or 'none'}; launches: prefill "
+        f"{launches_prefill}, prefill and decode {launches}")
+    log(f"{arch} step builders: tokens {torch.cat(tokens, 1).tolist()}")
+
+    if arch == TRAIN_ARCH:
+        mb, ms = STEP_BS
+        card = count(prefill, params, batch)
+        same_count(f"{arch} prefill step B={mb} S={ms}", card, meta_count(arch, "prefill", mb, ms))
+        cache["len"].fill_(MAX_SEQ - 1)        # every row's K3 reads the whole cache
+        card = count(decode, params, cache, tokens[-1])
+        same_count(f"{arch} decode step B={mb} over {MAX_SEQ} positions (filled)", card,
+                   meta_count(arch, "decode", mb, MAX_SEQ))
+    else:
+        cb, cs = COUNT_XLSTM_BS
+        card = count(make_prefill_step(model, Workload("chip_smoke", MAX_SEQ, cb, "prefill")),
+                     params, {"tokens": batch["tokens"][:cb, :cs]})
+        same_count(f"{arch} prefill step B={cb} S={cs}", card, meta_count(arch, "prefill", cb, cs))
+    del model, plain, params, cache, p_cache, logits, p_logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_count_on_card(dev) -> None:
+    """Full-width qwen2-1.5b's train step (bf16 params, f32 master weights
+    and moments, AdamW) at phase 27's B x S, counted on the card, against
+    its count on ``meta``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cost_analysis import count
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+
+    b, s = TRAIN_BF16_BS
+    cfg = get_config(TRAIN_ARCH)
+    model, opt = Model(cfg, device=dev), AdamW(lr=3e-4)
+    state = opt.init(model.init(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device=dev, generator=gen,
+                                     dtype=torch.int32)}
+    card = count(make_train_step(model, opt), state, batch)
+    same_count(f"{TRAIN_ARCH} train step B={b} S={s}", card, meta_count(TRAIN_ARCH, "train", b, s))
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+
+def finish_dryrun(dry: DryRun) -> None:
+    """The dry run's grid: no cell ``error``, every skipped cell skipped for
+    the reference's reason; its log, the roofline table and its wall time."""
+    import json as _json
+
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import roofline
+    from repro_torch.models import WORKLOADS
+
+    code, wall = dry.finish()
+    for line in dry.log_path.read_text().splitlines():
+        log(line)
+    recs = [_json.loads(p.read_text()) for p in sorted(dry.out.glob("*__*.json"))]
+    by = {}
+    for r in recs:
+        by[r["status"]] = by.get(r["status"], 0) + 1
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in recs if r["status"] == "error"]
+    skipped = [(r["arch"], r["shape"], r["why"]) for r in recs if r["status"] == "skipped"]
+    if code != 0 or bad or len(recs) != len(ARCH_IDS) * len(WORKLOADS):
+        fail(f"dry run: exit code {code}, {len(recs)} records, errors {bad}")
+    if any(why != LONG_500K_WHY or shape != "long_500k" for _, shape, why in skipped):
+        fail(f"dry run: skipped for another reason than the reference's: {skipped}")
+    rows = roofline.main(str(dry.out))
+    log(f"dry run: {len(recs)} cells ({by}), the whole grid in {wall:.1f} s wall on the card's "
+        f"host (niced, beside phases 3-29); {len(rows)} roofline rows in "
+        f"{dry.out / 'roofline_1.json'}")
+
+
 REPLACES = {
     "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
@@ -3151,6 +3433,10 @@ def main() -> None:
     if spilled:
         fail(f"slstm_scan_bwd: cluster instantiations that spill: {spilled}")
 
+    dry = DryRun()      # the dry run's grid on the host's CPU, beside phases 3-29
+    log(f"dry run: the whole grid started in a child process (pid {dry.proc.pid}), records "
+        f"in {dry.out}")
+
     t0 = time.monotonic()
     report = phase_kernels(dev)
     log(f"phase 3 (kernels vs plain) done in {time.monotonic() - t0:.1f} s")
@@ -3210,6 +3496,13 @@ def main() -> None:
         report[n].update(r)
     log(f"phase 29 (the backward kernels at the training paths' layouts) done in "
         f"{time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    for arch in (TRAIN_ARCH, XLSTM_ARCH):
+        launches[f"{arch} step builders"] = step_builders(dev, arch)
+    train_count_on_card(dev)
+    finish_dryrun(dry)
+    log(f"phase 30 (the step builders, the count on the card against meta, the dry run) done "
+        f"in {time.monotonic() - t0:.1f} s")
     log(f"all phases done in {time.monotonic() - T_START:.1f} s")
 
     kernels = []

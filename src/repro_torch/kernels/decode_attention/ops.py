@@ -13,6 +13,13 @@ counter per (request, KV head, row group).  Up to 8 query heads per KV head
 run in one block; more (at most 16) run as :func:`decode_row_groups`, each
 its own block.  The counters live in one int32 buffer per
 (device, stream), zeroed when it is allocated; every call leaves them 0.
+
+On ``meta`` tensors (the dry run) the wrapper returns an output of the
+kernel's shape and launches nothing; :func:`decode_attention_cost` gives
+the (FLOPs, bytes) a call is counted at.  It counts the valid positions
+where they are known: on the card the lengths are read back once a
+counted call (a sync, only while a cost counter is active); on ``meta``
+every row counts the whole cache.
 """
 
 from __future__ import annotations
@@ -24,11 +31,11 @@ import torch
 
 from .. import _build
 from .._device import (KERNEL_DTYPES, check_aligned, check_launch, device_kind,
-                       on_device, stream_of)
+                       kernel_call, on_device, stream_of)
 from .ref import decode_attention_ref
 
-__all__ = ["decode_attention", "decode_attention_ref", "decode_row_groups",
-           "decode_split_plan", "KERNEL_HEAD_DIMS", "KERNEL_MAX_GROUP"]
+__all__ = ["decode_attention", "decode_attention_cost", "decode_attention_ref",
+           "decode_row_groups", "decode_split_plan", "KERNEL_HEAD_DIMS", "KERNEL_MAX_GROUP"]
 
 KERNEL_HEAD_DIMS = (64, 80, 128, 256)
 KERNEL_MAX_GROUP = 16
@@ -82,6 +89,24 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def decode_attention_cost(b: int, h: int, kv: int, hd: int, valid: int,
+                          esize: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one K3 call over ``valid`` cache positions in all
+    (the sum over the B rows of min(length, S)): q and the output (B, H,
+    hd), the valid K and V rows (KV, hd each) in ``esize`` bytes and the
+    int32 lengths read or written once; two products of 2 hd operations
+    per (query head, valid position)."""
+    return 4 * hd * h * valid, esize * (2 * b * h * hd + 2 * valid * kv * hd) + 4 * b
+
+
+def _valid_positions(lengths: torch.Tensor, s: int) -> int:
+    """Cache positions the rows attend over: the whole cache on ``meta``,
+    else the lengths read back (clipped to [0, S])."""
+    if lengths.is_meta:
+        return lengths.shape[0] * s
+    return int(lengths.clamp(0, s).sum())
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_fwd
@@ -98,7 +123,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     """q: (B, H, hd); caches (B, KV, S, hd); lengths (B,) -> (B, H, hd).
 
     Row b attends to cache positions ``[0, min(lengths[b], S))``; a row of
-    length 0 gives 0."""
+    length 0 gives 0.  ``meta`` tensors give the output's shape."""
     if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"need q (B,H,hd), caches (B,KV,S,hd); got {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
@@ -114,6 +139,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                         f"one of {KERNEL_DTYPES}")
     if device_kind(q, k_cache, v_cache, lengths) == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
+    scale = hd ** -0.5 if scale is None else scale
+    with kernel_call("decode_attention", lambda: decode_attention_cost(
+            b, h, kvh, hd, _valid_positions(lengths, s), q.element_size()), peak=q.dtype):
+        if q.is_meta:       # a count is shapes alone: the card's checks are _launch's
+            return torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
+        return _launch(q, k_cache, v_cache, lengths, scale)
+
+
+def _launch(q, k_cache, v_cache, lengths, scale):
+    """The launch, after the checks of what the card builds and reads."""
+    b, h, hd = q.shape
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {hd}: the CUDA kernel takes {KERNEL_HEAD_DIMS}")
     if h // kvh > KERNEL_MAX_GROUP:
@@ -125,7 +162,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise ValueError("the head dim of q and the caches must be contiguous (stride 1)")
     if not lengths.is_contiguous():
         raise ValueError("lengths must be contiguous")
-    scale = hd ** -0.5 if scale is None else scale
     check_aligned("decode_attention", q=q, k_cache=k_cache, v_cache=v_cache)
     lib = _lib()
     dev = q.device

@@ -12,6 +12,11 @@ bytes, but the head dim's) must be a multiple of 16 and the scale
 positive; other calls raise.  The f32 kernel reads scalars and takes any
 stride and any scale.
 
+On ``meta`` tensors (the dry run) the forward and K2-bwd return outputs of
+the kernels' shapes and launch nothing; :func:`flash_attention_cost` and
+:func:`flash_attention_bwd_cost` give the (FLOPs, bytes) a call is
+counted at, on the card and on ``meta`` alike.
+
 Training: when grad is enabled and q, k or v requires it, a CUDA call goes
 through ``_FlashFn``, a ``torch.autograd.Function``: its forward also
 stores each row's logsumexp, and its backward is the K2-bwd kernel
@@ -29,11 +34,12 @@ import torch
 
 from .. import _build
 from .._device import (KERNEL_DTYPES, check_aligned, check_launch, device_kind,
-                       is_aligned, on_device, stream_of)
+                       is_aligned, kernel_call, on_device, stream_of)
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_bwd_ref",
-           "flash_attention_ref", "BWD_MMA_HEAD_DIMS", "KERNEL_HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_bwd_cost",
+           "flash_attention_bwd_ref", "flash_attention_cost", "flash_attention_ref",
+           "attention_pairs", "BWD_MMA_HEAD_DIMS", "KERNEL_HEAD_DIMS"]
 
 KERNEL_HEAD_DIMS = (64, 80, 128, 256)
 # K2-bwd runs bf16 on the tensor cores at these head dims (16-byte copies:
@@ -78,11 +84,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch_fwd(q, k, v, causal, scale, None)
 
 
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs one head attends over: ``sq * sk``, or under the
+    top-left causal mask the keys at or before each query's position."""
+    if not causal:
+        return sq * sk
+    full = min(sq, sk)                   # rows 0 .. full-1 see i + 1 keys; later rows all sk
+    return full * (full + 1) // 2 + (sq - full) * sk
+
+
+def flash_attention_cost(b: int, h: int, kv: int, sq: int, sk: int, hd: int, esize: int,
+                         causal: bool = True, lse: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one K2 call: q and o (B, Sq, H, hd) and k, v (B,
+    Sk, KV, hd) in ``esize`` bytes read or written once (and the f32
+    logsumexp of each row when ``lse``); two products of 2 hd operations
+    per (query, key) pair of :func:`attention_pairs`."""
+    nbytes = esize * (2 * b * sq * h * hd + 2 * b * sk * kv * hd) + (4 * b * h * sq if lse else 0)
+    return 4 * hd * h * b * attention_pairs(sq, sk, causal), nbytes
+
+
+def flash_attention_bwd_cost(b: int, h: int, kv: int, sq: int, sk: int, hd: int, esize: int,
+                             causal: bool = True) -> tuple[int, int]:
+    """(FLOPs, bytes) of one K2-bwd call: q, o, dO, dq (B, Sq, H, hd) and k,
+    v, dk, dv (B, Sk, KV, hd) in ``esize`` bytes and the f32 logsumexp read
+    or written once; five products of 2 hd operations per pair."""
+    nbytes = esize * (4 * b * sq * h * hd + 4 * b * sk * kv * hd) + 4 * b * h * sq
+    return 10 * hd * h * b * attention_pairs(sq, sk, causal), nbytes
+
+
 def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                 scale: float | None, lse: torch.Tensor | None) -> torch.Tensor:
     """The forward kernel on CUDA tensors (checked by the caller for shape,
-    dtype and device); writes each row's logsumexp into ``lse`` (B, H, Sq)
-    f32 when it is given."""
+    dtype and device; on ``meta``, its output alone); writes each row's
+    logsumexp into ``lse`` (B, H, Sq) f32 when it is given."""
+    b, h, sq, hd = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
+    with kernel_call("flash_attention", flash_attention_cost, b, h, kvh, sq, sk, hd,
+                     q.element_size(), causal, lse is not None, peak=q.dtype):
+        out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+        if not q.is_meta:
+            _launch(q, k, v, out, lse, causal, scale)
+    return out
+
+
+def _launch(q, k, v, out, lse, causal, scale):
+    """The launch, after the checks of what the card builds and reads (on
+    ``meta`` a count is shapes alone)."""
     b, h, sq, hd = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if hd not in KERNEL_HEAD_DIMS:
@@ -91,8 +139,6 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError(f"empty sequence: Sq={sq}, Sk={sk}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous (stride 1)")
-    scale = hd ** -0.5 if scale is None else scale
-    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     if q.dtype == torch.bfloat16:
         if not scale > 0:
             raise ValueError(f"scale {scale}: the bf16 kernel takes a positive scale")
@@ -108,7 +154,6 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             int(causal), float(scale), stream_of(q))
     check_launch(lib, code, "flash_attention")
     flash_attention.launches += 1
-    return out
 
 
 flash_attention.launches = 0
@@ -155,32 +200,44 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     buffers seen as (B, heads, S, hd), the model's layout.  CPU tensors
     take :func:`flash_attention_bwd_ref`; CUDA tensors launch K2-bwd (one
     call, three kernels, counted in ``flash_attention_bwd.launches``) or
-    raise.  bf16 at ``BWD_MMA_HEAD_DIMS`` runs on the tensor cores and
-    copies 16 bytes a lane: q, k, v and o must then be 16-byte aligned
+    raise; ``meta`` tensors give the outputs' shapes.  bf16 at
+    ``BWD_MMA_HEAD_DIMS`` runs on the tensor cores and copies 16 bytes a
+    lane: q, k, v and o must then be 16-byte aligned
     (as the forward's bf16 kernel requires of q, k and v; ``do`` is copied
     when it is not)."""
     if device_kind(q, k, v, o, do) == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, causal=causal, scale=scale)
     b, h, sq, hd = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd}: the CUDA kernel takes {KERNEL_HEAD_DIMS}")
     if o.shape != q.shape or do.shape != q.shape or lse is None or \
             lse.shape != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"o/do must be q's {tuple(q.shape)} and lse a contiguous f32 "
                          f"({b}, {h}, {sq}); got o {tuple(o.shape)}, do {tuple(do.shape)}, "
                          f"lse {None if lse is None else (tuple(lse.shape), lse.dtype)}")
     mma = q.dtype == torch.bfloat16 and hd in BWD_MMA_HEAD_DIMS
-    do = do.to(q.dtype)
-    if do.stride(-1) != 1 or mma and not is_aligned(do):
-        do = do.contiguous()
+    scale = hd ** -0.5 if scale is None else scale
+    with kernel_call("flash_attention_bwd", flash_attention_bwd_cost, b, h, kvh, sq, sk, hd,
+                     q.element_size(), causal, peak=q.dtype):
+        do = do.to(q.dtype)
+        if do.stride(-1) != 1 or mma and not is_aligned(do):
+            do = do.contiguous()
+        dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+        dk = torch.empty((b, sk, kvh, hd), dtype=k.dtype, device=q.device).transpose(1, 2)
+        dv = torch.empty((b, sk, kvh, hd), dtype=v.dtype, device=q.device).transpose(1, 2)
+        if not q.is_meta:
+            _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, scale)
+    return dq, dk, dv
+
+
+def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, causal, scale):
+    """The launch, after the checks of what the card builds and reads."""
+    b, h, sq, hd = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the CUDA kernel takes {KERNEL_HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v, o)):
         raise ValueError("the head dim of q, k, v and o must be contiguous (stride 1)")
-    scale = hd ** -0.5 if scale is None else scale
-    dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dk = torch.empty((b, sk, kvh, hd), dtype=k.dtype, device=q.device).transpose(1, 2)
-    dv = torch.empty((b, sk, kvh, hd), dtype=v.dtype, device=q.device).transpose(1, 2)
-    if mma:
+    if q.dtype == torch.bfloat16 and hd in BWD_MMA_HEAD_DIMS:
         check_aligned("flash_attention_bwd", q=q, k=k, v=v, o=o)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _lib_bwd()
@@ -193,7 +250,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
             int(causal), float(scale), stream_of(q))
     check_launch(lib, code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0

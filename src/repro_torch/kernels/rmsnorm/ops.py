@@ -6,6 +6,11 @@ scale or Gemma's ``(1 + scale)``, writing the new residual or not.  CPU
 tensors take the plain version; CUDA tensors launch the CUDA kernel (one
 launch counted in ``fused_rmsnorm.launches``) or raise.
 
+On ``meta`` tensors (the dry run) the wrapper and K1-bwd return outputs of
+the kernels' shapes and launch nothing; :func:`fused_rmsnorm_cost` and
+:func:`rmsnorm_bwd_cost` give the (FLOPs, bytes) a call is counted at,
+on the card and on ``meta`` alike (``kernels/_device.kernel_call``).
+
 Training: when grad is enabled and an input requires it, a CUDA call goes
 through ``_RMSNormFn``, a ``torch.autograd.Function`` whose backward is
 the K1-bwd kernel (``rmsnorm_bwd``, one launch counted in
@@ -29,11 +34,12 @@ import functools
 import torch
 
 from .. import _build
-from .._device import KERNEL_DTYPES, check_launch, device_kind, on_device, stream_of
+from .._device import (KERNEL_DTYPES, check_launch, device_kind, empty_like, kernel_call,
+                       on_device, stream_of)
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
-__all__ = ["fused_rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_blocks", "rmsnorm_bwd_lanes",
-           "rmsnorm_bwd_ref", "rmsnorm_ref"]
+__all__ = ["fused_rmsnorm", "fused_rmsnorm_cost", "rmsnorm_bwd", "rmsnorm_bwd_blocks",
+           "rmsnorm_bwd_cost", "rmsnorm_bwd_lanes", "rmsnorm_bwd_ref", "rmsnorm_ref"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -114,30 +120,47 @@ def _check_scale(scale: torch.Tensor) -> None:
                         "a contiguous float32 scale")
 
 
+def fused_rmsnorm_cost(rows: int, d: int, esize: int, residual: bool = True,
+                       want_residual: bool = True) -> tuple[int, int]:
+    """(FLOPs, bytes) of one K1 call over ``rows`` rows of ``d`` elements
+    of ``esize`` bytes: x (and the residual) read once, y (and the new
+    residual, when a residual is added and wanted) written once, the f32
+    scale read once; 4 operations an element for the norm, 2 more with
+    the add."""
+    io = 2 + residual + (residual and want_residual)
+    return (6 if residual else 4) * rows * d, esize * rows * d * io + 4 * d
+
+
 def _launch_fwd(x, residual, scale, eps, gemma, want_residual):
-    """The forward kernel on CUDA tensors: (y, new_residual) as
-    :func:`fused_rmsnorm` returns them."""
+    """The forward kernel on CUDA tensors (on ``meta``, its outputs alone):
+    (y, new_residual) as :func:`fused_rmsnorm` returns them."""
     d = x.shape[-1]
     _check_scale(scale)
     sx = _row_stride(x, d, "x")
     sr = 0 if residual is None else _row_stride(residual, d, "residual")
-    # contiguous for every x _row_stride accepts (dense rows, or rows with gaps)
-    y = torch.empty_like(x)
-    h = torch.empty_like(x) if residual is not None and want_residual else None
     rows = x.numel() // d if d else 0
-    if rows:
-        lib = _lib()
-        r_ptr = None if residual is None else residual.data_ptr()
-        h_ptr = None if h is None else h.data_ptr()
-        with on_device(x):   # launch on the tensors' card
-            code = lib.rmsnorm_fwd(x.data_ptr(), r_ptr, scale.data_ptr(), y.data_ptr(), h_ptr,
-                                   rows, d, sx, sr, eps, int(gemma),
-                                   int(x.dtype == torch.bfloat16), stream_of(x))
-        check_launch(lib, code, "fused_rmsnorm")
-        fused_rmsnorm.launches += 1
+    with kernel_call("fused_rmsnorm", fused_rmsnorm_cost, rows, d, x.element_size(),
+                     residual is not None, want_residual, peak=x.dtype):
+        # contiguous for every x _row_stride accepts (dense rows, or rows with gaps)
+        y = empty_like(x)
+        h = empty_like(x) if residual is not None and want_residual else None
+        if rows and not x.is_meta:
+            _launch_rows(x, residual, scale, y, h, rows, d, sx, sr, eps, gemma)
     if residual is None:
         return y, x if want_residual else None
     return y, h
+
+
+def _launch_rows(x, residual, scale, y, h, rows, d, sx, sr, eps, gemma):
+    lib = _lib()
+    r_ptr = None if residual is None else residual.data_ptr()
+    h_ptr = None if h is None else h.data_ptr()
+    with on_device(x):   # launch on the tensors' card
+        code = lib.rmsnorm_fwd(x.data_ptr(), r_ptr, scale.data_ptr(), y.data_ptr(), h_ptr,
+                               rows, d, sx, sr, eps, int(gemma),
+                               int(x.dtype == torch.bfloat16), stream_of(x))
+    check_launch(lib, code, "fused_rmsnorm")
+    fused_rmsnorm.launches += 1
 
 
 fused_rmsnorm.launches = 0
@@ -197,7 +220,7 @@ def rmsnorm_bwd(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.Ten
     Returns (dx, dscale): dx in ``x.dtype``, the grad of x and of residual
     alike; dscale (D,) f32.  CPU tensors take :func:`rmsnorm_bwd_ref`; CUDA
     tensors launch K1-bwd (one launch counted in ``rmsnorm_bwd.launches``)
-    or raise.  D up to 8192."""
+    or raise; ``meta`` tensors give the outputs' shapes.  D up to 8192."""
     d = x.shape[-1]
     if dy.shape != x.shape or dh is not None and dh.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} / dh "
@@ -207,29 +230,43 @@ def rmsnorm_bwd(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.Ten
     if device_kind(*inputs) == "cpu":
         return rmsnorm_bwd_ref(x, residual, scale, dy, dh, eps=eps, gemma=gemma)
     _check_scale(scale)
-    if d > 8192:
+    if d > 8192 and not x.is_meta:
         raise ValueError(f"rmsnorm_bwd on CUDA: D = {d} above the kernel's 8192")
-    dy = dy.to(x.dtype).contiguous()
-    dh = None if dh is None else dh.to(x.dtype).contiguous()
     sx = _row_stride(x, d, "x")
     sr = 0 if residual is None else _row_stride(residual, d, "residual")
     rows = x.numel() // d if d else 0
-    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    # the dscale kernel writes every element; with no rows nothing launches
-    dscale = (torch.empty if rows else torch.zeros)(d, dtype=torch.float32, device=x.device)
-    if rows:
-        nb = rmsnorm_bwd_blocks(rows, d, _sm_count(x.get_device()))
-        part = torch.empty((nb, d), dtype=torch.float32, device=x.device)
-        lib = _lib()
-        with on_device(x):
-            code = lib.rmsnorm_bwd(x.data_ptr(), None if residual is None else residual.data_ptr(),
-                                   scale.data_ptr(), dy.data_ptr(),
-                                   None if dh is None else dh.data_ptr(), dx.data_ptr(),
-                                   part.data_ptr(), dscale.data_ptr(), rows, d, sx, sr, eps,
-                                   int(gemma), int(x.dtype == torch.bfloat16), nb, stream_of(x))
-        check_launch(lib, code, "rmsnorm_bwd")
-        rmsnorm_bwd.launches += 1
+    with kernel_call("rmsnorm_bwd", rmsnorm_bwd_cost, rows, d, x.element_size(),
+                     residual is not None, dh is not None, peak=x.dtype):
+        dy = dy.to(x.dtype).contiguous()
+        dh = None if dh is None else dh.to(x.dtype).contiguous()
+        dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        # the dscale kernel writes every element; with no rows nothing launches
+        dscale = (torch.empty if rows else torch.zeros)(d, dtype=torch.float32, device=x.device)
+        if rows and not x.is_meta:
+            _launch_bwd(x, residual, scale, dy, dh, dx, dscale, rows, d, sx, sr, eps, gemma)
     return dx, dscale
+
+
+def rmsnorm_bwd_cost(rows: int, d: int, esize: int, residual: bool = True,
+                     dh: bool = True) -> tuple[int, int]:
+    """(FLOPs, bytes) of one K1-bwd call: x (and the residual), dy (and
+    dh) read once and dx written once in ``esize`` bytes; the f32 scale
+    read and dscale written; about 10 operations an element."""
+    return 10 * rows * d, esize * rows * d * (3 + residual + dh) + 2 * 4 * d
+
+
+def _launch_bwd(x, residual, scale, dy, dh, dx, dscale, rows, d, sx, sr, eps, gemma):
+    nb = rmsnorm_bwd_blocks(rows, d, _sm_count(x.get_device()))
+    part = torch.empty((nb, d), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    with on_device(x):
+        code = lib.rmsnorm_bwd(x.data_ptr(), None if residual is None else residual.data_ptr(),
+                               scale.data_ptr(), dy.data_ptr(),
+                               None if dh is None else dh.data_ptr(), dx.data_ptr(),
+                               part.data_ptr(), dscale.data_ptr(), rows, d, sx, sr, eps,
+                               int(gemma), int(x.dtype == torch.bfloat16), nb, stream_of(x))
+    check_launch(lib, code, "rmsnorm_bwd")
+    rmsnorm_bwd.launches += 1
 
 
 rmsnorm_bwd.launches = 0

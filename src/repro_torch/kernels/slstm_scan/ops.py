@@ -23,6 +23,12 @@ group of batch rows where a cluster's shared memory holds the head's
 reports what the library chose).  Outside grad nothing changes: the
 serving path launches K5 as before, and its outputs are the same bit for
 bit.
+
+On ``meta`` tensors (the dry run) K5 (save mode included) and K5-bwd return
+outputs of the kernels' shapes and launch nothing; :func:`slstm_scan_cost`
+and :func:`slstm_scan_bwd_cost` give the (FLOPs, bytes) a call is counted
+at, on the card and on ``meta`` alike.  Both count their products at the
+f32 CUDA cores' rate: the recurrence runs in f32.
 """
 
 from __future__ import annotations
@@ -34,12 +40,13 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .._device import KERNEL_DTYPES, check_launch, device_kind, on_device, stream_of
+from .._device import KERNEL_DTYPES, check_launch, device_kind, kernel_call, on_device, stream_of
 from .ref import slstm_scan_bwd_ref, slstm_scan_ref
 
-__all__ = ["slstm_scan", "slstm_scan_ref", "slstm_scan_plan", "cluster_plan", "Plan",
-           "grid_sync_loop", "cluster_sync_loop", "slstm_scan_bwd", "slstm_scan_bwd_ref",
-           "slstm_scan_bwd_plan", "bwd_cluster_plan", "bwd_cluster_smem"]
+__all__ = ["slstm_scan", "slstm_scan_cost", "slstm_scan_ref", "slstm_scan_plan",
+           "cluster_plan", "Plan", "grid_sync_loop", "cluster_sync_loop", "slstm_scan_bwd",
+           "slstm_scan_bwd_cost", "slstm_scan_bwd_ref", "slstm_scan_bwd_plan",
+           "bwd_cluster_plan", "bwd_cluster_smem"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -273,20 +280,61 @@ def slstm_scan(xg: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor, h0: tor
     return hs, st
 
 
+def slstm_scan_cost(b: int, s: int, d: int, h: int, x_bytes: int, w_bytes: int,
+                    save: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one K5 call: xg (B, S, 4D) in ``x_bytes``, w_hh in
+    ``w_bytes``, the f32 bias and initial state read once, hs (B, S, D) f32
+    and the final state written once (in save mode also the gates (B, S,
+    4D) and c, n, m (B, S, D), f32); the f32 recurrent product, 2 B S 4D
+    dh operations."""
+    dh = d // h
+    nbytes = x_bytes * b * s * 4 * d + w_bytes * h * dh * 4 * dh + 4 * 4 * d + 16 * b * d + \
+        4 * b * s * d + 16 * b * d
+    if save:
+        nbytes += 4 * b * s * 4 * d + 3 * 4 * b * s * d
+    return 2 * b * s * 4 * d * dh, nbytes
+
+
+def slstm_scan_bwd_cost(b: int, s: int, d: int, h: int, x_bytes: int,
+                        w_bytes: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one K5-bwd call, from the gates K5 saved: w_hh, the
+    saved gates, c/n/m, hs, the initial state and the cotangents read once;
+    dxg, dw_hh, db and the initial state's gradients written once;
+    operations: the two f32 products the call needs (dh_{t-1} = dg w_hh^T
+    and dw_hh = h^T dg: 2 B S 4D dh each)."""
+    dh = d // h
+    nbytes = b * s * 4 * d * (x_bytes + 4) + 2 * h * dh * 4 * dh * w_bytes + 16 * d + \
+        2 * 16 * b * d + 5 * 4 * b * s * d + 2 * 16 * b * d
+    return 2 * 2 * b * s * 4 * d * dh, nbytes
+
+
 def _launch_fwd(xg, w_hh, b_ih, h0, c0, n0, m0, save: bool):
-    """K5 on CUDA tensors whose shapes ``_check`` passed: (hs, (h, c, n, m),
-    (gates, cs, ns, ms) or None); with ``save`` the same launch writes every
-    step's gates ((B, S, 4D) f32, as the gate math received them) and c, n
-    and m ((B, S, D) f32 each) for the backward."""
+    """K5 on CUDA tensors whose shapes ``_check`` passed (on ``meta``, its
+    outputs alone): (hs, (h, c, n, m), (gates, cs, ns, ms) or None); with
+    ``save`` the same launch writes every step's gates ((B, S, 4D) f32, as
+    the gate math received them) and c, n and m ((B, S, D) f32 each) for
+    the backward."""
     b, s, d4 = xg.shape
     d, nh = d4 // 4, w_hh.shape[0]
-    _check_cuda("slstm_scan", s, xg, w_hh, b_ih, h0, c0, n0, m0)
-    hs = torch.empty((b, s, d), dtype=torch.float32, device=xg.device)
-    out = torch.empty((4, b, d), dtype=torch.float32, device=xg.device)
-    saved = None
-    if save:
-        saved = (torch.empty((b, s, d4), dtype=torch.float32, device=xg.device),
-                 *torch.empty((3, b, s, d), dtype=torch.float32, device=xg.device).unbind(0))
+    if not xg.is_meta:      # what the card reads; a count is shapes alone
+        _check_cuda("slstm_scan", s, xg, w_hh, b_ih, h0, c0, n0, m0)
+    with kernel_call("slstm_scan", slstm_scan_cost, b, s, d, nh, xg.element_size(),
+                     w_hh.element_size(), save, peak=torch.float32):
+        hs = torch.empty((b, s, d), dtype=torch.float32, device=xg.device)
+        out = torch.empty((4, b, d), dtype=torch.float32, device=xg.device)
+        saved = None
+        if save:
+            saved = (torch.empty((b, s, d4), dtype=torch.float32, device=xg.device),
+                     *torch.empty((3, b, s, d), dtype=torch.float32,
+                                  device=xg.device).unbind(0))
+        if not xg.is_meta:
+            _launch(xg, w_hh, b_ih, h0, c0, n0, m0, hs, out, saved)
+    return hs, tuple(out.unbind(0)), saved
+
+
+def _launch(xg, w_hh, b_ih, h0, c0, n0, m0, hs, out, saved):
+    b, s, d4 = xg.shape
+    d, nh = d4 // 4, w_hh.shape[0]
     lib = _lib()
     with on_device(xg):   # launch on the tensors' card
         plan = slstm_scan_plan(b, d, nh, x_dtype=xg.dtype, w_dtype=w_hh.dtype,
@@ -304,7 +352,6 @@ def _launch_fwd(xg, w_hh, b_ih, h0, c0, n0, m0, save: bool):
     _refused(code, "slstm_scan", b, d, nh)
     check_launch(lib, code, "slstm_scan")
     slstm_scan.launches += 1
-    return hs, tuple(out.unbind(0)), saved
 
 
 slstm_scan.launches = 0
@@ -404,7 +451,8 @@ def slstm_scan_bwd(w_hh, h0, c0, n0, m0, hs, gates, cs, ns, ms, dhs, dh_T=None, 
     rounded to bf16 as dxg too when xg is bf16, and the initial state's
     gradients; counted in ``slstm_scan_bwd.launches``) or raise; dw_hh and
     db_ih are then sums over dg taken with ``torch.einsum`` and ``sum``
-    (plain products outside the recurrence)."""
+    (plain products outside the recurrence); ``meta`` tensors give the
+    outputs' shapes."""
     finals = (dh_T, dc_T, dn_T, dm_T)
     b, s, d, nh, dh = _check_bwd(w_hh, h0, c0, n0, m0, hs, gates, cs, ns, ms, dhs, finals,
                                  x_dtype)
@@ -413,17 +461,32 @@ def slstm_scan_bwd(w_hh, h0, c0, n0, m0, hs, gates, cs, ns, ms, dhs, dh_T=None, 
     if device_kind(*given) == "cpu":
         return slstm_scan_bwd_ref(w_hh, h0, c0, n0, m0, hs, gates, cs, ns, ms, dhs, *finals,
                                   x_dtype=x_dtype)
-    if s < 1:
-        raise ValueError("slstm_scan_bwd: the CUDA kernel takes S >= 1")
-    if not w_hh.is_contiguous() or any(t.dtype != torch.float32 or not t.is_contiguous()
-                                       for t in (c0, n0, m0, hs, gates, cs, ns, ms)):
-        raise ValueError("slstm_scan_bwd: w_hh must be contiguous, and the states, hs, the "
-                         "gates, cs, ns, ms contiguous float32")
-    dhs = torch.zeros_like(hs) if dhs is None else dhs.float().contiguous()
-    finals = [None if t is None else t.float().contiguous() for t in finals]
-    dg = torch.empty((b, s, 4 * d), dtype=torch.float32, device=hs.device)
-    dxg = dg if x_dtype == torch.float32 else torch.empty_like(dg, dtype=x_dtype)
-    dst = torch.empty((4, b, d), dtype=torch.float32, device=hs.device)
+    if not hs.is_meta:      # what the card reads; a count is shapes alone
+        if s < 1:
+            raise ValueError("slstm_scan_bwd: the CUDA kernel takes S >= 1")
+        if not w_hh.is_contiguous() or any(t.dtype != torch.float32 or not t.is_contiguous()
+                                           for t in (c0, n0, m0, hs, gates, cs, ns, ms)):
+            raise ValueError("slstm_scan_bwd: w_hh must be contiguous, and the states, hs, "
+                             "the gates, cs, ns, ms contiguous float32")
+    with kernel_call("slstm_scan_bwd", slstm_scan_bwd_cost, b, s, d, nh,
+                     x_dtype.itemsize, w_hh.element_size(),
+                     peak=torch.float32):
+        dhs = torch.zeros_like(hs) if dhs is None else dhs.float().contiguous()
+        finals = [None if t is None else t.float().contiguous() for t in finals]
+        dg = torch.empty((b, s, 4 * d), dtype=torch.float32, device=hs.device)
+        dxg = dg if x_dtype == torch.float32 else torch.empty_like(dg, dtype=x_dtype)
+        dst = torch.empty((4, b, d), dtype=torch.float32, device=hs.device)
+        if hs.is_meta:
+            dw = torch.empty(w_hh.shape, dtype=w_hh.dtype, device=hs.device)
+            return dxg, dw, torch.empty(4 * d, device=hs.device), *dst.unbind(0)
+        return _launch_bwd(w_hh, h0, c0, n0, m0, hs, gates, cs, ns, ms, dhs, finals, dg, dxg,
+                           dst)
+
+
+def _launch_bwd(w_hh, h0, c0, n0, m0, hs, gates, cs, ns, ms, dhs, finals, dg, dxg, dst):
+    b, s, d = hs.shape
+    nh = w_hh.shape[0]
+    dh = d // nh
     lib = _lib_bwd()
     with on_device(hs):
         plan = slstm_scan_bwd_plan(b, d, nh, w_dtype=w_hh.dtype, device=hs.device)

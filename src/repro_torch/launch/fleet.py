@@ -10,9 +10,10 @@ message through a ``ShardRouter``; K replica processes
 zero-copy from the router's shared-memory arena, serve it through the
 port's ``InferenceServer`` (on the GPU through the Hopper kernels, or
 their plain versions with ``--device cpu``) and stream token chunks back
-to a ``ResultsCollector``.  ``--kill-one`` SIGKILLs one replica after its
-first result chunk; the router replays its rids on the survivors, one
-generation up.
+to a ``ResultsCollector``.  ``--kill-one`` SIGKILLs one replica once every
+request routed to it has streamed its first result chunk (it has taken
+each of its request messages, so the trace rings time every one); the
+router replays its rids on the survivors, one generation up.
 
 A run reports each request's tokens, whether every rid completed exactly
 once with a stream of ``max_new`` tokens, the collector's duplicate, gap
@@ -138,6 +139,17 @@ def _pub_take_us(dom_name: str, prompt_len_by_rid: dict) -> list:
                   for tid, t in published.items() if tid in taken and tid in nbytes)
 
 
+def _took_every_request(router: ShardRouter, shard: int) -> bool:
+    """Whether every request routed to ``shard`` has streamed a chunk back.
+    A replica streams a request's first chunk only after the callback that
+    took its message has returned and released it, which writes the take
+    record into the replica's trace ring.  Killed before that, the replica
+    would leave a message untaken (or taken with no take record), and the
+    router would replay its rows packed with the others in fewer messages:
+    the trace rings would time fewer messages than there are requests."""
+    return all(rec.progressed for rec in router.inflight.values() if rec.shard == shard)
+
+
 def _unlink(names) -> None:
     for name in names:
         try:
@@ -211,8 +223,9 @@ def run(*, arch: str = "qwen2-1.5b", size: str = "full", replicas: int = 2,
             first.setdefault(rid, time.monotonic())
             router.touch(rid)
             rec = router.inflight.get(rid)
-            if not killed and rec is not None and rec.shard == victim[0]:
-                killed.append(victim[0])   # after this replica's first chunk
+            if not killed and rec is not None and rec.shard == victim[0] and \
+                    _took_every_request(router, victim[0]):
+                killed.append(victim[0])
                 orphans.extend(_arenas_publishing(dom, pool.res_topic_for(victim[0])))
                 pool.kill(victim[0])
 

@@ -1,4 +1,4 @@
 from .common import ModelConfig
-from .model import Model
+from .model import WORKLOADS, Model, Workload
 
-__all__ = ["ModelConfig", "Model"]
+__all__ = ["ModelConfig", "Model", "WORKLOADS", "Workload"]

@@ -22,12 +22,23 @@ with grouped GEMM).  That sync (one per layer per model call) rules out
 CUDA-graph capture of the step, and each active expert costs about three
 GEMM launches plus two elementwise ones: the grouped GEMM item of ROADMAP.md
 Queue 2 removes both.
+
+On ``meta`` (the dry run, ``launch/cost_analysis``) there is nothing to
+read: the rule is that the T·k routed rows spread evenly over the experts,
+as a batch of T·k >= E pairs routes to every expert.  The GEMMs' FLOPs are
+the same for any split of the T·k rows; their bytes are the card's when
+every expert is routed to.  The read itself is not counted.  Segment
+starts come from ``searchsorted`` over the sorted expert ids and the
+load-balance counts from ``scatter_add_``, which have ``meta`` kernels
+(``bincount`` has none); the integers are the same.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels._device import uncounted
 
 from .common import dense_init
 
@@ -108,10 +119,16 @@ def _dispatch(x2d, router, *, cfg, n_local: int, offset: int, e_valid):
     return probs, flat_e, flat_t[order], local_e[order], flat_p[order]
 
 
+def _segment_starts(se: torch.Tensor, n: int) -> torch.Tensor:
+    """Where each of the ids ``0 .. n-1`` starts in the sorted ids ``se``."""
+    return torch.searchsorted(se, torch.arange(n, dtype=se.dtype, device=se.device))
+
+
 def _aux_loss(probs: torch.Tensor, flat_e: torch.Tensor, t: int, k: int) -> torch.Tensor:
     """Switch-style load-balance loss: E * sum_e f_e * P_e."""
     e = probs.shape[-1]
-    ce = torch.bincount(flat_e, minlength=e).float() / (t * k)
+    ce = torch.zeros(e, dtype=torch.float32, device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones(flat_e.shape, dtype=torch.float32, device=flat_e.device)) / (t * k)
     return e * (probs.mean(0) * ce).sum()
 
 
@@ -126,7 +143,14 @@ def _moe_local(x2d, router, e_gate, e_up, e_down, *, cfg, n_local: int, offset: 
     t, d = x2d.shape
     probs, flat_e, st, se, sp = _dispatch(x2d, router, cfg=cfg, n_local=n_local,
                                           offset=offset, e_valid=e_valid)
-    sizes = torch.bincount(se, minlength=n_local + 1).tolist()   # the one host sync
+    starts = _segment_starts(se, n_local + 1)
+    if se.is_meta:      # the dry run's rule (module docstring): every expert routed to
+        n = se.shape[0]
+        sizes = [n // n_local + (e < n % n_local) for e in range(n_local)] + [0]
+    else:
+        with uncounted():
+            bounds = starts.tolist() + [se.shape[0]]      # the one host sync
+        sizes = [hi - lo for lo, hi in zip(bounds, bounds[1:])]
     xs = x2d[st]
     act = _act(cfg.mlp_act)
     # serving writes each expert's rows in place; autograd cannot take an
@@ -169,8 +193,7 @@ def _moe_local_capacity(x2d, router, e_gate, e_up, e_down, *, cfg, n_local: int,
                                           offset=offset, e_valid=e_valid)
     cap = int(cfg.moe_capacity_factor * t * k / e_total) + 1
     cap = -(-cap // 128) * 128
-    seg_sizes = torch.bincount(se, minlength=n_local + 1)
-    seg_start = torch.cumsum(seg_sizes, 0) - seg_sizes
+    seg_start = _segment_starts(se, n_local + 1)
     pos = torch.arange(se.shape[0], device=x2d.device) - seg_start[se]
     keep = (se < n_local) & (pos < cap)
     dest = torch.where(keep, se * cap + pos, torch.full_like(se, n_local * cap))

@@ -97,7 +97,10 @@ class AdamW:
             norms += torch._foreach_norm([grads[i].float() for i in c])
         gnorm = torch.linalg.vector_norm(torch.stack(norms))
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-        step = int(state["step"]) + 1
+        # the step sets the learning rate and the bias corrections, Python
+        # numbers; a meta state (the dry run) holds no value, and any step
+        # gives the same count
+        step = (0 if state["step"].is_meta else int(state["step"])) + 1
         lr = self._lr(step)
         b1, b2 = self.b1, self.b2
         c1 = 1 - b1 ** step

@@ -1068,3 +1068,120 @@ def test_loss_grads_kernel_path_match_plain_path(dev, arch, monkeypatch):
     # whisper norms with LayerNorm (plain torch): no K1 on its path
     k1 = (fused_rmsnorm, rmsnorm_bwd)
     assert all(w.launches > n0[w] for w in n0 if cfg.family != "whisper" or w not in k1)
+
+
+# ---------------------------------------------------------------------------
+# the cost count: the card's against meta's
+# ---------------------------------------------------------------------------
+
+
+def _count_cases():
+    """name: (inputs(device) -> args, call(*args), wrapper): each kernel at a
+    shape of its path, bf16 (K5-bwd's saved state f32); K3's rows and K4's
+    sources full, so the valid lengths the card reads back are the ones a
+    count on meta assumes."""
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan_bwd as k5_bwd
+
+    bf, f32 = torch.bfloat16, torch.float32
+    b, h, kv, s, hd, d = 2, 12, 2, 128, 128, 1536
+    sd, sh = 2048, 4
+
+    def t(dev, *shape, dt=bf):
+        g = torch.Generator().manual_seed(sum(shape))
+        return torch.randn(shape, generator=g).to(dt).to(dev)
+
+    def scan(dev):
+        return (t(dev, b, 16, 4 * sd), t(dev, sh, sd // sh, 4 * sd // sh) * 0.05,
+                t(dev, 4 * sd, dt=f32), *(t(dev, b, sd, dt=f32) for _ in range(2)),
+                t(dev, b, sd, dt=f32).abs() + 1, t(dev, b, sd, dt=f32) * 0)
+
+    def scan_bwd(dev):
+        _, w, _, h0, c0, n0, m0 = scan(dev)
+        st = [t(dev, b, 16, sd, dt=f32) for _ in range(4)]
+        st[2] = st[2].abs() + 1
+        return (w, h0, c0, n0, m0, st[0], t(dev, b, 16, 4 * sd, dt=f32), st[1], st[2], st[3],
+                t(dev, b, 16, sd, dt=f32))
+
+    return {
+        "fused_rmsnorm": (lambda dev: (t(dev, 384, d), t(dev, 384, d), t(dev, d, dt=f32)),
+                          fused_rmsnorm, fused_rmsnorm),
+        "rmsnorm_bwd": (lambda dev: (t(dev, 512, d), t(dev, 512, d), t(dev, d, dt=f32),
+                                     t(dev, 512, d), t(dev, 512, d)),
+                        rmsnorm_bwd, rmsnorm_bwd),
+        "flash_attention": (lambda dev: (t(dev, b, s, h, hd).transpose(1, 2),
+                                         t(dev, b, s, kv, hd).transpose(1, 2),
+                                         t(dev, b, s, kv, hd).transpose(1, 2)),
+                            flash_attention, flash_attention),
+        "flash_attention_bwd": (lambda dev: (*(t(dev, b, s, n, hd).transpose(1, 2)
+                                               for n in (h, kv, kv, h, h)),
+                                             t(dev, b, h, s, dt=f32)),
+                                flash_attention_bwd, flash_attention_bwd),
+        "decode_attention": (lambda dev: (t(dev, b, h, hd), t(dev, b, s, kv, hd).transpose(1, 2),
+                                          t(dev, b, s, kv, hd).transpose(1, 2),
+                                          torch.full((b,), s, dtype=torch.int32, device=dev)),
+                             decode_attention, decode_attention),
+        "ragged_concat": (lambda dev: (t(dev, 3, 64, 4, dt=f32),
+                                       torch.full((3,), 64, dtype=torch.int32, device=dev)),
+                          lambda src, n: ragged_concat(src, n, capacity=200), ragged_concat),
+        "slstm_scan": (scan, slstm_scan, slstm_scan),
+        "slstm_scan_bwd": (scan_bwd, lambda *a: k5_bwd(*a, x_dtype=bf), k5_bwd),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_count_cases()))
+def test_count_on_the_card_equals_the_count_on_meta(dev, name):
+    """Each wrapper counted on the card: one launch, and the same record
+    (the kernel's ``cost``, no other op) as the same call on ``meta``."""
+    from repro_torch.launch.cost_analysis import count
+
+    inputs, call, wrapper = _count_cases()[name]
+    on_meta = count(call, *inputs("meta"))
+    args = inputs(dev)
+    before = wrapper.launches
+    on_card = count(call, *args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert on_card.ops == on_meta.ops == {f"kernel.{name}": on_meta.ops[f"kernel.{name}"]}
+
+
+@pytest.mark.parametrize("arch,kernels", [
+    ("qwen2-1.5b", ("fused_rmsnorm", "flash_attention", "decode_attention")),
+    ("xlstm-1.3b", ("fused_rmsnorm", "slstm_scan"))])
+def test_step_builders_launch_the_kernels_and_count_as_on_meta(dev, arch, kernels):
+    """``make_prefill_step`` and ``make_decode_step`` at the 100m width in
+    bf16 launch the path's kernels; the prefill step and a decode step over
+    a filled cache count on the card exactly as on ``meta``."""
+    from repro_torch.kernels.decode_attention import ops as k3
+    from repro_torch.kernels.flash_attention import ops as k2
+    from repro_torch.kernels.rmsnorm import ops as k1
+    from repro_torch.kernels.slstm_scan import ops as k5
+    from repro_torch.launch.cost_analysis import count
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import Workload
+
+    wrappers = {"fused_rmsnorm": k1.fused_rmsnorm, "flash_attention": k2.flash_attention,
+                "decode_attention": k3.decode_attention, "slstm_scan": k5.slstm_scan}
+    cfg = model_100m(arch)
+    b, s, cap = 2, 64, 128
+    wl = Workload("w", cap, b, "prefill")
+    model, meta = Model(cfg, device=dev), Model(cfg, device="meta")
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev, dtype=torch.int32)
+    before = {n: w.launches for n, w in wrappers.items()}
+    prefill, decode = make_prefill_step(model, wl), make_decode_step(model)
+    logits, cache = prefill(params, {"tokens": tokens})
+    nxt, cache = decode(params, cache, logits[:, -1].argmax(-1).to(torch.int32)[:, None])
+    torch.cuda.synchronize()
+    assert nxt.shape == (b, 1) and nxt.dtype == torch.int32
+    assert all(wrappers[n].launches > before[n] for n in kernels)
+
+    meta_params = meta.abstract_params()
+    card = count(prefill, params, {"tokens": tokens})
+    want = count(make_prefill_step(meta, wl), meta_params,
+                 {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta")})
+    assert (card.flops, card.bytes) == (want.flops, want.bytes)
+    cache["len"].fill_(cap - 1)
+    card = count(decode, params, cache, nxt)
+    want = count(make_decode_step(meta), meta_params, meta.abstract_cache(b, cap),
+                 torch.empty((b, 1), dtype=torch.int32, device="meta"))
+    assert (card.flops, card.bytes) == (want.flops, want.bytes)

@@ -8,6 +8,7 @@ bf16.  The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
 
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +23,7 @@ from repro.kernels.rmsnorm.ops import fused_rmsnorm as jax_rmsnorm
 from repro.kernels.rmsnorm.ops import rmsnorm_ref as jax_rmsnorm_ref
 from repro.models.common import rms_norm as jax_rms_norm
 from repro_torch.kernels import _build
+from repro_torch.kernels._device import device_kind
 from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
@@ -208,6 +210,16 @@ def test_rmsnorm_norm_only_equals_model_rms_norm():
 # ---------------------------------------------------------------------------
 
 
+def _wrapper_args(name, device="cpu"):
+    q = torch.zeros(1, 2, 4, 64, device=device)
+    kv = torch.zeros(1, 1, 4, 64, device=device)
+    x = torch.zeros(3, 64, device=device)
+    return {"flash_attention": (q, kv, kv),
+            "decode_attention": (torch.zeros(1, 2, 64, device=device), kv, kv,
+                                 torch.ones(1, dtype=torch.int32, device=device)),
+            "rmsnorm": (x, x, torch.ones(64, device=device))}[name]
+
+
 def _wrapper_calls(device):
     q = torch.zeros(1, 2, 4, 64, device=device)
     kv = torch.zeros(1, 1, 4, 64, device=device)
@@ -227,10 +239,17 @@ def test_wrapper_takes_plain_version_only_on_cpu(name):
     wrappers = {"flash_attention": flash_attention, "decode_attention": decode_attention,
                 "rmsnorm": fused_rmsnorm}
     before = wrappers[name].launches
-    _wrapper_calls("cpu")[name]()
+    want = _wrapper_calls("cpu")[name]()
     assert wrappers[name].launches == before          # the plain version is no launch
+    got = _wrapper_calls("meta")[name]()              # meta: the kernel's shapes, no launch
+    pairs = list(zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want))))
+    assert all(g.is_meta and (g.shape, g.dtype) == (w.shape, w.dtype) for g, w in pairs)
+    assert wrappers[name].launches == before
+    with pytest.raises(ValueError, match="different devices"):
+        wrappers[name](*(t.to("meta") if i == 0 else t
+                         for i, t in enumerate(_wrapper_args(name))))
     with pytest.raises(ValueError, match="unsupported device"):
-        _wrapper_calls("meta")[name]()               # neither cpu nor cuda: raise
+        device_kind(SimpleNamespace(device=torch.device("xpu")))   # neither cpu, cuda nor meta
 
 
 def test_wrappers_reject_bad_inputs():

@@ -67,9 +67,14 @@ def test_ragged_concat_length_above_lmax_leaves_zero_gap():
 
 
 def test_ragged_concat_wrapper_checks():
-    with pytest.raises(ValueError, match="unsupported device"):
-        ragged_concat(torch.zeros(2, 4, 3, device="meta"),
-                      torch.ones(2, dtype=torch.int32, device="meta"), capacity=4)
+    out, offsets, total = ragged_concat(torch.zeros(2, 4, 3, device="meta"),
+                                        torch.ones(2, dtype=torch.int32, device="meta"),
+                                        capacity=4)             # meta: shapes, no launch
+    assert [(t.device.type, tuple(t.shape)) for t in (out, offsets, total)] == \
+        [("meta", (4, 3)), ("meta", (2,)), ("meta", ())]
+    with pytest.raises(ValueError, match="different devices"):
+        ragged_concat(torch.zeros(2, 4, 3, device="meta"), torch.ones(2, dtype=torch.int32),
+                      capacity=4)
     with pytest.raises(ValueError, match="lengths"):
         ragged_concat(torch.zeros(2, 4, 3), torch.ones(3, dtype=torch.int32), capacity=4)
     with pytest.raises(TypeError):

@@ -378,6 +378,50 @@ def test_fleet_of_two_cpu_replicas_one_killed_exactly_once():
     assert [n for n, _ in out["ttft_ms"]] == sorted(len(p) for p in out["prompts"].values())
 
 
+class _SlowHeadRouter(port_serving.ShardRouter):
+    """The head's router as a loaded head drives it: a shard's second and
+    later requests reach its ring only after the head has seen that shard's
+    first result chunk, one request a flush (one message each, as the
+    submit loop sends them).  Replays pass at once."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._sent, self._opened, self._held = set(), set(), {}
+
+    def touch(self, rid):
+        rec = self.inflight.get(rid)
+        if rec is not None:
+            self._opened.add(rec.shard)
+        super().touch(rid)
+
+    def flush(self, **kwargs):
+        for shard, rows in list(self._pending.items()):
+            if shard in self._sent and shard not in self._opened:
+                first = [r for r in rows if r.gen == 0]
+                self._held.setdefault(shard, []).extend(first)
+                self._pending[shard] = [r for r in rows if r.gen != 0]
+        for shard, held in self._held.items():
+            if shard in self._opened and held:
+                self._pending.setdefault(shard, []).append(held.pop(0))
+        self._sent.update(s for s, rows in self._pending.items() if rows)
+        return super().flush(**kwargs)
+
+
+def test_fleet_kill_waits_until_the_victim_took_every_request(monkeypatch):
+    """The interleaving a loaded head produces: the victim streams its first
+    chunk before its later request messages reach it.  Killed then, it
+    leaves those messages untaken and the router replays all its rows in
+    one message, so the trace rings time fewer messages than requests.  The
+    fleet kills the victim only once every request routed to it has
+    streamed a chunk: every request message is taken and timed."""
+    monkeypatch.setattr(fleet, "ShardRouter", _SlowHeadRouter)
+    out = fleet.run(size="smoke", device="cpu", replicas=2, requests=6, max_new=4,
+                    max_seq=64, kill_one=True, ready_timeout=60.0, timeout=60.0)
+    assert fleet.exactly_once(out), out
+    assert out["killed"] is not None and out["replays"] > 0
+    assert len(out["pub_take_us"]) >= out["requests"], out["pub_take_us"]
+
+
 def test_backpressured_replica_keeps_its_lease(port_dom):
     """A consumer that takes a replica's result messages and holds them (as
     a head does while its executor is busy in another callback) fills the

@@ -257,9 +257,13 @@ def test_bwd_wrapper_dispatch_and_checks():
         _bwd(slstm_scan_bwd, t_args, hs, saved, torch.from_numpy(dhs), torch.zeros(2, 8))
     with pytest.raises(TypeError, match="dtypes"):
         slstm_scan_bwd(t_args[1], *t_args[3:], hs, *saved, None, x_dtype=torch.float16)
-    with pytest.raises(ValueError, match="unsupported device"):
-        _bwd(slstm_scan_bwd, [t.to("meta") for t in t_args], hs.to("meta"),
-             [t.to("meta") for t in saved], None)
+    on_meta = _bwd(slstm_scan_bwd, [t.to("meta") for t in t_args], hs.to("meta"),
+                   [t.to("meta") for t in saved], None)     # meta: shapes, no launch
+    assert [(g.device.type, g.shape, g.dtype) for g in on_meta] == \
+        [("meta", g.shape, g.dtype) for g in got]
+    assert slstm_scan_bwd.launches == before
+    with pytest.raises(ValueError, match="different devices"):
+        _bwd(slstm_scan_bwd, t_args, hs.to("meta"), saved, None)
 
 
 # H100's opt-in shared memory a block (227 KB), and the clusters of 16

@@ -127,8 +127,12 @@ def test_slstm_scan_first_step_from_minus_inf():
 
 def test_slstm_scan_wrapper_checks():
     _, targs = _inputs(np.random.default_rng(1), 1, 4, 16, 2, "float32")
-    with pytest.raises(ValueError, match="unsupported device"):
-        slstm_scan(*(t.to("meta") for t in targs))
+    hs, st = slstm_scan(*(t.to("meta") for t in targs))    # meta: shapes, no launch
+    want_hs, want_st = slstm_scan(*targs)
+    assert [(t.device.type, t.shape) for t in (hs, *st)] == \
+        [("meta", t.shape) for t in (want_hs, *want_st)]
+    with pytest.raises(ValueError, match="different devices"):
+        slstm_scan(targs[0].to("meta"), *targs[1:])
     with pytest.raises(ValueError, match="does not fit"):
         slstm_scan(targs[0], targs[1][:, :, :8], *targs[2:])
     with pytest.raises(ValueError, match="b_ih"):
