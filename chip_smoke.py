@@ -8,7 +8,7 @@ dense, xLSTM, MoE and Zamba2 families; ``Model.prefill`` and
 ``decode_step`` for Whisper and mLLaMA, whose prefill takes frames or a
 vision input that no request carries; training through ``Trainer``,
 ``Model.loss`` and the backward kernels) on the GPU, never the JAX
-reference package, in thirty phases; any failed phase exits
+reference package, in thirty-one phases; any failed phase exits
 non-zero before the final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
@@ -175,7 +175,23 @@ non-zero before the final line:
    run's whole grid (``python -m repro_torch.launch.dryrun --all``,
    started in a child process after phase 2, on the host's CPU): no cell
    ``error``, skipped cells for the reference's reason, its roofline
-   table and wall time.
+   table and wall time;
+31. the mesh at world size 1, on one ``nccl`` process group of one rank
+   (a ``HashStore``, destroyed at the end): full-width qwen2-moe-a2.7b in
+   bf16 on mesh (1, 1) ``("data", "model")`` under ``decode_rules``, the
+   8 requests' prefills and 31 greedy steps through the step builders
+   and ``_moe_serving``, bit for bit equal to the same steps without a
+   mesh (tokens, logits, every cache leaf), with ``_moe_serving``'s calls
+   (wrapped here), its all-gathers and psums and K1-K3 counted; full-width
+   qwen2-1.5b in bf16 (B 8 x S 1024) through
+   ``make_hierarchical_train_step`` on mesh (1, 1, 1) ``("pod", "data",
+   "model")``, uncompressed bit for bit equal to ``make_train_step`` over 3
+   steps, compressed (int8 error feedback) within ``EF_GAP_FRAC`` of the
+   uncompressed run's fall over 5, each mode's step ms and peak memory;
+   ``Trainer`` on mesh (1, 1) (qwen2-1.5b's 100m reduction, bf16) equal to
+   the run without one, and its resume from a checkpoint saved without a
+   mesh, restored through the state's shardings, within
+   ``RESUME_LOSS_TOL``.
 
 It prints a ``{"kernels": [...]}`` line (the backward kernels with
 ``"role": "backward"``) and ends with one JSON line
@@ -191,6 +207,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3292,6 +3309,408 @@ def train_count_on_card(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the mesh at world size 1
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "qwen2-moe-a2.7b"            # served through _moe_serving under decode_rules
+MESH_EQ_STEPS, MESH_STEPS = 3, 5         # hierarchical steps: held bit for bit, run
+MESH_EF_CHECKED = 2                      # compressed steps held exactly, leaf by leaf
+MESH_LR = 3e-4                           # TrainerConfig's default learning rate
+# the compressed run's loss at step i against the uncompressed run's, both from
+# one init on one fixed batch: int8 with one scale a tensor zeroes the
+# smallest grads of a step (18.5% of full-width qwen2-1.5b's step-1 grad
+# elements, 95.6% of its tied embedding's, whose in-batch rows set the scale),
+# and AdamW moves each element by about lr whatever its grad's size, so the
+# compressed run falls more slowly.  A bound of 6% of the uncompressed run's
+# fall, set from scripts/ef_loss_gap.py on the CPU (2.07-2.12% at qwen2-1.5b's
+# 100m reduction, 3.30% at the smoke width with its 151,936-token vocabulary),
+# was refuted on the card: the same script at full width (NVIDIA H100 80GB
+# HBM3, 700 W; B 8 x S 1024, lr 3e-4, seeds 0-2) read 12.45% at most (seed 0,
+# step 5: 0.3068 of a 2.464 fall), 8.2% at step 3, and the same with the error
+# memory dropped (error feedback has no time to act in 5 steps).  The bound is
+# twice that reading, plus 1e-3 for bf16 rounding of the loss.  It holds the
+# run to learning at most a quarter slower; a sum that loses the grads keeps
+# the loss at step 1's, a gap of the whole fall.  The sums themselves are held
+# exactly: against numpy and JAX in tests/test_torch_grad_compress.py, and
+# here, at full width, against a plain quantisation of the step's own grads
+# (mesh_hierarchical); this bound is a sanity check of what they do.
+EF_GAP_FRAC, EF_GAP_ABS = 0.25, 1e-3
+MESH_TRAINER_STEPS, MESH_TRAINER_CKPT = 6, 3
+
+
+def mesh_serving(dev, card: str) -> dict:
+    """Full-width ``MESH_ARCH`` in bf16: the 8 requests of phases 5-25
+    (``make_requests``, seed 0), each prompt through ``make_prefill_step``
+    into its slot of a batch of 8, then 31 greedy steps of
+    ``make_decode_step`` and one ``Model.decode_step`` for the last logits,
+    without a mesh and then on mesh (1, 1) ``("data", "model")`` under
+    ``decode_rules``: the tokens, the prefill and last logits and every
+    cache leaf equal bit for bit.  ``mlp._moe_serving`` is wrapped here to
+    count its calls (one a layer a model call) and the collectives'
+    counter must show its all-gather and psum each call; the kernels'
+    counts, zeroed just before the mesh run, must show K1, K2 and K3."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.launch.steps import decode_rules, make_decode_step, make_prefill_step
+    from repro_torch.models import Model, Workload, mlp
+    from repro_torch.sharding import use_mesh
+    from repro_torch.sharding.partition import COLLECTIVE_CALLS
+
+    cfg = get_config(MESH_ARCH)
+    model = Model(cfg, device=dev)
+    params = model.init(SEED)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    rules = decode_rules(cfg, mesh)
+    reqs = make_requests(N_REQUESTS, vocab=cfg.vocab_size, prompt_min=PROMPT_MIN,
+                         prompt_max=PROMPT_MAX, max_new=MAX_NEW, seed=SEED)
+    prompts = [torch.as_tensor(r.tokens, dtype=torch.int32, device=dev) for r in reqs]
+    prefill = make_prefill_step(model, Workload("chip_smoke", MAX_SEQ, 1, "prefill"))
+    decode = make_decode_step(model)
+
+    def generate() -> dict:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        cache = model.init_cache(len(prompts), MAX_SEQ)
+        first = []
+        for slot, p in enumerate(prompts):
+            logits, single = prefill(params, {"tokens": p[None]})
+            model.splice_cache(cache, single, slot, p.numel())
+            first.append(logits[0, -1])
+        first = torch.stack(first)
+        toks = [first.argmax(-1).to(torch.int32)[:, None]]
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        for _ in range(MAX_NEW - 1):
+            nxt, cache = decode(params, cache, toks[-1])
+            toks.append(nxt)
+        last, cache = model.decode_step(params, cache, toks[-1])
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        return {"tokens": torch.cat(toks, 1), "prefill_logits": first, "last_logits": last,
+                "cache": cache, "prefill_ms": 1e3 * (t1 - t0),
+                "step_ms": 1e3 * (t2 - t1) / MAX_NEW}
+
+    plain = generate()
+    calls = [0]
+    orig = mlp._moe_serving
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+
+    ws = wrappers()
+    before = dict(COLLECTIVE_CALLS)
+    mlp._moe_serving = counted
+    try:
+        zero_counts(ws)
+        with use_mesh(mesh, rules):
+            meshed = generate()
+        torch.cuda.synchronize()
+    finally:
+        mlp._moe_serving = orig
+    launches = {n: w.launches for n, w in ws.items()}
+    coll = {k: COLLECTIVE_CALLS[k] - before.get(k, 0) for k in ("all_gather", "psum")}
+    want = cfg.num_layers * (N_REQUESTS + MAX_NEW)      # 8 prefills, 31 + 1 steps
+    if calls[0] != want or min(coll.values()) < want:
+        fail(f"{MESH_ARCH} on the mesh: _moe_serving ran {calls[0]} times and the collectives "
+             f"{coll}; want {want} each")
+    if not all(launches[n] > 0 for n in ("rmsnorm", "flash_attention", "decode_attention")):
+        fail(f"{MESH_ARCH} on the mesh: launches {launches}: K1, K2 and K3 must be launched")
+    diffs = {k: max_err(meshed[k], plain[k]) for k in ("prefill_logits", "last_logits")}
+    same = {k: torch.equal(meshed[k], plain[k])
+            for k in ("tokens", "prefill_logits", "last_logits")}
+    same["cache"] = all(torch.equal(a, b) for a, b in zip(_leaves(meshed["cache"]),
+                                                          _leaves(plain["cache"])))
+    if not all(same.values()):
+        fail(f"{MESH_ARCH} on the mesh differs from the run without one: equal {same}, "
+             f"max |diff| {diffs}")
+    out = {"prefill_ms": [plain["prefill_ms"], meshed["prefill_ms"]],
+           "step_ms": [plain["step_ms"], meshed["step_ms"]], "moe_serving_calls": calls[0],
+           "collectives": coll, "launches": launches, "layer": mesh_layer_cost(params, cfg, mesh,
+                                                                               rules, dev)}
+    log(f"bf16 {MESH_ARCH} on mesh (1, 1) under decode_rules {rules}: tokens, prefill and last "
+        f"logits and every cache leaf bit for bit equal to the run without a mesh; "
+        f"_moe_serving {calls[0]} calls, collectives {coll}, launches {launches}")
+    print(f"mesh serving {MESH_ARCH} (8 requests, 8 prefills + {MAX_NEW} steps) prefill ms "
+          f"(8 prompts) without / with the mesh: {plain['prefill_ms']:.2f} / "
+          f"{meshed['prefill_ms']:.2f}; decode step ms {plain['step_ms']:.3f} / "
+          f"{meshed['step_ms']:.3f} [{card}]", flush=True)
+    lay = out["layer"]
+    print(f"mesh serving {MESH_ARCH}: one MoE layer's decode call (B={N_REQUESTS}) without / "
+          f"with the mesh: device ms {lay['plain_device_ms']:.3f} / {lay['mesh_device_ms']:.3f}, "
+          f"host ms {lay['plain_host_ms']:.3f} / {lay['mesh_host_ms']:.3f}; alone, host ms: the "
+          f"all-gather {lay['all_gather_host_ms']:.3f}, the psum {lay['psum_host_ms']:.3f} "
+          f"[{card}]", flush=True)
+    del model, params, plain, meshed
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_layer_cost(params: dict, cfg, mesh, rules, dev) -> dict:
+    """What the mesh adds to one MoE layer's decode call: layer 0's MoE
+    block on a decode-shaped input (``N_REQUESTS`` x 1 x D, seed
+    ``SEED``), device ms (:func:`device_ms`) and host ms (back-to-back
+    calls, :func:`host_ms_each`) of ``moe_ffn`` without a mesh and on
+    ``mesh`` under ``rules`` (``_moe_serving``), and the host ms of the two
+    collectives ``_moe_serving`` makes a call, alone: the all-gather of the
+    tokens over ``data`` and the psum over ``("model", "data")``."""
+    import torch
+
+    from repro_torch.models import mlp
+    from repro_torch.sharding import all_gather, psum, shard_map, use_mesh
+
+    layer = params["layers"][0]["moe"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((N_REQUESTS, 1, cfg.d_model), generator=gen, device=dev, dtype=cfg.cdt)
+    x2d = x.reshape(-1, cfg.d_model)
+
+    def meshed():
+        with use_mesh(mesh, rules):
+            mlp.moe_ffn(layer, x, cfg=cfg)
+
+    fns = {"plain": lambda: mlp.moe_ffn(layer, x, cfg=cfg), "mesh": meshed,
+           "all_gather": shard_map(lambda: all_gather(x2d, ("data",), tiled=True), mesh=mesh),
+           "psum": shard_map(lambda: psum(x2d, ("model", "data")), mesh=mesh)}
+    with torch.no_grad():
+        host = host_ms_each(fns, iters=50)
+        return {f"{k}_host_ms": v for k, v in host.items()} | {
+            f"{k}_device_ms": device_ms(fns[k], iters=10) for k in ("plain", "mesh")}
+
+
+def plain_ef_sum(g, e):
+    """One leaf's int8 error-feedback sum at pod size 1, written out:
+    (what the step must hand the optimizer, the new error memory).  A leaf
+    under 1 KiB is summed uncompressed and keeps its error."""
+    if g.numel() * g.element_size() < 1024:
+        return g, e
+    x = g.float() + e
+    scale = x.abs().max().clamp(min=1e-30) / 127
+    q = (x / scale).round().clamp(-127, 127)
+    return (q * scale).to(g.dtype), x - q * scale
+
+
+def mesh_hierarchical(dev, card: str) -> dict:
+    """Full-width ``TRAIN_ARCH`` in bf16 at ``TRAIN_BF16_BS`` on one fixed
+    batch: ``MESH_EQ_STEPS`` steps of ``make_train_step``, then
+    ``make_hierarchical_train_step`` on mesh (1, 1, 1) ``("pod", "data",
+    "model")`` uncompressed (its first ``MESH_EQ_STEPS`` losses and the
+    params after them bit for bit equal) and compressed, ``MESH_STEPS``
+    steps each from the same init.  In the first ``MESH_EF_CHECKED``
+    compressed steps (the error memory zero, then not) every leaf's grad
+    handed to ``opt.update`` and every new error must equal
+    :func:`plain_ef_sum` of the grad and error the step summed, bit for
+    bit; the compressed losses must be finite, falling, apart from the
+    uncompressed run's after step 1 and within ``EF_GAP_FRAC`` of its fall
+    plus ``EF_GAP_ABS``.  Each run's step ms (median of steps 2 on, the
+    checked steps left out) and peak memory."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_items
+    from repro_torch.optim import AdamW, grad_compress, init_error_state, \
+        make_hierarchical_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model, opt = Model(cfg, device=dev), AdamW(lr=MESH_LR)
+    b, s = TRAIN_BF16_BS
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device=dev, generator=gen,
+                                     dtype=torch.int32)}
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    held = {}
+    checked = []                  # per checked step: leaves, grads differing, errors differing
+    want = []                     # the checked step's plain (sum, error) a leaf
+
+    def sum_leaf(g, e, axis_name):
+        want.append(plain_ef_sum(g, e))
+        return orig_sum(g, e, axis_name)
+
+    def update(state, grads):
+        """``opt.update``, first holding the grads against ``want``'s sums."""
+        if want:
+            got = [t for _, t in tree_items(grads)]
+            checked.append([len(got), [i for i, (g, (w, _)) in enumerate(zip(got, want))
+                                       if not torch.equal(g, w)]])
+            want[:] = [(None, e) for _, e in want]
+            del got
+        return opt.update(state, grads)
+
+    orig_sum, checking = grad_compress._sum_leaf, types.SimpleNamespace(update=update)
+
+    def checked_step(step, state, err):
+        """One compressed step with every leaf's sum and new error held
+        against :func:`plain_ef_sum` of the grad and error it was given."""
+        grad_compress._sum_leaf = sum_leaf
+        try:
+            out = step(state, err, batch)
+        finally:
+            grad_compress._sum_leaf = orig_sum
+        errs = [e[0] for _, e in tree_items(out[1])]
+        if len(want) != len(errs) or checked[-1][0] != len(errs):
+            fail(f"hierarchical step (compressed): {len(want)} leaves summed, "
+                 f"{checked[-1][0]} handed to the update, {len(errs)} errors")
+        checked[-1].append([i for i, (e, (_, w)) in enumerate(zip(errs, want))
+                            if not torch.equal(e, w)])
+        want.clear()
+        return out
+
+    def run(mode: str, steps: int) -> dict:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = opt.init(model.init(SEED))
+        err = init_error_state(state["params"]) if mode == "compressed" else None
+        plain = make_train_step(model, opt)
+        step = make_hierarchical_train_step(model, checking if mode == "compressed" else opt,
+                                            mesh, compress=mode == "compressed")
+        losses, secs = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            if mode == "plain":
+                state, m = plain(state, batch)
+            elif mode == "compressed" and i < MESH_EF_CHECKED:
+                state, err, m = checked_step(step, state, err)
+            else:
+                state, err, m = step(state, err, batch)
+            losses.append(float(m["loss"]))
+            if i > 0 and not (mode == "compressed" and i < MESH_EF_CHECKED):
+                secs.append(time.monotonic() - t0)
+            if i + 1 == MESH_EQ_STEPS and mode == "plain":
+                held.update({p: t.to("cpu", copy=True) for p, t in tree_items(state["params"])})
+            elif i + 1 == MESH_EQ_STEPS and mode == "uncompressed":
+                bad = [p for p, t in tree_items(state["params"])
+                       if not torch.equal(t.detach().cpu(), held[p])]
+                if bad:
+                    fail(f"hierarchical step (uncompressed) params after {MESH_EQ_STEPS} steps "
+                         f"differ from make_train_step's in {len(bad)} leaves, e.g. {bad[:3]}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        del state, err
+        return {"losses": losses, "step_s": secs, "peak_gb": peak / 1e9,
+                "step_ms": 1e3 * statistics.median(secs)}
+
+    runs = {"plain": run("plain", MESH_EQ_STEPS), "uncompressed": run("uncompressed", MESH_STEPS),
+            "compressed": run("compressed", MESH_STEPS)}
+    held.clear()
+    ref, unc, com = (runs[k]["losses"] for k in ("plain", "uncompressed", "compressed"))
+    if unc[:MESH_EQ_STEPS] != ref:
+        fail(f"hierarchical step (uncompressed) losses {unc[:MESH_EQ_STEPS]} != make_train_step's "
+             f"{ref}")
+    if len(checked) != MESH_EF_CHECKED or any(bad_g or bad_e for _, bad_g, bad_e in checked):
+        fail(f"hierarchical step (compressed): the sums handed to the update or the new errors "
+             f"differ from a plain int8 quantisation of the step's grads and errors in steps "
+             f"1-{MESH_EF_CHECKED} (leaves, grads differing, errors differing): {checked}")
+    gaps = [abs(c - u) for c, u in zip(com, unc)]
+    bounds = [EF_GAP_FRAC * (unc[0] - u) + EF_GAP_ABS for u in unc]
+    if not all(x == x and abs(x) < 1e4 for x in com) or not com[-1] < com[0] or \
+            any(g > bd for g, bd in zip(gaps, bounds)) or not min(gaps[1:]) > 0:
+        fail(f"hierarchical step (compressed) losses {com} against uncompressed {unc}: gaps "
+             f"{gaps}, bounds {bounds}")
+    ef_ms = runs["compressed"]["step_ms"] - runs["uncompressed"]["step_ms"]
+    log(f"bf16 {TRAIN_ARCH} hierarchical steps on mesh (1, 1, 1), B={b} S={s}: make_train_step "
+        f"losses {ref}, uncompressed {unc} (first {MESH_EQ_STEPS} and params bit for bit "
+        f"equal), compressed {com} (gaps {[round(g, 5) for g in gaps]}, bounds "
+        f"{[round(x, 5) for x in bounds]}; steps 1-{MESH_EF_CHECKED}: the {checked[0][0]} "
+        f"leaves' sums and errors bit for bit equal to a plain int8 quantisation); timed step s "
+        + ", ".join(f"{k} {[round(x, 4) for x in r['step_s']]}" for k, r in runs.items()))
+    for k, r in runs.items():
+        print(f"mesh hierarchical {TRAIN_ARCH} {k}: step ms (median of {len(r['step_s'])} steps) "
+              f"{r['step_ms']:.2f}, peak device memory GB {r['peak_gb']:.2f} [{card}]", flush=True)
+    print(f"mesh hierarchical {TRAIN_ARCH}: error feedback and the int8 sum add "
+          f"{ef_ms:.2f} ms a step [{card}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {k: {kk: r[kk] for kk in ("losses", "step_ms", "peak_gb")} for k, r in runs.items()} \
+        | {"ef_ms": ef_ms, "gaps": gaps, "bounds": bounds}
+
+
+def mesh_trainer(dev, card: str) -> dict:
+    """``Trainer`` on qwen2-1.5b's 100m reduction in bf16 (B 8 x S 1024,
+    in-process data), ``MESH_TRAINER_STEPS`` steps without a mesh (a
+    checkpoint every ``MESH_TRAINER_CKPT``) and on mesh (1, 1) ``("data",
+    "model")``: losses and params bit for bit equal; then a ``Trainer`` on
+    the mesh resumes from the checkpoint saved without one at step
+    ``MESH_TRAINER_CKPT``, restored through the state's shardings, and its
+    losses must be the uninterrupted run's within ``RESUME_LOSS_TOL``
+    (phase 27's gate)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import model_100m
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_items
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = model_100m(TRAIN_ARCH).scaled(param_dtype="bfloat16", compute_dtype="bfloat16")
+    root = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    mesh = make_mesh((1, 1), ("data", "model"))
+
+    def train(name: str, ckpt_every: int, mesh=None) -> Trainer:
+        b, s = TRAIN_BF16_BS
+        tc = TrainerConfig(batch=b, seq_len=s, total_steps=MESH_TRAINER_STEPS, warmup=2,
+                           ckpt_every=ckpt_every, ckpt_dir=str(root / name), ckpt_keep=2,
+                           zero_copy_data=False, log_every=100, seed=SEED)
+        t = Trainer(Model(cfg, device=dev), tc, mesh=mesh)
+        t.run()
+        t.close()
+        return t
+
+    t0 = time.monotonic()
+    plain = train("plain", MESH_TRAINER_CKPT)
+    meshed = train("mesh", 0, mesh)
+    losses = [r["loss"] for r in plain.metrics_log]
+    if [r["loss"] for r in meshed.metrics_log] != losses or not all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(plain.state["params"]),
+                                                        tree_items(meshed.state["params"]))):
+        fail(f"Trainer on mesh (1, 1): losses {[r['loss'] for r in meshed.metrics_log]} or its "
+             f"params differ from the run without a mesh ({losses})")
+    shutil.rmtree(root / "plain" / f"step_{MESH_TRAINER_STEPS:010d}")
+    resumed = train("plain", 0, mesh)
+    steps = [r["step"] for r in resumed.metrics_log]
+    diffs = [abs(r["loss"] - x) for r, x in zip(resumed.metrics_log, losses[MESH_TRAINER_CKPT:])]
+    if steps != list(range(MESH_TRAINER_CKPT + 1, MESH_TRAINER_STEPS + 1)) or \
+            max(diffs) > RESUME_LOSS_TOL:
+        fail(f"Trainer on mesh (1, 1) resumed from a checkpoint saved without a mesh: steps "
+             f"{steps}, losses {[r['loss'] for r in resumed.metrics_log]} against "
+             f"{losses[MESH_TRAINER_CKPT:]} (bound {RESUME_LOSS_TOL})")
+    log(f"bf16 {cfg.name} Trainer: {MESH_TRAINER_STEPS} steps on mesh (1, 1) bit for bit equal to "
+        f"the run without one (losses {losses}); resumed on the mesh from step "
+        f"{MESH_TRAINER_CKPT} saved without one: max |diff| {max(diffs):.3e} (bound "
+        f"{RESUME_LOSS_TOL}); {time.monotonic() - t0:.1f} s [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    del plain, meshed, resumed
+    torch.cuda.empty_cache()
+    return {"losses": losses, "resume_max_diff": max(diffs)}
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """Phase 31: one process group of one rank (``nccl``, a ``HashStore``),
+    then :func:`mesh_serving`, :func:`mesh_hierarchical` and
+    :func:`mesh_trainer` on ``DeviceMesh``es over it; the group is destroyed
+    at the end, and a failure fails the run."""
+    import torch
+    import torch.distributed as dist
+
+    log(f"phase 31 starts with {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        return {"serving": mesh_serving(dev, card), "hierarchical": mesh_hierarchical(dev, card),
+                "trainer": mesh_trainer(dev, card)}
+    finally:
+        dist.destroy_process_group()
+
+
 def finish_dryrun(dry: DryRun) -> None:
     """The dry run's grid: no cell ``error``, every skipped cell skipped for
     the reference's reason; its log, the roofline table and its wall time."""
@@ -3503,6 +3922,10 @@ def main() -> None:
     finish_dryrun(dry)
     log(f"phase 30 (the step builders, the count on the card against meta, the dry run) done "
         f"in {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    mesh = phase_mesh(dev, card)
+    log(f"phase 31 (the mesh at world size 1: MoE serving, hierarchical steps, the Trainer) done "
+        f"in {time.monotonic() - t0:.1f} s")
     log(f"all phases done in {time.monotonic() - T_START:.1f} s")
 
     kernels = []
@@ -3526,7 +3949,7 @@ def main() -> None:
                            if k in r}})
     print(json.dumps({"kernels": kernels, "train_step_ms": train["step_ms"],
                       "train_step_device_ms_by_group": train["groups_ms"],
-                      "xlstm_train": xtrain}), flush=True)
+                      "xlstm_train": xtrain, "mesh": mesh}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

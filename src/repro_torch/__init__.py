@@ -23,6 +23,11 @@ metrics) are copied, not imported.
   :mod:`repro_torch.optim` (AdamW, the cosine schedule),
   :mod:`repro_torch.checkpoint` and :mod:`repro_torch.data` (the data
   plane's copies and its ordered zero-copy pipeline);
+* :mod:`repro_torch.sharding` — the logical-axis rules and specs, and
+  named-axis collectives over a ``DeviceMesh`` (``launch.mesh.make_mesh``),
+  each rank holding its block; the MoE layer's serving and
+  expert-parallel branches, the error-feedback int8 gradient sum across
+  pods (``optim.grad_compress``) and the trainer's mesh run on them;
 * :mod:`repro_torch.core`, :mod:`repro_torch.obs`, :mod:`repro_torch.serving`
   — the zero-copy pub/sub planes for unsized messages, the executor, the
   observability plane, and the sharded serving fleet (router, replicas,

@@ -12,6 +12,13 @@ files and ``manifest.json``) and its fault-tolerance contract:
   thread writes the files; ``wait()`` joins it before the next save or
   at exit, and raises what the thread raised.
 * **GC** — only the newest ``keep`` checkpoints are kept.
+* **Reshard on restore** — the manifest stores logical leaf paths,
+  shapes and dtypes, not layouts.  ``restore(..., shardings=...)`` takes
+  the target ``NamedSharding`` of each leaf (``repro_torch.sharding``, on
+  whatever mesh the job restarted on) and keeps the rank's block of each
+  leaf it loads whole: the saving mesh and the restoring mesh need not
+  match.  Saving writes whole leaves, which is what a rank holds at world
+  size 1; saving from world size > 1 is ROADMAP.md Queue 1 item 8c.
 * **Data-plane cursor** — the caller's ``extra`` (the data cursor) is
   stored in the manifest.
 
@@ -19,9 +26,7 @@ numpy has no bfloat16: a bf16 leaf is stored as its int16 bit pattern and
 its manifest entry says ``"dtype": "bfloat16"``, so it restores bit for
 bit.  ``restore`` matches leaves by path, not position, and either fills
 a live tree in place (one card holds one state, not two) or puts new
-leaves on a given device.  The reference's ``shardings`` (reshard on
-restore onto another mesh) waits for the trainer's mesh (ROADMAP.md,
-Queue 1 item 8).
+leaves on a given device.
 """
 
 from __future__ import annotations
@@ -148,14 +153,18 @@ class Checkpointer:
     # -- restore ----------------------------------------------------------------
 
     def restore(self, like, *, step: int | None = None,
-                device: torch.device | str | None = None) -> tuple[object, int, dict]:
+                device: torch.device | str | None = None,
+                shardings=None) -> tuple[object, int, dict]:
         """Load a checkpoint into the structure of ``like`` (a tree of
         tensors: its paths, shapes and dtypes).
 
         With ``device`` None the checkpoint's leaves are copied into the
         tensors of ``like`` in place, and ``like`` is returned; otherwise a
         new tree of tensors on ``device``.  A leaf whose stored dtype
-        differs from ``like``'s is cast.  Returns (state, step, extra)."""
+        differs from ``like``'s is cast.  ``shardings``, a tree like
+        ``like`` of ``NamedSharding``s, reshards: each leaf is loaded
+        whole, and the rank's block of it under its sharding is what lands
+        (``like`` then holds blocks).  Returns (state, step, extra)."""
         if step is None:
             step = latest_step(self.root)
         if step is None:
@@ -171,16 +180,20 @@ class Checkpointer:
                              f"(missing e.g. {missing})")
         it = iter(paths)
 
-        def load(target: torch.Tensor) -> torch.Tensor:
+        def load(target: torch.Tensor, sh=None) -> torch.Tensor:
             rec = recs[next(it)]
             t = _from_host(np.load(os.path.join(d, rec["file"])), rec["dtype"])
-            if tuple(t.shape) != tuple(target.shape):
-                raise ValueError(f"{rec['path']}: checkpoint shape {tuple(t.shape)} != "
-                                 f"{tuple(target.shape)}")
+            want = tuple(t.shape) if sh is None else sh.shard_shape(t.shape)
+            if want != tuple(target.shape):
+                raise ValueError(f"{rec['path']}: checkpoint shape {tuple(t.shape)}"
+                                 + ("" if sh is None else f" (block {want} under {sh.spec})")
+                                 + f" != {tuple(target.shape)}")
+            if sh is not None:
+                t = sh.block(t)
             if device is None:
                 with torch.no_grad():
                     return target.copy_(t)
             return t.to(device=device, dtype=target.dtype)
 
-        out = tree_map(load, like)
+        out = tree_map(load, like) if shardings is None else tree_map(load, like, shardings)
         return out, int(manifest["step"]), manifest.get("extra", {})

@@ -156,6 +156,12 @@ class StepCosts:
         return sorted(rows, key=lambda r: -r[0])[:n]
 
 
+def _freed(counter_ref, key: int, nbytes: int) -> None:
+    counter = counter_ref()
+    if counter is not None:
+        counter._free(key, nbytes)
+
+
 class CostCounter(TorchDispatchMode):
     """``with CostCounter(args) as c: out = step(*args)``, then
     ``c.costs(out)``: the step's :class:`StepCosts`.  ``args`` are the
@@ -186,7 +192,9 @@ class CostCounter(TorchDispatchMode):
             return
         nbytes = st.nbytes()
         self._storages[key] = nbytes
-        weakref.finalize(st, self._free, key, nbytes)
+        # the finalizer holds the counter weakly: a strong hold would keep the
+        # counter, its arguments and so these very storages alive for good
+        weakref.finalize(st, _freed, weakref.ref(self), key, nbytes)
         self.live += nbytes
         self.peak = max(self.peak, self.live)
 

@@ -4,9 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out experiments/dryrun_torch]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --smoke
 
-The port's counterpart of ``repro/launch/dryrun.py``.  The reference
-lowers and compiles each cell for a TPU mesh and reads its cost from the
-HLO; here each cell's step (``launch/steps.py``: the train step with
+The port's counterpart of ``repro/launch/dryrun.py``, at world size 1
+(a count per device on the production meshes, with its collective term,
+is ROADMAP.md Queue 1 item 8c).  The reference lowers and compiles each
+cell for a TPU mesh and reads its cost from the HLO; here each cell's step (``launch/steps.py``: the train step with
 AdamW's state, the prefill step or the decode step) runs once on the
 ``meta`` inputs of ``Model.input_specs`` and ``Model.abstract_params``
 under the cost counter (``launch/cost_analysis.py``): nothing is

@@ -1,14 +1,25 @@
-"""The card's constants for the roofline.
+"""Mesh builders and the card's constants for the roofline.
 
-Counterpart of ``repro/launch/mesh.py``'s ``HW`` (the reference's are a
-TPU v5e's).  Its mesh builders, ``make_mesh`` and
-``make_production_mesh``, come with the sharding item (ROADMAP.md, Queue
-1 item 8b): at world size 1 there is no mesh.
+Counterpart of ``repro/launch/mesh.py``.  ``make_mesh`` builds a
+``torch.distributed`` ``DeviceMesh`` over the process group the caller
+initialised (one process per rank; nothing here starts a group);
+``make_production_mesh`` gives the reference's 16x16 and 2x16x16 meshes,
+as an ``AbstractMesh`` (shape and axis names) unless the world is that
+size, so the spec functions of ``repro_torch.sharding`` can lay out the
+production meshes on one process.  ``HW`` holds the H100's constants where
+the reference's are a TPU v5e's.
 """
 
 from __future__ import annotations
 
-__all__ = ["HW"]
+import math
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding import AbstractMesh
+
+__all__ = ["make_production_mesh", "make_mesh", "HW"]
 
 
 class HW:
@@ -22,3 +33,38 @@ class HW:
     PEAK_BF16_FLOPS = 989e12      # FLOP/s, bf16 on the tensor cores, dense
     PEAK_F32_FLOPS = 67e12        # FLOP/s, f32 on the CUDA cores
     HBM_BW = 3.35e12              # B/s
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
+              device: torch.device | str | None = None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the initialised
+    process group, on ``cuda`` unless ``device`` says ``cpu`` (the tests'
+    ``gloo`` ranks).  Raises if no group is initialised, if the mesh's size
+    is not the world size, or if ``cuda`` is asked for with no card."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialised process group: call "
+                           "torch.distributed.init_process_group first")
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    if math.prod(shape) != dist.get_world_size():
+        raise ValueError(f"a mesh of {shape} holds {math.prod(shape)} ranks; the world has "
+                         f"{dist.get_world_size()}")
+    kind = torch.device("cuda" if device is None else device).type
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' for a CPU mesh")
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16x16 ``("data", "model")``, or 2x16x16 ``("pod", "data", "model")``:
+    the ``DeviceMesh`` where the initialised world has that many ranks,
+    else the ``AbstractMesh`` of that shape."""
+    shape, axes = ((2, 16, 16), ("pod", "data", "model")) if multi_pod else \
+        ((16, 16), ("data", "model"))
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() == math.prod(shape):
+        return make_mesh(shape, axes)
+    return AbstractMesh(shape, axes)

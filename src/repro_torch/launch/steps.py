@@ -1,11 +1,13 @@
-"""The step builders for train, prefill and decode.
+"""Step builders and sharding assignments for train, prefill and decode.
 
-Counterpart of ``repro/launch/steps.py``'s ``make_train_step``,
-``make_prefill_step`` and ``make_decode_step``; its sharding helpers
-(partition specs, shardings for a mesh) wait for the trainer's mesh
-(ROADMAP.md, Queue 1 item 8b).  Each builder returns a plain function of
-tensors, run as it is on the card, the CPU or ``meta`` (the dry run,
-``launch/dryrun.py``).
+Counterpart of ``repro/launch/steps.py``.  ``shardings_for`` turns spec
+trees into ``NamedSharding``s: params by their names' rules
+(``sharding.param_partition_specs``), caches by ``_CACHE_AXES``, batches
+by the batch convention; ``decode_rules`` and ``train_rules`` are the
+reference's per-arch overrides.  Each ``make_*_step`` returns a plain
+function of tensors, run as it is on the card, the CPU or ``meta`` (the
+dry run, ``launch/dryrun.py``); under a mesh its tensors are the rank's
+blocks (``repro_torch.sharding``).
 """
 
 from __future__ import annotations
@@ -13,8 +15,93 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import tree_items, tree_map
+from repro_torch.sharding import MeshContext, NamedSharding, logical_to_spec, mesh_shape
+from repro_torch.sharding.partition import _named, map_specs
 
-__all__ = ["make_train_step", "make_prefill_step", "make_decode_step"]
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step", "shardings_for",
+           "batch_specs", "cache_partition_specs", "decode_rules", "train_rules"]
+
+
+# ---------------------------------------------------------------------------
+# sharding assignment
+# ---------------------------------------------------------------------------
+
+_CACHE_AXES: dict[tuple[str, int], tuple[str | None, ...]] = {
+    # KV caches (contiguous): rank 5 = (L, B, S, KV, hd); rank 6 adds a group dim
+    ("k", 5): ("layers", "batch", "kv_seq", "kv_heads", None),
+    ("v", 5): ("layers", "batch", "kv_seq", "kv_heads", None),
+    ("k", 6): ("layers", "layers", "batch", "kv_seq", "kv_heads", None),
+    ("v", 6): ("layers", "layers", "batch", "kv_seq", "kv_heads", None),
+    ("ck", 5): ("layers", "batch", None, "kv_heads", None),
+    ("cv", 5): ("layers", "batch", None, "kv_heads", None),
+    # mamba states
+    ("ssm", 6): ("layers", "layers", "batch", "heads", "state", None),
+    ("conv", 5): ("layers", "layers", "batch", None, "mlp"),
+    # mlstm states
+    ("C", 6): ("layers", "layers", "batch", "heads", None, None),
+    ("n", 5): ("layers", "layers", "batch", "heads", None),
+    ("m", 4): ("layers", "layers", "batch", "heads"),
+    # slstm states
+    ("h", 3): ("layers", "batch", None),
+    ("c", 3): ("layers", "batch", None),
+    ("n", 3): ("layers", "batch", None),
+    ("m", 3): ("layers", "batch", None),
+    ("len", 1): ("batch",),
+}
+
+
+def cache_partition_specs(abstract_cache, ctx: MeshContext):
+    """Tree of ``P`` for a cache tree (``Model.abstract_cache``), by each
+    leaf's name and rank; a leaf the table does not name replicates."""
+    return _named(lambda name, _, leaf: logical_to_spec(
+        _CACHE_AXES.get((name, leaf.dim()), (None,) * leaf.dim()), tuple(leaf.shape), ctx),
+        abstract_cache)
+
+
+def batch_specs(cfg, batch_abstract, ctx: MeshContext):
+    """Tree of ``P`` for a batch: every leaf split over ``batch`` on its
+    first dim (tokens, frames, vision embeddings alike)."""
+    return _named(lambda _, __, leaf: logical_to_spec(
+        ("batch",) + (None,) * (leaf.dim() - 1), tuple(leaf.shape), ctx), batch_abstract)
+
+
+def shardings_for(spec_tree, mesh):
+    """The tree of ``NamedSharding(mesh, spec)`` for a tree of specs."""
+    return map_specs(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def decode_rules(cfg, mesh) -> dict:
+    """Per-arch rule overrides for serving (prefill + decode), the
+    reference's:
+
+    * KV heads that cannot tile the model axis: shard the cache's sequence
+      dim instead (flash-decoding style);
+    * no FSDP ``embed`` sharding (serving keeps no optimizer state, and an
+      all-gather of every weight each step is what it would cost);
+    * MoE: each expert's FFN column-split over ``data`` (``expert_ff``).
+    """
+    rules: dict = {"embed": ()}
+    tp = mesh_shape(mesh).get("model", 1)
+    if cfg.num_kv_heads % tp != 0:
+        rules["kv_seq"] = ("model",)
+        rules["kv_heads"] = ()
+    if cfg.num_experts:
+        rules["expert_ff"] = ("data",)
+    if cfg.seq_shard_activations:
+        rules["res_seq"] = ("model",)
+    return rules
+
+
+def train_rules(cfg, mesh) -> dict:
+    rules: dict = {}
+    if cfg.seq_shard_activations:
+        rules["res_seq"] = ("model",)
+    return rules
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
 
 
 def make_train_step(model, opt):

@@ -1,7 +1,6 @@
 """Training loop: zero-copy data plane + checkpoint/restart + stragglers.
 
-Counterpart of ``repro/runtime/trainer.py`` at world size 1 (no mesh:
-that waits for ROADMAP.md, Queue 1 item 8)::
+Counterpart of ``repro/runtime/trainer.py`` at world size 1::
 
     ZeroCopyPipeline (separate process, agnocast topics)
         └─▶ Trainer.step: tokens to the device → train_step (state in place)
@@ -12,6 +11,18 @@ It runs on the model's device: ``cuda`` unless the ``Model`` was built
 with ``device="cpu"``.  ``Trainer.run`` restores the latest checkpoint in
 ``ckpt_dir`` if one exists (params, optimizer state, data cursor) and
 continues from the next step.
+
+With a ``mesh`` (``launch.mesh.make_mesh``; ``rules`` override
+``launch.steps.train_rules``) the state is laid out by
+``sharding.param_partition_specs`` (the optimizer's trees as the params,
+the step replicated), the restore keeps each leaf's block of those
+shardings (``Checkpointer.restore(shardings=...)``, so a checkpoint saved
+on another mesh, or without one, restores onto it), and the step runs
+under ``sharding.use_mesh``.  Only a mesh whose every axis is 1 runs: a
+rank then holds every block whole and the run equals the run without a
+mesh.  Data, tensor and pod parallelism (grads reduced across ranks,
+layers split over ``model``, a save of blocks) are ROADMAP.md Queue 1
+item 8c; a larger mesh raises rather than run a wrong step.
 
 The data cursor: the in-process pipeline's is its document cursor and the
 packer's buffer, as in the reference.  The zero-copy data plane is
@@ -35,9 +46,11 @@ import torch
 from repro_torch.checkpoint import Checkpointer, latest_step
 from repro_torch.data import BatchSpec, InProcessPipeline
 from repro_torch.data.ordered import OrderedZeroCopyPipeline
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import make_train_step, shardings_for, train_rules
+from repro_torch.models.common import tree_map
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.runtime.fault_tolerance import StragglerMonitor
+from repro_torch.sharding import P, NamedSharding, mesh_shape, param_partition_specs, use_mesh
 
 __all__ = ["Trainer", "TrainerConfig"]
 
@@ -59,9 +72,19 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, model, tc: TrainerConfig):
+    def __init__(self, model, tc: TrainerConfig, *, mesh=None, rules: dict | None = None):
+        if mesh is not None:
+            split = {a: n for a, n in mesh_shape(mesh).items() if n > 1}
+            if split:
+                raise NotImplementedError(
+                    f"Trainer on a mesh with axes {split} larger than 1: data, tensor and pod "
+                    f"parallelism and a save of blocks are ROADMAP.md Queue 1 item 8c")
         self.model = model
         self.tc = tc
+        self.mesh = mesh
+        self.rules = {**(train_rules(model.cfg, mesh) if mesh is not None else {}),
+                      **(rules or {})}
+        self._state_sh = None
         self.opt = AdamW(lr=cosine_schedule(tc.lr, tc.warmup, tc.total_steps))
         self.ckpt = Checkpointer(tc.ckpt_dir, keep=tc.ckpt_keep)
         self.monitor = StragglerMonitor([0])
@@ -77,14 +100,26 @@ class Trainer:
 
     # -- setup -----------------------------------------------------------------
 
+    def _state_shardings(self) -> dict:
+        """The state's ``NamedSharding``s on the mesh: params, master, m and
+        v by the params' specs, the step replicated."""
+        with use_mesh(self.mesh, self.rules) as ctx:
+            psh = shardings_for(param_partition_specs(self.model.abstract_params(), ctx),
+                                self.mesh)
+        return {"params": psh, "master": psh, "m": psh, "v": psh,
+                "step": NamedSharding(self.mesh, P())}
+
     def _init_or_restore(self):
         spec = BatchSpec(self.tc.batch, self.tc.seq_len, self.model.cfg.vocab_size,
                          seed=self.tc.seed)
         self._state = self.opt.init(self.model.init(self.tc.seed))
+        if self.mesh is not None:
+            self._state_sh = self._state_shardings()
+            self._state = tree_map(lambda t, sh: sh.block(t), self._state, self._state_sh)
         dstate = None
         if latest_step(self.tc.ckpt_dir) is not None:
             # filled in place: one state on the card, not two
-            _, step, extra = self.ckpt.restore(self._state)
+            _, step, extra = self.ckpt.restore(self._state, shardings=self._state_sh)
             self.step_num = step
             dstate = extra.get("data_state", {"cursor": 0})
             cursor = {k: v for k, v in dstate.items() if k != "buf"}
@@ -115,7 +150,11 @@ class Trainer:
             t0 = time.monotonic()
             raw = self._next_batch()
             batch = {"tokens": torch.from_numpy(raw["tokens"]).to(dev)}
-            self._state, metrics = self._step_fn(self._state, batch)
+            if self.mesh is None:
+                self._state, metrics = self._step_fn(self._state, batch)
+            else:
+                with use_mesh(self.mesh, self.rules):
+                    self._state, metrics = self._step_fn(self._state, batch)
             loss = float(metrics["loss"])
             dt = time.monotonic() - t0
             self.monitor.record(0, dt)

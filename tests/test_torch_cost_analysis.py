@@ -136,6 +136,24 @@ def test_collectives_are_zero():
     assert c.flops > 0 and c.bytes > 0
 
 
+def test_a_count_lets_go_of_its_arguments_and_results():
+    """Once ``count`` returns, the step's inputs and outputs live only as
+    long as the caller holds them: the storages' finalizers hold the
+    counter weakly (a strong hold kept a counted train step's whole state
+    on the card until the process ended)."""
+    import gc
+    import weakref
+
+    x = torch.ones(64, 64)
+    out = []
+    c = count(lambda t: out.append(t @ t) or out[-1], x)
+    assert c.memory["argument_bytes"] == x.untyped_storage().nbytes()
+    refs = [weakref.ref(x), weakref.ref(out[0])]
+    del x, out
+    gc.collect()
+    assert [r() for r in refs] == [None, None]
+
+
 # ---------------------------------------------------------------------------
 # the kernel wrappers on meta
 # ---------------------------------------------------------------------------

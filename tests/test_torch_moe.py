@@ -4,10 +4,10 @@ properties ``tests/test_moe_dispatch.py`` pins on the reference, on the
 port.
 
 Tolerances: 3e-5 in f32 and 2e-2 in bf16 (``tests/test_kernels.py``);
-the routes themselves (top-k expert ids) must be equal.  The reference's
-mesh branches (``_moe_serving``, expert parallelism under ``shard_map``)
-have no counterpart in the port yet, so its trivial-mesh test is not
-mirrored."""
+the routes themselves (top-k expert ids) must be equal.  The mesh
+branches (``_moe_serving``, expert parallelism) are held against the
+reference in ``tests/test_torch_sharding.py``, on meshes of one rank and
+on spawned ranks."""
 
 import jax
 import jax.numpy as jnp
