@@ -8,7 +8,7 @@ dense, xLSTM, MoE and Zamba2 families; ``Model.prefill`` and
 ``decode_step`` for Whisper and mLLaMA, whose prefill takes frames or a
 vision input that no request carries; training through ``Trainer``,
 ``Model.loss`` and the backward kernels) on the GPU, never the JAX
-reference package, in thirty-one phases; any failed phase exits
+reference package, in thirty-two phases; any failed phase exits
 non-zero before the final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
@@ -89,7 +89,15 @@ non-zero before the final line:
    of one in-process server on the same weights, and every replica must
    report, through the metrics plane, a ``cuda`` device and launches of
    the fused norm, flash attention and decode attention (its counts zeroed
-   after its prewarm, so they count the fleet's requests only);
+   after its prewarm, so they count the fleet's requests only); each run
+   also rebuilds every request's serving flow from its trace rings
+   (``repro_torch.obs.flows``) and passes the fleet's flow gates
+   (``fleet.flow_failures``: one complete, monotonic flow a request with
+   no negative stage, the mean stage sum within 10% of the head's own
+   submit-to-complete time; with a replica killed, one complete flow a
+   request and truncated ones only for replayed requests), and logs each
+   stage's p50/p99 ms (head enqueue to flush, flush to the replica's
+   enqueue, replica enqueue to first chunk, the stream);
 9-14. full-width gemma-2b, llama3-8b and qwen3-8b, each in f32 (kernel
    path against plain path, as in 4) and in bf16 (served as in 5: 37, 65
    and 145 fused norms a call, qwen3's qk_norm included);
@@ -192,6 +200,24 @@ non-zero before the final line:
    the run without one, and its resume from a checkpoint saved without a
    mesh, restored through the state's shardings, within
    ``RESUME_LOSS_TOL``.
+
+32. the cross-host planes (``repro_torch.core.{transport,routing}``) on
+   the card's host, one process, no kernel: two port ``Domain``s (each its
+   own registry and arenas, standing in for two hosts), a port ``Router``
+   each on one port ``Bus``; (a) 30 ``POINT_CLOUD2`` messages at each of
+   4 KiB, 64 KiB, 1 MiB and 16 MiB (``benchmarks/fig14_routing.py``'s
+   ``PLANE_SIZES``) on each data plane (``serialized``, ``parts``,
+   ``attach`` in ``copy`` and ``ref`` mode), each delivered exactly once
+   with its bytes, no attach send falling back; publish-to-delivery
+   p50/p99 per plane and size and fig14's two shape ratios, logged, not
+   gated; (b) ``benchmarks/fig16_crosshost.py``'s churn on the attach
+   plane (40 messages of 64 KiB, two receiver-bridge kills and one
+   sender-bridge kill): lost 0, duplicates 0, every recovery in the bridge
+   counters; (c) three domains in a cycle of buses: each message once per
+   domain, none back in its origin; (d) (a)'s traced message flows,
+   rebuilt by ``FlowAggregator`` across the bridge hop (a ``bridge_out`` in
+   the sender's rings, a ``bridge_in`` in the receiver's), each hop's
+   latency logged.
 
 It prints a ``{"kernels": [...]}`` line (the backward kernels with
 ``"role": "backward"``) and ends with one JSON line
@@ -2114,10 +2140,18 @@ def phase_moe_layer(dev) -> None:
 FLEET_ARCH, FLEET_REPLICAS, FLEET_REQUESTS = "qwen2-1.5b", 2, 16
 
 
-def phase_fleet(dev) -> dict:
+# the serving flow's stages as phase 8 logs them
+FLEET_STAGE_NAMES = {
+    "enqueue_to_flush": "head enqueue -> flush",
+    "flush_to_replica": "flush -> replica enqueue (zero-copy hand-off, wait for its round)",
+    "replica_to_first_chunk": "replica enqueue -> first chunk (admission, prefill)",
+    "stream": "stream (decode)", "e2e": "end to end"}
+
+
+def phase_fleet(dev) -> tuple[dict, dict]:
     """Two fleet runs (no fault, then one replica killed) against one
     in-process server; returns the first run's launches summed over the
-    replicas."""
+    replicas, and each run's serving stages (ms)."""
     from repro_torch.launch import fleet
     from repro_torch.serving.replica import model_config
 
@@ -2131,7 +2165,7 @@ def phase_fleet(dev) -> dict:
     want = fleet.serve_in_process(model_kwargs, prompts, max_new=MAX_NEW, slots=SLOTS,
                                   max_seq=MAX_SEQ)
     log(f"fleet: in-process server, {len(want)} requests, in {time.monotonic() - t0:.1f} s")
-    launches = None
+    launches, stages = None, {}
     for kill in (False, True):
         what = "kill-one run" if kill else "run"
         out = fleet.run(arch=FLEET_ARCH, size="full", replicas=FLEET_REPLICAS,
@@ -2171,10 +2205,24 @@ def phase_fleet(dev) -> dict:
         for shard, m in sorted(metrics.items()):
             log(f"fleet {what}: replica {shard} on {m['device']}: launches {m['launches']}, "
                 f"peak device memory {m['peak_mem_bytes'] / 2**30:.3f} GiB")
+        fl = out["flows"]
+        faults = fleet.flow_failures(fl, kill_one=kill)
+        if faults:
+            fail(f"fleet {what}: flow gates: " + "; ".join(faults))
+        log(f"fleet {what}: serving flows from the trace rings: {fl['complete']} complete, "
+            f"{fl['truncated']} truncated (replayed requests {fl['replayed']}); mean stage sum "
+            f"{1e3 * fl['stage_sum_mean_s']:.3f} ms against the head's submit-to-complete "
+            f"{1e3 * fl['head_mean_s']:.3f} ms (off by {fl['stage_sum_vs_head']:.4f}); flow "
+            f"gates pass")
+        log(f"fleet {what}: serving stages p50/p99/max ms: " + "; ".join(
+            f"{FLEET_STAGE_NAMES.get(k, k)} {1e3 * v['p50']:.3f}/{1e3 * v['p99']:.3f}/"
+            f"{1e3 * v['max']:.3f} (n {v['n']})" for k, v in fl["stats"].items()))
+        stages[what] = {k: {q: v[q] * 1e3 for q in ("p50", "p99", "max")} | {"n": v["n"]}
+                        for k, v in fl["stats"].items()}
         if launches is None:
             launches = {n: sum(m["launches"].get(n, 0) for m in metrics.values())
                         for n in names}
-    return launches
+    return launches, stages
 
 
 # the CUDA kernels each wrapper launches, by name as the profiler shows them
@@ -3711,6 +3759,429 @@ def phase_mesh(dev, card: str) -> dict:
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the cross-host planes
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig14_routing.py:65-67 (the data-plane sweep, messages a point)
+PLANE_SIZES = {"4KB": 4 << 10, "64KB": 64 << 10, "1MB": 1 << 20, "16MB": 16 << 20}
+PLANE_MSGS = 30
+DATA_PLANES = (("serialized", "ref"), ("parts", "ref"), ("attach", "copy"), ("attach", "ref"))
+XHOST_TOPIC = "xhost/pc2"
+# benchmarks/fig16_crosshost.py:29-32 (the churn run: messages, bytes, pin lease)
+CHURN_MSGS, CHURN_BYTES, CHURN_LEASE_S = 40, 64 << 10, 0.6
+CYCLE_MSGS = 8
+PLANES_TRACE_CAP = 1 << 16     # records a trace ring keeps: (a) writes about 1,500 a domain
+PLANES_WAIT_S = 30.0           # a wait that outlasts this fails the phase
+
+
+def plane_label(plane: str, mode: str) -> str:
+    return f"attach-{mode}" if plane == "attach" else plane
+
+
+def pctl_ms(xs: list) -> dict:
+    """p50/p99/max of seconds ``xs``, in ms (the reference's fig14 rule)."""
+    a = sorted(xs)
+    return {"n": len(a), "p50": 1e3 * a[len(a) // 2],
+            "p99": 1e3 * a[min(len(a) - 1, int(len(a) * 0.99))], "max": 1e3 * a[-1]}
+
+
+def wait_for(cond, what: str, spin, timeout: float = PLANES_WAIT_S) -> None:
+    """Call ``spin()`` until ``cond()``; fail the phase after ``timeout`` s."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"phase 32: no {what} within {timeout} s")
+        spin()
+
+
+def settle(bridges, spin, idle: int = 20) -> None:
+    """Spin until no bridge holds an unsettled attach send or a parked
+    copy-in and ``idle`` rounds in a row moved nothing (a duplicate still
+    on the bus would move)."""
+    deadline, still = time.monotonic() + PLANES_WAIT_S, 0
+    while still < idle:
+        if time.monotonic() > deadline:
+            fail(f"phase 32: the bridges did not settle within {PLANES_WAIT_S} s: "
+                 f"{[b.stats() for b in bridges]}")
+        moved = spin()
+        busy = any(b._awaiting or b._pending for b in bridges)
+        still = 0 if moved or busy else still + 1
+
+
+def crossed_flows(names: list) -> list:
+    """The message flows of domains ``names`` merged by trace id: a relayed
+    message's flow has its publish, take and ``bridge_out`` in the sender's
+    rings and its ``route``, ``bridge_in`` and delivery in the receiver's."""
+    from repro_torch.obs.flows import Flow, FlowAggregator
+
+    by_tid = {}
+    for name in names:
+        agg = FlowAggregator(name)
+        for f in agg.collect():
+            if not f.serving:
+                by_tid.setdefault(f.trace_id, []).extend(f.records)
+        agg.close()
+    return [Flow(tid, sorted(recs, key=lambda r: (r[1], r[2], r[3])))
+            for tid, recs in by_tid.items()]
+
+
+def plane_pair(plane: str, mode: str, base) -> dict:
+    """(a) and (d) on one data plane: two traced domains, a router each on
+    one bus, ``PLANE_MSGS`` messages at each of ``PLANE_SIZES`` paced one at
+    a time through one executor; each delivered exactly once with its
+    bytes, no attach send falling back; publish-to-delivery by size; then
+    the flows across the bridge hop."""
+    import numpy as np
+
+    from repro_torch.core import (POINT_CLOUD2, AgnocastQueueFull, Bus, Domain, EventExecutor,
+                                  OutOfArenaMemory, Router)
+    from repro_torch.core.transport import SubscriptionProbe
+    from repro_torch.launch.fleet import _rings_overflowed
+    from repro_torch.obs import trace as _trace
+
+    label = plane_label(plane, mode)
+    cap = (max(PLANE_SIZES.values()) + (1 << 20)) * 6
+    bus = Bus().start()
+    doms = [Domain.create(arena_capacity=cap) for _ in range(2)]
+    routers, ex = [], None
+    sizes, seen, bad, lat = {}, {}, [], {k: [] for k in PLANE_SIZES}
+    try:
+        for dom in doms:
+            r = Router(dom, data_plane=plane, attach_mode=mode, pin_lease_s=5.0)
+            r.add_remote("link", bus.path, depth=4)
+            r.add_route("xhost/", "link")
+            r.activate(POINT_CLOUD2, XHOST_TOPIC)
+            routers.append(r)
+        probe = SubscriptionProbe(bus.path)
+        for r in routers:
+            probe.wait(r.bridges["link"].bus)
+        probe.close()
+        ba, bb = (r.bridges["link"] for r in routers)
+        pub = doms[0].create_publisher(POINT_CLOUD2, XHOST_TOPIC, depth=4)
+        sub = doms[1].create_subscription(POINT_CLOUD2, XHOST_TOPIC)
+
+        def on_msg(ptr):
+            t = time.monotonic()
+            i = int(ptr.msg.get("width"))
+            key, n = sizes[i]
+            lat[key].append(t - float(ptr.msg.get("stamp")))
+            seen[i] = seen.get(i, 0) + 1
+            data = np.asarray(ptr.data)
+            if data.size != n or int(data[:8].view(np.uint64)[0]) != i or \
+                    not np.array_equal(data[8:], base[8:n]):
+                bad.append(i)
+
+        ex = EventExecutor(name=f"phase32-{label}")
+        ex.add_subscription(sub, on_msg)
+        for r in routers:
+            r.register(ex)
+
+        def send(i: int, n: int) -> None:
+            pl = base[:n].copy()
+            pl[:8] = np.array([i], np.uint64).view(np.uint8)
+            deadline, msg = time.monotonic() + PLANES_WAIT_S, None
+            while True:
+                if time.monotonic() > deadline:
+                    fail(f"phase 32 {label}: message {i} not published within {PLANES_WAIT_S} s")
+                if msg is None:
+                    try:
+                        m = pub.borrow_loaded_message()
+                        try:
+                            m.data.extend(pl)
+                        except OutOfArenaMemory:
+                            m.dealloc()
+                            raise
+                        msg = m
+                    except OutOfArenaMemory:    # pinned entries still hold the arena
+                        pub.reclaim()
+                        ex.spin_once(0.02)
+                        continue
+                msg.set("width", i)
+                msg.set("stamp", time.monotonic())
+                pub.reclaim()
+                try:
+                    pub.publish(msg)            # a full ring leaves the loan valid
+                    return
+                except AgnocastQueueFull:
+                    ex.spin_once(0.02)
+
+        i = 0
+        for key, n in PLANE_SIZES.items():
+            for _ in range(PLANE_MSGS):
+                sizes[i] = (key, n)
+                send(i, n)
+                want = i + 1
+                ex.spin(until=lambda: sum(seen.values()) >= want, timeout=PLANES_WAIT_S)
+                if sum(seen.values()) < want:
+                    fail(f"phase 32 {label}: message {i} ({key}) not delivered within "
+                         f"{PLANES_WAIT_S} s; bridges {ba.stats()} {bb.stats()}")
+                i += 1
+        # pumped directly too: in ref mode the last acks wait on the receiver
+        # reclaiming its republications, which a quiet bus never prompts
+        settle([ba, bb], lambda: ex.spin_once(0.002) + sum(r.spin_once(0.0) for r in routers))
+        extra = {k: v for k, v in seen.items() if v != 1}
+        if len(seen) != i or extra or bad:
+            fail(f"phase 32 {label}: {len(seen)}/{i} messages delivered, not once: {extra}, "
+                 f"bytes differ: {bad}")
+        st = {"sender": ba.stats(), "receiver": bb.stats()}
+        if ba.relayed_out != i or bb.dropped_dups or bb.copy_errors:
+            fail(f"phase 32 {label}: bridges {st}")
+        if plane == "attach" and (ba.attach_out != i or bb.attach_in != i or ba.attach_fallbacks
+                                  or ba.ack_timeouts or bb.attach_nacks):
+            fail(f"phase 32 {label}: an attach send fell back or was refused: {st}")
+    finally:
+        if ex is not None:
+            ex.shutdown()
+        for r in routers:
+            r.close()
+    names = [d.name for d in doms]
+    try:
+        over = {}
+        for name in names:
+            over.update(_rings_overflowed(name))
+        if over:
+            fail(f"phase 32 {label}: trace rings wrapped (written, kept): {over}")
+        S = _trace.Stage
+        hop, out_ms, in_ms, e2e = [], [], [], []
+        for f in crossed_flows(names):
+            pub_r, out_r, in_r = f.first(S.PUBLISH, 0), f.first(S.BRIDGE_OUT), f.first(S.BRIDGE_IN)
+            cb = f.first(S.CB_START, 1)
+            if None in (pub_r, out_r, in_r, cb):
+                continue
+            if not pub_r[1] <= out_r[1] <= in_r[1] <= cb[1] or out_r[2] != 1 or in_r[2] != 1:
+                fail(f"phase 32 {label}: flow {f.trace_id:#x} out of order: {f.stage_times()}")
+            hop.append((in_r[1] - out_r[1]) / 1e9)
+            out_ms.append((out_r[1] - pub_r[1]) / 1e9)
+            in_ms.append((cb[1] - in_r[1]) / 1e9)
+            e2e.append((cb[1] - pub_r[1]) / 1e9)
+        if len(hop) != i:
+            fail(f"phase 32 {label}: {len(hop)} flows cross the bridge hop with bridge_out and "
+                 f"bridge_in, {i} messages were relayed")
+    finally:
+        for d in doms:
+            d.close()
+        for name in names:
+            tr = _trace._tracers.pop(name, None)
+            if tr is not None:
+                tr.close()
+            _trace.purge(name)
+        bus.stop()
+    by_size = {k: pctl_ms(v) for k, v in lat.items()}
+    log(f"phase 32 (a) {label}: {i} messages, each delivered once with its bytes; "
+        f"publish-to-delivery p50/p99 ms: " + ", ".join(
+            f"{k} {v['p50']:.3f}/{v['p99']:.3f}" for k, v in by_size.items())
+        + f"; bridges: out {st['sender']}, in {st['receiver']}")
+    flows = {"bridge_hop": pctl_ms(hop), "publish_to_bridge_out": pctl_ms(out_ms),
+             "bridge_in_to_callback": pctl_ms(in_ms), "e2e": pctl_ms(e2e)}
+    log(f"phase 32 (d) {label}: {len(hop)} traced flows across the bridge hop; p50/p99 ms: "
+        + ", ".join(f"{k} {v['p50']:.3f}/{v['p99']:.3f}" for k, v in flows.items()))
+    return {"by_size_ms": by_size, "flows_ms": flows}
+
+
+def plane_churn() -> dict:
+    """(b) ``benchmarks/fig16_crosshost.py``'s protocol on the port: two
+    domains on the attach plane (``copy`` mode, a 0.6 s pin lease), 40
+    messages of 64 KiB; the receiving bridge killed with a control frame
+    unread at 1/4 and 3/4 (the sender's ack timeout re-sends it by value to
+    the replacement), the sending bridge killed before it reads an ack at
+    1/2 (its close re-sends by value; the receiver's dedup drops it)."""
+    import numpy as np
+
+    from repro_torch.core import POINT_CLOUD2, Bus, Domain, Router
+    from repro_torch.core.transport import SubscriptionProbe
+
+    bus = Bus().start()
+    probe = SubscriptionProbe(bus.path)
+    doms = [Domain.create(arena_capacity=64 << 20) for _ in range(2)]
+    routers = []
+
+    def mk(dom):
+        r = Router(dom, data_plane="attach", attach_mode="copy", pin_lease_s=CHURN_LEASE_S)
+        r.add_remote("link", bus.path, depth=8)
+        r.add_route("xhost/", "link")
+        r.activate(POINT_CLOUD2, XHOST_TOPIC)
+        probe.wait(r.bridges["link"].bus)
+        routers.append(r)
+        return r
+
+    counters = {"fallbacks": 0, "ack_timeouts": 0, "unresolved_at_close": 0}
+
+    def respawn(router):
+        old = router.bridges.pop("link")
+        counters["fallbacks"] += old.attach_fallbacks
+        counters["ack_timeouts"] += old.ack_timeouts
+        counters["unresolved_at_close"] += sum(1 for aw in old._awaiting.values()
+                                               if aw.need is None or aw.acks < aw.need)
+        old.close()                      # a sender flushes its unresolved sends by value
+        br = router.add_remote("link", bus.path, depth=8)
+        br.attach(POINT_CLOUD2, XHOST_TOPIC)
+        probe.wait(br.bus)
+
+    try:
+        ra, rb = mk(doms[0]), mk(doms[1])
+        pub = doms[0].create_publisher(POINT_CLOUD2, XHOST_TOPIC, depth=8)
+        sub = doms[1].create_subscription(POINT_CLOUD2, XHOST_TOPIC)
+        payload = (np.arange(CHURN_BYTES, dtype=np.uint8) % 251)
+        got, lat = [], []
+        kill_recv, kill_send = {CHURN_MSGS // 4, (3 * CHURN_MSGS) // 4}, {CHURN_MSGS // 2}
+        kills = {"recv": 0, "send": 0}
+
+        def take():
+            for ptr in sub.take():
+                got.append(int(np.asarray(ptr.data)[0]))
+                lat.append(time.monotonic() - float(ptr.msg.get("stamp")))
+                ptr.release()
+
+        for i in range(CHURN_MSGS):
+            m = pub.borrow_loaded_message()
+            pl = payload.copy()
+            pl[0] = (i + 1) % 251            # the value byte names the message
+            m.data.extend(pl)
+            m.set("stamp", time.monotonic())
+            pub.reclaim()
+            pub.publish_blocking(m, timeout=10.0)
+            if i in kill_recv:
+                # the control frame is out and its FANOUT receipt back: it sits
+                # unread in the doomed receiving bridge's socket
+                br = ra.bridges["link"]
+                sent = br.attach_out
+                wait_for(lambda: br.attach_out > sent and all(aw.need is not None
+                                                              for aw in br._awaiting.values()),
+                         f"FANOUT receipt before receiver kill at {i}", lambda: ra.spin_once(0.01))
+                respawn(rb)
+                kills["recv"] += 1
+            elif i in kill_send:
+                ra.spin_once(0.01)           # the control frame out; the ack stays unread
+                wait_for(lambda: len(got) > i, f"delivery before sender kill at {i}",
+                         lambda: (rb.spin_once(0.02), take()))
+                respawn(ra)
+                kills["send"] += 1
+            wait_for(lambda: len(got) > i, f"churn message {i}",
+                     lambda: (ra.spin_once(0.02), rb.spin_once(0.02), take()))
+        settle([ra.bridges["link"], rb.bridges["link"]],
+               lambda: ra.spin_once(0.002) + rb.spin_once(0.002) + (take() or 0))
+        take()
+        counters["fallbacks"] += ra.bridges["link"].attach_fallbacks
+        counters["ack_timeouts"] += ra.bridges["link"].ack_timeouts
+    finally:
+        for r in routers:
+            r.close()
+        for d in doms:
+            d.close()
+        probe.close()
+        bus.stop()
+    want = [(i + 1) % 251 for i in range(CHURN_MSGS)]
+    lost = [v for v in want if v not in got]
+    dups = len(got) - len(set(got))
+    if lost or dups or kills != {"recv": 2, "send": 1} or \
+            counters["fallbacks"] < kills["recv"] or \
+            counters["unresolved_at_close"] < kills["send"]:
+        fail(f"phase 32 (b): lost {lost}, duplicates {dups}, kills {kills}, counters {counters}")
+    out = {"delivered": len(got), "lost": 0, "duplicates": 0, "kills": kills,
+           "counters": counters, "latency_ms": pctl_ms(lat)}
+    log(f"phase 32 (b) churn: {CHURN_MSGS} messages of {CHURN_BYTES >> 10} KiB on the attach "
+        f"plane (copy, lease {CHURN_LEASE_S} s), kills {kills}: lost 0, duplicates 0; recovery "
+        f"counters {counters}; publish-to-take p50/p99 ms {out['latency_ms']['p50']:.3f}/"
+        f"{out['latency_ms']['p99']:.3f}")
+    return out
+
+
+def plane_cycle() -> dict:
+    """(c) Three domains on a cycle of buses (A-B, B-C, C-A): each message
+    from A reaches every domain's subscriber once (A's own once: no copy
+    returns), and the loop prevention fired (copies back at the origin
+    dropped, second-path copies deduplicated)."""
+    import numpy as np
+
+    from repro_torch.core import POINT_CLOUD2, Bus, Domain, Router
+    from repro_torch.core.transport import SubscriptionProbe
+
+    links = {"A": ("ab", "ca"), "B": ("ab", "bc"), "C": ("bc", "ca")}
+    buses = {n: Bus().start() for n in ("ab", "bc", "ca")}
+    doms = {k: Domain.create(arena_capacity=16 << 20) for k in links}
+    routers = {}
+    try:
+        for k, dom in doms.items():
+            r = Router(dom)
+            for name in links[k]:
+                r.add_remote(name, buses[name].path, depth=8)
+                r.add_route("xhost/", name)
+            r.activate(POINT_CLOUD2, XHOST_TOPIC)
+            routers[k] = r
+        for name, bus in buses.items():
+            probe = SubscriptionProbe(bus.path)
+            for k in links:
+                if name in links[k]:
+                    probe.wait(routers[k].bridges[name].bus)
+            probe.close()
+        subs = {k: d.create_subscription(POINT_CLOUD2, XHOST_TOPIC) for k, d in doms.items()}
+        pub = doms["A"].create_publisher(POINT_CLOUD2, XHOST_TOPIC, depth=8)
+        got = {k: [] for k in doms}
+
+        def spin():
+            moved = sum(r.spin_once(0.002) for r in routers.values())
+            for k, sub in subs.items():
+                for ptr in sub.take():
+                    got[k].append(int(np.asarray(ptr.data)[0]))
+                    ptr.release()
+                    moved += 1
+            return moved
+
+        for i in range(CYCLE_MSGS):
+            m = pub.borrow_loaded_message()
+            m.data.extend(np.full(64 << 10, i, np.uint8))
+            m.set("stamp", time.monotonic())
+            pub.reclaim()
+            pub.publish_blocking(m, timeout=10.0)
+            wait_for(lambda: all(len(v) > i for v in got.values()), f"cycle message {i}", spin)
+        settle([b for r in routers.values() for b in r.bridges.values()], spin)
+        drops = {k: sum(b.dropped_loops for b in r.bridges.values()) for k, r in routers.items()}
+        dups = sum(b.dropped_dups for r in routers.values() for b in r.bridges.values())
+    finally:
+        for r in routers.values():
+            r.close()
+        for d in doms.values():
+            d.close()
+        for b in buses.values():
+            b.stop()
+    if any(sorted(v) != list(range(CYCLE_MSGS)) for v in got.values()) or \
+            not drops["A"] or not dups:
+        fail(f"phase 32 (c): delivered {got}, loop drops {drops}, deduplicated {dups}")
+    log(f"phase 32 (c) cycle of 3 domains: {CYCLE_MSGS} messages from A, each once in A, B and "
+        f"C; copies dropped back at their origin {drops}, second-path copies deduplicated {dups}")
+    return {"messages": CYCLE_MSGS, "loop_drops": drops, "dedup_drops": dups}
+
+
+def phase_planes(card: str) -> dict:
+    """Phase 32 (see the module docstring): (a) and (d) on each data plane,
+    traced, then (b) and (c); runs on the host and launches no kernel."""
+    import os
+
+    import numpy as np
+
+    env = {k: os.environ.get(k) for k in ("AGNOCAST_TRACE", "AGNOCAST_TRACE_CAP")}
+    os.environ.update(AGNOCAST_TRACE="1", AGNOCAST_TRACE_CAP=str(PLANES_TRACE_CAP))
+    base = (np.arange(max(PLANE_SIZES.values()), dtype=np.uint64) % 251).astype(np.uint8)
+    try:
+        planes = {plane_label(p, m): plane_pair(p, m, base) for p, m in DATA_PLANES}
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    big, small = list(PLANE_SIZES)[-1], list(PLANE_SIZES)[0]
+    ratios = {
+        "attach_ref_16MB_over_4KB": planes["attach-ref"]["by_size_ms"][big]["p50"]
+        / planes["attach-ref"]["by_size_ms"][small]["p50"],
+        "serialized_over_parts_16MB": planes["serialized"]["by_size_ms"][big]["p50"]
+        / planes["parts"]["by_size_ms"][big]["p50"]}
+    log(f"phase 32 (a) shape ratios of p50 ({card}; fig14 gates them at <= 2 and >= 1.5, "
+        f"logged here): " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()))
+    return {"planes": planes, "ratios": ratios, "churn": plane_churn(), "cycle": plane_cycle()}
+
+
 def finish_dryrun(dry: DryRun) -> None:
     """The dry run's grid: no cell ``error``, every skipped cell skipped for
     the reference's reason; its log, the roofline table and its wall time."""
@@ -3875,7 +4346,7 @@ def main() -> None:
 
     model_phases(("qwen2-1.5b", "xlstm-1.3b"), 4)
     t0 = time.monotonic()
-    launches[f"fleet {FLEET_ARCH}"] = phase_fleet(dev)
+    launches[f"fleet {FLEET_ARCH}"], fleet_stages = phase_fleet(dev)
     log(f"phase 8 (serving fleet, {FLEET_ARCH}) done in {time.monotonic() - t0:.1f} s")
     model_phases(SIBLINGS, 9)
     t0 = time.monotonic()
@@ -3926,6 +4397,10 @@ def main() -> None:
     mesh = phase_mesh(dev, card)
     log(f"phase 31 (the mesh at world size 1: MoE serving, hierarchical steps, the Trainer) done "
         f"in {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    planes = phase_planes(card)
+    log(f"phase 32 (the cross-host planes: data planes, churn, a cycle, flows across the "
+        f"bridge hop) done in {time.monotonic() - t0:.1f} s")
     log(f"all phases done in {time.monotonic() - T_START:.1f} s")
 
     kernels = []
@@ -3949,7 +4424,8 @@ def main() -> None:
                            if k in r}})
     print(json.dumps({"kernels": kernels, "train_step_ms": train["step_ms"],
                       "train_step_device_ms_by_group": train["groups_ms"],
-                      "xlstm_train": xtrain, "mesh": mesh}), flush=True)
+                      "xlstm_train": xtrain, "mesh": mesh, "fleet_stages_ms": fleet_stages,
+                      "planes": planes}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

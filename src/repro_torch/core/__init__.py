@@ -12,14 +12,20 @@
   ``create_subscription`` / ``borrow_loaded_message`` / move-``publish``;
 * :mod:`repro_torch.core.executor` — the epoll event loop over
   subscription wakeup FIFOs and timers, with callback groups;
+* :mod:`repro_torch.core.routing` — the federated routing plane:
+  longest-prefix ``RoutingTable``, per-remote-bus ``DomainBridge`` over
+  three data planes (``serialized``, ``parts``, ``attach``) and ``Router``
+  with origin-tag/route-id/hop-count loop prevention;
+  :mod:`repro_torch.core.bridge` keeps the single-topic ``Bridge`` name;
+* :mod:`repro_torch.core.transport` — the conventional planes the bridges
+  relay over (the serialized bus) and the shm ring baseline;
 * :mod:`repro_torch.core.device_arena` — the same lifetime discipline
   applied to device KV pages.
 
 Each module is a copy of the one of the same name in ``repro/core/``, not
 an import of it: the port imports nothing of ``repro``.  The layouts, magic
-numbers and shm names are the reference's, so the two packages share a
-domain.  The cross-host planes (``routing``, ``transport``, ``bridge``)
-are not copied yet.
+numbers, shm names and the bus's wire are the reference's, so the two
+packages share a domain and a bus.
 """
 
 from .arena import (AllocRef, Arena, ArenaAttachCache, ArenaError,
@@ -56,8 +62,17 @@ from .registry import (
     Registry,
     RegistryError,
 )
+from .routing import (
+    Bridge,
+    DomainBridge,
+    Router,
+    RoutingRule,
+    RoutingTable,
+    domain_tag,
+)
 from .smart_ptr import MessagePtr
 from .topic import Domain, Publisher, Subscription
+from .transport import Bus, BusClient, Frame, ShmRing
 
 __all__ = [
     "AllocRef", "Arena", "ArenaAttachCache", "ArenaError",
@@ -69,6 +84,9 @@ __all__ = [
     "Registry", "RegistryError", "AgnocastQueueFull", "Entry",
     "MAX_TOPICS", "MAX_PUBS", "MAX_SUBS", "DEPTH_MAX",
     "MessagePtr", "Domain", "Publisher", "Subscription",
+    "Bus", "BusClient", "Frame", "ShmRing",
+    "Bridge", "DomainBridge", "Router", "RoutingRule", "RoutingTable",
+    "domain_tag",
     "EventExecutor", "CallbackGroup",
     "MutuallyExclusiveCallbackGroup", "ReentrantCallbackGroup",
 ]

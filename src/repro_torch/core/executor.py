@@ -9,8 +9,8 @@ restores that layer:
 
 * one ``selectors``-based (epoll on Linux) event loop multiplexes any
   number of :class:`~repro_torch.core.topic.Subscription` wakeup FIFOs,
-  :class:`~repro.core.transport.BusClient` sockets, whole
-  :class:`~repro.core.routing.DomainBridge` instances (every endpoint FIFO
+  :class:`~repro_torch.core.transport.BusClient` sockets, whole
+  :class:`~repro_torch.core.routing.DomainBridge` instances (every endpoint FIFO
   + bus socket + any blocked publisher's slot-freed FIFO), blocked
   :class:`~repro_torch.core.topic.Publisher` wakeups (``add_publisher``), plus
   monotonic timers;
@@ -227,7 +227,7 @@ class _PublisherHandle(_Handle):
 
 
 class _BridgeHandle(_Handle):
-    """All planes of a :class:`repro.core.routing.DomainBridge` in one loop:
+    """All planes of a :class:`repro_torch.core.routing.DomainBridge` in one loop:
     every endpoint's wakeup FIFO, the bus socket, and — per endpoint whose
     copy-in is parked on ``AgnocastQueueFull`` — that topic's blocked-
     publisher slot-freed FIFO.  Parking is per topic: intake keeps running

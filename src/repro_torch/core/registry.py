@@ -92,7 +92,7 @@ empty — and only by the owning publisher.
 
 Two extensions ride on the same plane:
 
-* **Route metadata** (multi-domain federation, :mod:`repro.core.routing`):
+* **Route metadata** (multi-domain federation, :mod:`repro_torch.core.routing`):
   each entry carries ``hops`` / ``src_tag`` / ``route_seq`` so a message
   copied in from a remote agnocast domain keeps its origin identity.
 * **Owner-side backpressure wakeups**: every publisher owns a reverse
@@ -108,7 +108,7 @@ Two extensions ride on the same plane:
   (alive but stuck) replicas.
 
 Two more extensions serve the cross-host data plane (layout v5,
-:mod:`repro.core.routing`'s attach-by-name path):
+:mod:`repro_torch.core.routing`'s attach-by-name path):
 
 * **Cross-bridge pins with lease expiry**: a bridge that advertises an
   entry's payload *by reference* (arena name + offsets in a control

@@ -114,7 +114,7 @@ class MessagePtr:
     def pub_idx(self) -> int:
         return self._state.entry.pub_idx
 
-    # -- route metadata (multi-domain federation, repro.core.routing) -----------
+    # -- route metadata (multi-domain federation, repro_torch.core.routing) -----
 
     @property
     def hops(self) -> int:

@@ -194,7 +194,7 @@ class Publisher:
         """Move-publish: the loan is consumed (rvalue semantics, §VII-A).
 
         ``hops``/``src_tag``/``route_seq`` are route metadata for messages
-        relayed in from other agnocast domains (see :mod:`repro.core.routing`);
+        relayed in from other agnocast domains (see :mod:`repro_torch.core.routing`);
         locally originated messages leave them zero.  ``trace_id`` nonzero
         preserves an in-flight flow id across a bridge hop; zero mints a
         fresh one (when tracing is on).  The PUBLISH event is stamped at

@@ -19,10 +19,24 @@ A run reports each request's tokens, whether every rid completed exactly
 once with a stream of ``max_new`` tokens, the collector's duplicate, gap
 and superseded-chunk counts, aggregate tokens/s, client-side TTFT by
 prompt length, publish-to-take latency of each request message by its
-size (from the trace rings of ``repro_torch.obs.trace``), and each
-replica's kernel launches, device and peak device memory (from its
-metrics export).  ``--check`` also serves the same prompts with one
-in-process ``InferenceServer`` on the same weights and compares tokens.
+size, and each replica's kernel launches, device and peak device memory
+(from its metrics export).
+
+It also rebuilds every request's serving flow from the run's trace rings
+(``repro_torch.obs.flows.FlowAggregator``): the head router's
+``serve_enqueue`` and ``serve_flush`` (hop 0), the replica's
+``serve_enqueue`` (hop 1) and the collector's ``serve_reassemble`` per
+chunk (hop 2, the last one flagged eos).  Its stages, ``enqueue_to_flush``
+(the head's buffer), ``flush_to_replica`` (the zero-copy hand-off and the
+wait for the replica's next round), ``replica_to_first_chunk`` (admission
+and prefill) and ``stream`` (decode), telescope to the flow's
+end-to-end time, which the run holds against the head's own clock from
+submit to completion.  The rings keep ``TRACE_CAP`` records each; the run
+raises if one wrapped.
+
+``--check`` also serves the same prompts with one in-process
+``InferenceServer`` on the same weights and compares tokens, and applies
+the flow gates (:func:`flow_failures`).
 
 Without a card the run raises unless ``--device cpu`` is given.
 """
@@ -41,10 +55,12 @@ from repro_torch.core.executor import EventExecutor
 from repro_torch.core.topic import Domain
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
+from repro_torch.obs.flows import FlowAggregator
 from repro_torch.serving import ReplicaPool, ResultsCollector, ShardRouter
 from repro_torch.serving.replica import model_config
 
-__all__ = ["run", "serve_in_process", "fleet_requests", "exactly_once", "main"]
+__all__ = ["run", "serve_in_process", "fleet_requests", "exactly_once", "flow_report",
+           "flow_failures", "main"]
 
 PROMPT_MIN, PROMPT_MAX = 16, 384
 ROUND_PERIOD_S = 0.0005   # pause between a replica's rounds: each ends in a device sync
@@ -63,6 +79,16 @@ REQ_DEPTH = 32
 # not taken within RES_DEPTH rounds is dropped, and the gap it leaves in a
 # stream waits for the stall replay.  64 is the registry's largest ring.
 RES_DEPTH = 64
+# Records each trace ring keeps (a power of two).  A ring keeps only its newest
+# records, and a wrapped ring would show sound flows as truncated: a run of 16
+# requests writes a few thousand records a process, and the run raises if any
+# ring's write count passes this.
+TRACE_CAP = 1 << 16
+# The flows' mean stage sum against the head's mean submit-to-complete time
+# (the reference's fig18 STAGE_SUM_TOL).
+STAGE_SUM_TOL = 0.10
+# The serving stages, in causal order; they telescope to "e2e".
+SERVE_STAGES = ("enqueue_to_flush", "flush_to_replica", "replica_to_first_chunk", "stream")
 
 
 def fleet_requests(cfg, n: int, *, max_new: int, max_seq: int, seed: int):
@@ -104,26 +130,17 @@ def _request_bytes(n_tokens: int) -> int:
     return 4 * n_tokens + 4 + 8 + 4 + 8
 
 
-def _pub_take_us(dom_name: str, prompt_len_by_rid: dict) -> list:
+def _pub_take_us(records, prompt_len_by_rid: dict, head_pid: int) -> list:
     """``[message bytes, publish-to-take µs]`` for every ``SERVE_REQ``
-    message a replica took, from the trace rings: the head's ring holds
-    each message's ``publish`` record, the taking replica's ring its
-    ``take`` record under the same trace id, and between that message's
-    ``callback_start`` and ``callback_end`` one ``serve_enqueue`` record
-    per row (its rid)."""
-    pid = os.getpid()
-    records = []
-    for name in _trace.ring_names(dom_name):
-        try:
-            reader = _trace.TraceReader(name)
-        except (FileNotFoundError, ValueError):
-            continue
-        records.extend(reader.records())
-        reader.close()
+    message a replica took, from the run's trace records (``(trace_id, t_ns,
+    hop, stage, flags, arg, pid)``): the head's ring holds each message's
+    ``publish`` record, the taking replica's ring its ``take`` record under
+    the same trace id, and between that message's ``callback_start`` and
+    ``callback_end`` one ``serve_enqueue`` record per row (its rid)."""
     S = _trace.Stage
     published, taken, nbytes, rows = {}, {}, {}, {}
     for tid, t_ns, hop, stage, _, arg, rpid in sorted(records, key=lambda r: r[1]):
-        if rpid == pid:
+        if rpid == head_pid:
             if stage == S.PUBLISH and hop == 0:
                 published[tid] = t_ns
         elif stage == S.TAKE:
@@ -137,6 +154,114 @@ def _pub_take_us(dom_name: str, prompt_len_by_rid: dict) -> list:
                               for r in rows.pop(rpid))
     return sorted([nbytes[tid], (taken[tid] - t) / 1e3]
                   for tid, t in published.items() if tid in taken and tid in nbytes)
+
+
+def _rings_overflowed(dom_name: str) -> dict:
+    """``{ring: (records written, capacity)}`` for each of the domain's
+    trace rings whose writer wrote more records than the ring keeps."""
+    over = {}
+    for name in _trace.ring_names(dom_name):
+        try:
+            reader = _trace.TraceReader(name)
+        except (FileNotFoundError, ValueError):
+            continue
+        written = reader._head()
+        reader.close()
+        if written > reader.cap:
+            over[name] = (written, reader.cap)
+    return over
+
+
+def flow_report(flows, name_of: dict, submitted: dict, done: dict, replayed) -> dict:
+    """The run's serving flows by request (``name_of`` maps the router's rid
+    to the request's name; a flow is keyed by its hop-0 ``serve_enqueue``
+    record's arg, the rid's low 32 bits), the counts of complete and
+    truncated flows, ``breakdown_stats`` of the complete ones (seconds), and
+    the mean stage sum over the requests never replayed against the head's
+    mean time from before ``submit`` (``submitted``) to completion
+    (``done``, seconds on the monotonic clock)."""
+    S = _trace.Stage
+    low = {rid & 0xFFFF_FFFF: rid for rid in name_of}
+    by_rid, orphans = {}, []
+    for f in flows:
+        if not f.serving:
+            continue
+        enq = f.first(S.SERVE_ENQ, 0)
+        if enq is None or enq[5] not in low:
+            orphans.append(f.trace_id)
+            continue
+        by_rid.setdefault(low[enq[5]], []).append(f)
+    serving = [f for fs in by_rid.values() for f in fs]
+    complete = [f for f in serving if f.complete]
+    sums, heads = [], []
+    for rid, fs in by_rid.items():
+        if rid in replayed or rid not in done or len(fs) != 1 or not fs[0].complete:
+            continue
+        bd = fs[0].breakdown()
+        sums.append(sum(bd.get(k, 0.0) for k in SERVE_STAGES))
+        heads.append(done[rid] - submitted[rid])
+    sum_mean = sum(sums) / len(sums) if sums else float("nan")
+    head_mean = sum(heads) / len(heads) if heads else float("nan")
+    return {
+        "by_rid": {name_of[rid]: [{"rid": rid, "trace_id": f.trace_id, "complete": f.complete,
+                                   "monotonic": f.monotonic(), "stages": f.breakdown()}
+                                  for f in by_rid.get(rid, [])]
+                   for rid in name_of},
+        "orphans": orphans,
+        "complete": len(complete), "truncated": len(serving) - len(complete),
+        # an aggregator given the flows reads no ring
+        "stats": FlowAggregator("").breakdown_stats(complete) if complete else {},
+        "replayed": sorted(name_of[rid] for rid in replayed if rid in name_of),
+        "stage_sum_mean_s": sum_mean, "head_mean_s": head_mean,
+        "stage_sum_vs_head": abs(sum_mean - head_mean) / head_mean if heads else float("nan"),
+    }
+
+
+def _flow_faults(name, f: dict) -> list[str]:
+    """What is wrong with one complete flow: not monotonic, a stage missing
+    or negative."""
+    out = []
+    if not f["monotonic"]:
+        out.append(f"request {name}: flow {f['trace_id']:#x} not monotonic")
+    st = f["stages"]
+    missing = [k for k in ("enqueue_to_flush", "flush_to_replica", "replica_to_first_chunk",
+                           "e2e") if k not in st]
+    if missing:
+        out.append(f"request {name}: flow {f['trace_id']:#x} lacks {missing}")
+    negative = {k: v for k, v in st.items() if v < 0}
+    if negative:
+        out.append(f"request {name}: flow {f['trace_id']:#x} has negative stages {negative}")
+    return out
+
+
+def flow_failures(report: dict, *, kill_one: bool) -> list[str]:
+    """The flow gates.  Without a fault every request has exactly one
+    serving flow, complete and monotonic with every stage non-negative, and
+    the mean stage sum is within ``STAGE_SUM_TOL`` of the head's mean.  With
+    a replica killed every request has exactly one complete flow (as
+    sound), and every truncated flow belongs to a request the router
+    replayed (replay mints a fresh trace id)."""
+    out = []
+    if report["orphans"]:
+        out.append(f"serving flows of no request: {len(report['orphans'])}")
+    replayed = set(report["replayed"])
+    for name, fs in report["by_rid"].items():
+        done = [f for f in fs if f["complete"]]
+        if kill_one:
+            if len(done) != 1:
+                out.append(f"request {name}: {len(done)} complete flows")
+            if len(done) != len(fs) and name not in replayed:
+                out.append(f"request {name}: {len(fs) - len(done)} truncated flows, never "
+                           f"replayed")
+        elif len(fs) != 1 or len(done) != 1:
+            out.append(f"request {name}: {len(fs)} serving flows, {len(done)} complete")
+        for f in done:
+            out.extend(_flow_faults(name, f))
+    if not kill_one and not report["stage_sum_vs_head"] <= STAGE_SUM_TOL:
+        out.append(f"mean stage sum {report['stage_sum_mean_s']:.6f} s against the head's "
+                   f"{report['head_mean_s']:.6f} s: off by {report['stage_sum_vs_head']:.3f}, "
+                   f"above {STAGE_SUM_TOL}")
+    return out
 
 
 def _took_every_request(router: ShardRouter, shard: int) -> bool:
@@ -200,8 +325,9 @@ def run(*, arch: str = "qwen2-1.5b", size: str = "full", replicas: int = 2,
     cfg, _ = model_config(model_kwargs)
     reqs = fleet_requests(cfg, requests, max_new=max_new, max_seq=max_seq, seed=seed)
 
-    trace_env = os.environ.get("AGNOCAST_TRACE")
+    trace_env = {k: os.environ.get(k) for k in ("AGNOCAST_TRACE", "AGNOCAST_TRACE_CAP")}
     os.environ["AGNOCAST_TRACE"] = "1"    # the head and the replicas it spawns
+    os.environ["AGNOCAST_TRACE_CAP"] = str(TRACE_CAP)
     dom = Domain.create(arena_capacity=64 << 20)
     pool = router = collector = ex = None
     orphans: list[str] = []
@@ -215,8 +341,8 @@ def run(*, arch: str = "qwen2-1.5b", size: str = "full", replicas: int = 2,
         collector = ResultsCollector(dom, shards=range(replicas))
         router = ShardRouter(dom, range(replicas), max_new=max_new, depth=REQ_DEPTH)
 
-        name_of, plen_of, submitted = {}, {}, {}
-        first, done, completions = {}, {}, {}
+        name_of, plen_of, submitted, enqueued = {}, {}, {}, {}
+        first, done, completions, replayed = {}, {}, {}, set()
         victim, killed, dead, evidence = [None], [], [], []
 
         def on_progress(rid):
@@ -244,17 +370,19 @@ def run(*, arch: str = "qwen2-1.5b", size: str = "full", replicas: int = 2,
             for shard in pool.poll():
                 dead.append(shard)
                 evidence.append(_death_evidence(dom, router, pool, shard))
-                router.remove_shard(shard)
+                replayed.update(router.remove_shard(shard))
             for rid in router.stalled(STALL_REPLAY_S):
                 router.replay(rid)
+                replayed.add(rid)
             router.flush(timeout=FLUSH_TIMEOUT_S)
 
         ex.add_timer(JANITOR_S, janitor)
         t_submit = time.monotonic()
         for r in reqs:                    # one unsized SERVE_REQ message per request
+            before = time.monotonic()
             rid = router.submit(r.tokens)
             name_of[rid], plen_of[rid & 0xFFFF_FFFF] = r.rid, len(r.tokens)
-            submitted[rid] = time.monotonic()
+            submitted[rid], enqueued[rid] = time.monotonic(), before
             router.flush(timeout=FLUSH_TIMEOUT_S)
         if kill_one and replicas > 1:
             per_shard = {}
@@ -276,13 +404,22 @@ def run(*, arch: str = "qwen2-1.5b", size: str = "full", replicas: int = 2,
                 part.close()
         if pool is not None:
             pool.stop()
-        if trace_env is None:
-            os.environ.pop("AGNOCAST_TRACE", None)
-        else:
-            os.environ["AGNOCAST_TRACE"] = trace_env
+        for k, v in trace_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     try:
         exports = _metrics.read_exports(dom.name)
-        pub_take = _pub_take_us(dom.name, plen_of)
+        overflowed = _rings_overflowed(dom.name)
+        if overflowed:
+            raise RuntimeError(f"trace rings wrapped (records written, kept): {overflowed}")
+        agg = FlowAggregator(dom.name)
+        flows = agg.collect()
+        agg.close()
+        pub_take = _pub_take_us([r for f in flows for r in f.records], plen_of, os.getpid())
+        flows = flow_report(flows, name_of, enqueued, {rid: t for rid, (t, _) in done.items()},
+                            replayed)
     finally:
         _unlink(_export_names(dom.name) + orphans)
         _trace.purge(dom.name)
@@ -317,6 +454,7 @@ def run(*, arch: str = "qwen2-1.5b", size: str = "full", replicas: int = 2,
         "ttft_ms": sorted((plen_of[rid & 0xFFFF_FFFF], 1e3 * (first[rid] - submitted[rid]))
                           for rid in done),
         "pub_take_us": pub_take,
+        "flows": flows,
         "replica_metrics": replica_metrics,
     }
 
@@ -354,6 +492,14 @@ def main(argv=None) -> dict:
           + json.dumps([[n, round(ms, 3)] for n, ms in out["ttft_ms"]]))
     print("[fleet] publish-to-take us by message bytes: "
           + json.dumps([[b, round(us, 1)] for b, us in out["pub_take_us"]]))
+    fl = out["flows"]
+    print(f"[fleet] serving flows: {fl['complete']} complete, {fl['truncated']} truncated, "
+          f"replayed requests {fl['replayed']}; stage sum mean "
+          f"{1e3 * fl['stage_sum_mean_s']:.3f} ms against the head's "
+          f"{1e3 * fl['head_mean_s']:.3f} ms")
+    print("[fleet] serving stages p50/p99/max ms: " + ", ".join(
+        f"{k} {1e3 * v['p50']:.3f}/{1e3 * v['p99']:.3f}/{1e3 * v['max']:.3f}"
+        for k, v in fl["stats"].items()))
     for shard, m in sorted(out["replica_metrics"].items()):
         print(f"[fleet] replica {shard}: {m}")
     if not exactly_once(out):
@@ -367,6 +513,10 @@ def main(argv=None) -> dict:
               f"/{len(want)}")
         if bad:
             raise RuntimeError(f"tokens differ from the in-process server for {bad}")
+        faults = flow_failures(out["flows"], kill_one=out["killed"] is not None)
+        if faults:
+            raise RuntimeError("flow gates failed: " + "; ".join(faults))
+        print("[fleet] flow gates passed")
     return out
 
 

@@ -32,8 +32,8 @@ through per-row ``tids`` columns in ``SERVE_REQ``/``SERVE_RES``.  When
 every call site holds a ``None`` tracer and the hot path pays a single
 pointer test.
 
-**Flow reconstruction** (the reference's :mod:`repro.obs.flows`).
-:class:`~repro.obs.flows.FlowAggregator` attaches every ring buffer of a
+**Flow reconstruction** (:mod:`repro_torch.obs.flows`).
+:class:`~repro_torch.obs.flows.FlowAggregator` attaches every ring buffer of a
 domain (including rings of processes that died — rings survive their
 writer precisely so a SIGKILLed replica's half-finished flows stay
 reconstructable), merges records by ``(trace_id, hop)`` into
@@ -68,10 +68,10 @@ children honour the environment they inherit):
 The trace record wire format is documented next to the registry layout
 history in :mod:`repro_torch.core.registry`.
 
-The port's copy of ``repro/obs/__init__.py``; the flow aggregator
-(``repro/obs/flows.py``) is not copied yet.
+The port's copy of ``repro/obs/__init__.py``.
 """
 
+from .flows import Flow, FlowAggregator
 from .metrics import (Counter, Gauge, MetricsExporter, MetricsRegistry,
                       counter, gauge, read_exports, snapshot)
 from .trace import (STAGE_NAMES, TraceReader, TraceRing, Stage, enabled,
@@ -80,6 +80,7 @@ from .trace import (STAGE_NAMES, TraceReader, TraceRing, Stage, enabled,
 __all__ = [
     "Stage", "STAGE_NAMES", "TraceRing", "TraceReader", "enabled",
     "next_trace_id", "tracer_for",
+    "Flow", "FlowAggregator",
     "Counter", "Gauge", "MetricsRegistry", "MetricsExporter",
     "counter", "gauge", "snapshot", "read_exports",
 ]

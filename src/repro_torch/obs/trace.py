@@ -31,7 +31,7 @@ Wire format (also documented next to the registry layout history):
 Rings are **not** unlinked when their process exits: a SIGKILLed
 replica's ring is exactly the evidence a flow aggregator needs to mark
 its half-finished flows truncated.  Cleanup belongs to the aggregator
-(:meth:`repro.obs.flows.FlowAggregator.close` with ``unlink=True``) or
+(:meth:`repro_torch.obs.flows.FlowAggregator.close` with ``unlink=True``) or
 :func:`purge`.
 
 Env: ``AGNOCAST_TRACE`` gates everything (unset/``0`` → ``tracer_for``
