@@ -8,7 +8,7 @@ dense, xLSTM, MoE and Zamba2 families; ``Model.prefill`` and
 ``decode_step`` for Whisper and mLLaMA, whose prefill takes frames or a
 vision input that no request carries; training through ``Trainer``,
 ``Model.loss`` and the backward kernels) on the GPU, never the JAX
-reference package, in thirty-two phases; any failed phase exits
+reference package, in thirty-three phases; any failed phase exits
 non-zero before the final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
@@ -218,6 +218,23 @@ non-zero before the final line:
    rebuilt by ``FlowAggregator`` across the bridge hop (a ``bridge_out`` in
    the sender's rings, a ``bridge_in`` in the receiver's), each hop's
    latency logged.
+
+33. static checks and the paper's pointcloud chain on the card's host, no
+   kernel: (a) ``repro_torch.analysis`` over the port's own files, as on
+   the CPU: the lint over ``src/repro_torch`` with 0 findings and every
+   suppression justified, ``check_layout`` against the port's lock (equal
+   to the reference's) with nothing found, the model checker's ``fast``
+   profile passing and ``fold_zeroes_all`` (the reference's fold) failing
+   ``fold_race`` with ``lost-release``, counts and seconds logged; (b)
+   Fig. 13's chain as ``benchmarks/fig13_pipeline.py`` runs it, through
+   ``repro_torch.apps.pointcloud.run_chain``: ``DEFAULT_LIDARS`` (top
+   250,000 points, left and right 3,000), a 0.1 s period, 60 frames, a
+   512 MB arena, once with every edge on the bus and once with only the
+   top edge on agnocast; each run gives exactly 60 response times above
+   0, every frame's merged point count equal to the sum over the LiDARs
+   of ``len(preprocess_chain(make_cloud(points, frame=i, seed=0)))``;
+   the mean and worst ms of each run and both improvements are logged
+   beside the paper's 16% and 25%, not gated.
 
 It prints a ``{"kernels": [...]}`` line (the backward kernels with
 ``"role": "backward"``) and ends with one JSON line
@@ -4182,6 +4199,108 @@ def phase_planes(card: str) -> dict:
     return {"planes": planes, "ratios": ratios, "churn": plane_churn(), "cycle": plane_cycle()}
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the static checks and the paper's pointcloud chain
+# ---------------------------------------------------------------------------
+
+POINTCLOUD_FRAMES = 60          # benchmarks/fig13_pipeline.py's FRAMES
+POINTCLOUD_ARENA_MB = 512       # run_chain's default, which fig13 runs
+PAPER_IMPROVEMENT_PCT = {"mean": 16.0, "worst": 25.0}   # paper, Fig. 13
+
+
+def static_checks() -> dict:
+    """(a): the port's lint, layout check and model checker over its files."""
+    from repro_torch.analysis import check_layout, lint_paths, model
+
+    t0 = time.monotonic()
+    rep = lint_paths([str(ROOT / "src" / "repro_torch")], root=str(ROOT))
+    lint_s = time.monotonic() - t0
+    if rep.findings or not all(s.justification for s in rep.suppressions):
+        fail(f"phase 33: the port's lint found {[str(f) for f in rep.findings]}, or a "
+             f"suppression without a justification")
+    t0 = time.monotonic()
+    layout = check_layout([str(ROOT / "src")])
+    layout_s = time.monotonic() - t0
+    if layout:
+        fail(f"phase 33: the port's layout check found {[str(f) for f in layout]}")
+    t0 = time.monotonic()
+    try:
+        stats = model.run_profile("fast")
+    except model.Violation as v:
+        fail(f"phase 33: the model's fast profile failed: {v} ({v.schedule()})")
+    model_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    try:
+        model.explore(model.SCENARIOS["fold_race"], bug="fold_zeroes_all")
+        kind = None
+    except model.Violation as v:
+        kind = v.kind
+    bug_s = time.monotonic() - t0
+    if kind != "lost-release":
+        fail(f"phase 33: fold_zeroes_all on fold_race gave {kind}, not lost-release")
+    out = {"lint_files": len(rep.files), "suppressions": len(rep.suppressions), "lint_s": lint_s,
+           "layout_s": layout_s,
+           "model_fast": {r["scenario"]: r["states"] for r in stats}, "model_fast_s": model_s,
+           "fold_zeroes_all": kind, "fold_zeroes_all_s": bug_s}
+    log(f"phase 33 (a) lint: {out['lint_files']} files, 0 findings, {out['suppressions']} "
+        f"justified suppressions in {lint_s:.2f} s; layout: nothing found in {layout_s:.2f} s; "
+        f"model fast: " + ", ".join(f"{k} {v} states" for k, v in out["model_fast"].items())
+        + f" in {model_s:.2f} s; fold_zeroes_all on fold_race: {kind} in {bug_s:.2f} s")
+    return out
+
+
+def pointcloud_chain(card: str) -> dict:
+    """(b): Fig. 13's chain both ways, every frame delivered with its exact
+    merged point count; the response times logged beside the paper's."""
+    from repro_torch.apps.pointcloud import (DEFAULT_LIDARS, make_cloud, preprocess_chain,
+                                            run_chain)
+
+    want, top_ms = [], []
+    for i in range(POINTCLOUD_FRAMES):
+        n = 0
+        for l in DEFAULT_LIDARS:
+            t0 = time.monotonic()
+            n += len(preprocess_chain(make_cloud(l.points, frame=i, seed=0)))
+            if l is DEFAULT_LIDARS[0]:
+                top_ms.append(1e3 * (time.monotonic() - t0))
+        want.append(n)
+    # the top LiDAR's generation and preprocessing alone, inside every
+    # response-time span whatever the transport (timed here, in one process)
+    top_mean = sum(top_ms) / len(top_ms)
+    runs = {}
+    for label, edges in (("bus", frozenset()), ("top_agnocast", frozenset({"top"}))):
+        t0 = time.monotonic()
+        res = run_chain(frames=POINTCLOUD_FRAMES, agnocast_edges=edges,
+                        arena_mb=POINTCLOUD_ARENA_MB)
+        wall = time.monotonic() - t0
+        rt = res.response_times
+        if len(rt) != POINTCLOUD_FRAMES or not all(t > 0 for t in rt):
+            fail(f"phase 33 (b) {label}: {len(rt)} response times of {POINTCLOUD_FRAMES}, "
+                 f"min {min(rt, default=None)}")
+        if res.merged_points != want:
+            bad = [i for i, (a, b) in enumerate(zip(res.merged_points, want)) if a != b]
+            fail(f"phase 33 (b) {label}: merged point counts differ at frames {bad[:8]}")
+        runs[label] = {"n": len(rt), "mean_ms": 1e3 * res.mean, "worst_ms": 1e3 * res.worst,
+                       "wall_s": wall}
+    base, agno = runs["bus"], runs["top_agnocast"]
+    imp = {"mean": 100 * (1 - agno["mean_ms"] / base["mean_ms"]),
+           "worst": 100 * (1 - agno["worst_ms"] / base["worst_ms"])}
+    log(f"phase 33 (b) pointcloud chain ({card}; {POINTCLOUD_FRAMES} frames, every merged count "
+        f"exact; the top cloud's generation and preprocessing alone {top_mean} ms a frame, "
+        f"max {max(top_ms)}): bus mean {base['mean_ms']} ms worst {base['worst_ms']} ms; top "
+        f"edge on agnocast mean {agno['mean_ms']} ms worst {agno['worst_ms']} ms; improvement mean "
+        f"{imp['mean']:+.2f}% worst {imp['worst']:+.2f}% (paper +"
+        f"{PAPER_IMPROVEMENT_PCT['mean']}% / +{PAPER_IMPROVEMENT_PCT['worst']}%; logged, not "
+        f"gated)")
+    return {"runs": runs, "improvement_pct": imp, "paper_pct": PAPER_IMPROVEMENT_PCT,
+            "top_preprocess_ms": {"mean": top_mean, "max": max(top_ms)}}
+
+
+def phase_checks_and_pointcloud(card: str) -> dict:
+    """Phase 33 (see the module docstring); runs on the host, no kernel."""
+    return {"static_checks": static_checks(), "pointcloud": pointcloud_chain(card)}
+
+
 def finish_dryrun(dry: DryRun) -> None:
     """The dry run's grid: no cell ``error``, every skipped cell skipped for
     the reference's reason; its log, the roofline table and its wall time."""
@@ -4401,6 +4520,10 @@ def main() -> None:
     planes = phase_planes(card)
     log(f"phase 32 (the cross-host planes: data planes, churn, a cycle, flows across the "
         f"bridge hop) done in {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    checks = phase_checks_and_pointcloud(card)
+    log(f"phase 33 (the static checks and the paper's pointcloud chain) done in "
+        f"{time.monotonic() - t0:.1f} s")
     log(f"all phases done in {time.monotonic() - T_START:.1f} s")
 
     kernels = []
@@ -4425,7 +4548,7 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "train_step_ms": train["step_ms"],
                       "train_step_device_ms_by_group": train["groups_ms"],
                       "xlstm_train": xtrain, "mesh": mesh, "fleet_stages_ms": fleet_stages,
-                      "planes": planes}), flush=True)
+                      "planes": planes, "checks_and_pointcloud": checks}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

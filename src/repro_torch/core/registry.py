@@ -152,12 +152,13 @@ or ``0`` — the tier-1 default — disables all emission; call sites hold a
 ``None`` tracer and pay one pointer test), ``AGNOCAST_TRACE_CAP`` (ring
 capacity in records, rounded up to a power of two, default 4096).
 
-Invariants (machine-checked by ``scripts/agnolint.py``)
--------------------------------------------------------
+Invariants (machine-checked by ``scripts/agnolint_torch.py``)
+-------------------------------------------------------------
 
-The disciplines above are enforced on every commit by the static
-analyzer in ``repro.analysis`` (CI job ``agnolint``); each carries a
-rule ID so a violation message points back at this spec:
+The disciplines above are enforced by the static analyzer in
+``repro_torch.analysis`` (``scripts/agnolint_torch.py --strict --model
+fast``; ``tests/test_torch_analysis.py`` runs it in tier 1); each carries
+a rule ID so a violation message points back at this spec:
 
 * ``AGNO-LOCK-001`` — every store into this segment happens inside
   ``_locked(tidx)`` (seqlock'd write section), ``_topic_flock(tidx)``
@@ -179,16 +180,20 @@ rule ID so a violation message points back at this spec:
   the ``_open_and_wake`` FIFO retry and the ``_seqlock_read`` spin —
   both run outside every lock, which is why they are legal.
 * ``AGNO-LAYOUT-001/002`` — the dtypes/constants above are fingerprinted
-  in ``repro/analysis/layout_lock.json``; changing any layout-bearing
+  in ``repro_torch/analysis/layout_lock.json`` (equal to the reference's
+  lock, section for section); changing any layout-bearing
   constant without bumping ``_MAGIC`` (the v5→v6 precedent) fails CI,
   as does any internal inconsistency (mask widths vs ``MAX_SUBS``,
   journal image sizes vs row dtypes, the trace-record format quoted
   above vs ``repro_torch.obs.trace``'s actual struct).
 * ``AGNO-MODEL-*`` — the publish/take/release/rollback/sweep protocol
   itself is exhaustively model-checked over 2–3-process interleavings
-  with SIGKILL injected at every step (``repro.analysis.model``):
+  with SIGKILL injected at every step (``repro_torch.analysis.model``):
   no lost release, no double-take, seqlock parity restored, rollback
-  idempotent, no lost wakeup (the Dekker re-check in ``release``).
+  idempotent, no lost wakeup (the Dekker re-check in ``release``).  Its
+  fold is this module's ``_fold_releases`` in two steps, a read and a
+  zeroing of the bytes read, with a lock-free release able to land
+  between them (scenario ``fold_race``).
 
 The port's copy of ``repro/core/registry.py``: the import paths differ, and
 ``_fold_releases`` zeroes only the release bytes it folded (the reference's

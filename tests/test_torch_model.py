@@ -516,9 +516,10 @@ def test_model_without_device_does_not_fall_back_to_cpu():
 
 
 def test_port_sources_import_no_jax_or_reference():
-    """No file of the port, nor chip_smoke.py, imports jax or ``repro``; nor,
-    since every kernel is CUDA C++, ``triton``."""
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """No file of the port, nor chip_smoke.py, nor the port's agnolint script,
+    imports jax or ``repro``; nor, since every kernel is CUDA C++, ``triton``."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "agnolint_torch.py"]
     assert len(files) > 20
     for path in files:
         for line in path.read_text().splitlines():
