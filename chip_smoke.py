@@ -8,7 +8,7 @@ dense, xLSTM, MoE and Zamba2 families; ``Model.prefill`` and
 ``decode_step`` for Whisper and mLLaMA, whose prefill takes frames or a
 vision input that no request carries; training through ``Trainer``,
 ``Model.loss`` and the backward kernels) on the GPU, never the JAX
-reference package, in thirty-three phases; any failed phase exits
+reference package, in thirty-four phases; any failed phase exits
 non-zero before the final line:
 
 1. the card's name and power limit, and the torch/CUDA versions;
@@ -77,10 +77,12 @@ non-zero before the final line:
    every prefill and decode call launched the fused norm once per
    full-width RMSNorm (2L + 1), and check in a profile that each
    decode-attention call is one kernel launch;
-6. full-width xlstm-1.3b in f32: kernel path against plain path, as in 4;
-7. full-width xlstm-1.3b in bf16: serve unsized requests, as in 5 (103
-   fused norms a call), and check that the sLSTM scan and the fused norm
-   ran in prefill and decode.
+6. xlstm-1.3b at full width cut to 24 of its 48 blocks (3 of its 6
+   groups of [7 mLSTM, 1 sLSTM]) in f32: kernel path against plain path,
+   as in 4;
+7. the same xlstm-1.3b in bf16: serve unsized requests, as in 5 (52
+   fused norms a call; 103 at full depth), and check that the sLSTM scan
+   and the fused norm ran in prefill and decode.
 8. the serving fleet (``repro_torch.launch.fleet``): two replica processes
    of full-width qwen2-1.5b in bf16 on the one card, fed 16 unsized
    request messages through the shared-memory planes, once as they are and
@@ -105,21 +107,22 @@ non-zero before the final line:
    path with nothing dropped against the dropless path in f32, the pairs
    the config's capacity drops, and each path's device and host ms beside
    its bound, in f32 and bf16;
-16-19. full-width qwen2-moe-a2.7b (24 layers) and qwen3-moe-235b-a22b at
-   full width cut to 4 of its 94 layers, each in f32 (as in 4, under the
-   route rule: a route that differs between the paths must be a near tie,
-   and at most one call may be exempted for it) and in bf16 (served as in
-   5: 49 and 17 fused norms a call; the decode rounds' routed experts and
-   the bound they give);
-20. full-width zamba2-2.7b in f32: kernel path against plain path, as in
-   4 (its 311-token prompt spans a chunk and a padded one), then the
-   parallel prefill's Mamba states and next-step logits against the
-   sequential replay of a 300-token prompt;
-21. full-width zamba2-2.7b in bf16, served as in 5: 127 fused norms a
-   call, one flash-attention launch a prefill and one decode-attention
-   launch a decode step per invocation of the shared block (9 each), and
-   the decode round's bytes bound with the shared block's weights read at
-   each of its 9 invocations;
+16-19. qwen2-moe-a2.7b at full width cut to 12 of its 24 layers and
+   qwen3-moe-235b-a22b at full width cut to 4 of its 94 layers, each in
+   f32 (as in 4, under the route rule: a route that differs between the
+   paths must be a near tie, and at most one call may be exempted for it)
+   and in bf16 (served as in 5: 25 and 17 fused norms a call; the decode
+   rounds' routed experts and the bound they give);
+20. zamba2-2.7b at full width cut to 24 of its 54 Mamba2 blocks (4 of its
+   9 groups of 6 with the shared block) in f32: kernel path against plain
+   path, as in 4 (its 311-token prompt spans a chunk and a padded one),
+   then the parallel prefill's Mamba states and next-step logits against
+   the sequential replay of a 300-token prompt;
+21. the same zamba2-2.7b in bf16, served as in 5: 57 fused norms a call
+   (127 at full depth), one flash-attention launch a prefill and one
+   decode-attention launch a decode step per invocation of the shared
+   block (4 each), and the decode round's bytes bound with the shared
+   block's weights read at each of its 4 invocations;
 22. full-width whisper-small in f32 through ``Model``: kernel path against
    plain path on the same weights, two batches of 4 prompts (100 and 311
    tokens) with their own frames, prefill logits and cross K/V, then 4
@@ -235,6 +238,24 @@ non-zero before the final line:
    of ``len(preprocess_chain(make_cloud(points, frame=i, seed=0)))``;
    the mean and worst ms of each run and both improvements are logged
    beside the paper's 16% and 25%, not gated.
+
+34. the dense trainer on a mesh of two ranks that share the card
+   (``repro_torch.launch.ranks``: two spawned processes in one ``gloo``
+   group, both on ``cuda:0``, every collective staged through pinned host
+   buffers; ``nccl`` refuses two ranks on one device): full-width
+   qwen2-1.5b through ``Trainer(mesh=...)`` on mesh (1, 2) ``("data",
+   "model")`` (tensor parallel: 6 query heads over 1 KV head, d_ff 4480,
+   vocab 75,968 a rank) and (2, 1) (FSDP and data parallel), each at f32
+   (B 2 x S 256) and then bf16 with f32 master (B 4 x S 1024), 3 steps,
+   from the init and batches of a ``Trainer`` without a mesh run first in
+   this process: f32 losses and grad norms within ``MESH2_F32_REL_TOL`` of
+   it, bf16 within ``MESH2_BF16_*``; K1, K2, K1-bwd and K2-bwd launched on
+   every rank in every run (counts set to 0 just before it), each at every
+   layout the ranks ran it on held against its plain version; the
+   checkpoint the (1, 2) bf16 run saves at step 2 restored on (2, 1) and
+   on one rank (this process, once the ranks have ended) equal to the saved blocks leaf by leaf
+   (64-bit position-weighted fingerprints); per rank, step ms, peak
+   memory, collective calls and host-staged bytes a step.
 
 It prints a ``{"kernels": [...]}`` line (the backward kernels with
 ``"role": "backward"``) and ends with one JSON line
@@ -1355,8 +1376,14 @@ REPLAY_PROMPT = 300
 # depth cuts: qwen3-moe's 94 layers hold 470 GB in bf16; 4 of its identical
 # layers run every module and kernel shape that 94 would.  mLLaMA's 100 (175
 # GB in bf16) are 20 identical groups of [4 self + 1 cross]; 2 groups run
-# every module and kernel shape (PERF.md section 4)
-DEPTH = {"qwen3-moe-235b-a22b": 4, "llama-3.2-vision-90b": 10}
+# every module and kernel shape (PERF.md section 4).  Since phase 34 (about
+# 180 s of the limit): qwen2-moe's 24 identical layers cut to 12, xlstm's 48
+# blocks (6 groups of [7 mLSTM, 1 sLSTM]) to 3 groups, zamba2's 54 Mamba2
+# blocks (9 groups of 6, the shared block after each) to 4 groups; each
+# still runs every module and kernel shape, and their training phases
+# (26-28, 30) keep the full depth
+DEPTH = {"qwen3-moe-235b-a22b": 4, "llama-3.2-vision-90b": 10, "qwen2-moe-a2.7b": 12,
+         "xlstm-1.3b": 24, "zamba2-2.7b": 24}
 # a route that differs between the two f32 paths must be a near tie in the
 # plain path: its k-th and (k+1)-th router probabilities this close
 ROUTE_TIE = 1e-5
@@ -3051,7 +3078,7 @@ class BackwardCalls:
         setattr(self.module, self.name, self.fn)
 
 
-def phase_train_shapes(dev, calls: dict) -> dict:
+def phase_train_shapes(dev, calls: dict, where: str = "phases 26-28") -> dict:
     """Phase 29: every (dtype, shape, strides, mode) K1-bwd, K2-bwd and
     K5-bwd ran on in phases 26-28, again on unit-scale random inputs laid
     out as the path's (``as_strided`` over a fresh buffer) against the plain
@@ -3100,7 +3127,7 @@ def phase_train_shapes(dev, calls: dict) -> dict:
             fail(f"{what}: a second call differs (not deterministic)")
     out["rmsnorm_bwd"] = {"path_shapes": len(calls["rmsnorm_bwd"].seen),
                           "path_max_abs_err": worst}
-    log(f"rmsnorm_bwd at the {len(calls['rmsnorm_bwd'].seen)} layouts and modes phases 26-28 "
+    log(f"rmsnorm_bwd at the {len(calls['rmsnorm_bwd'].seen)} layouts and modes {where} "
         f"ran, fresh inputs: max_abs_err {worst:.3e} (dx), every call repeated bit for bit")
     worst = 0.0
     for (q, k, v, o, do, _), kw in calls["flash_attention_bwd"].seen:
@@ -3142,11 +3169,11 @@ def phase_train_shapes(dev, calls: dict) -> dict:
     out["slstm_scan_bwd"] = {"path_shapes": len(calls["slstm_scan_bwd"].seen),
                              "path_max_abs_err": worst}
     log(f"flash_attention_bwd at the {len(calls['flash_attention_bwd'].seen)} layouts and modes "
-        f"phases 26-28 ran, fresh inputs: max_abs_err "
+        f"{where} ran, fresh inputs: max_abs_err "
         f"{out['flash_attention_bwd']['path_max_abs_err']:.3e}, the forward's logsumexp "
         f"within {LSE_TOL}, every call repeated bit for bit")
     log(f"slstm_scan_bwd at the {len(calls['slstm_scan_bwd'].seen)} dtypes, shapes and "
-        f"cotangents phases 26-28 ran, fresh inputs from the zero state through K5 in save "
+        f"cotangents {where} ran, fresh inputs from the zero state through K5 in save "
         f"mode: max_abs_err {worst:.3e}, every call repeated bit for bit")
     return out
 
@@ -4329,6 +4356,367 @@ def finish_dryrun(dry: DryRun) -> None:
         f"{dry.out / 'roofline_1.json'}")
 
 
+# ---------------------------------------------------------------------------
+# phase 34: the dense trainer on a mesh of two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# full-width qwen2-1.5b through Trainer(mesh=...) on two ranks that share the
+# one card (launch/ranks.py; a gloo group whose collectives stage through host
+# memory: nccl refuses two ranks on one device), on each mesh at f32 and then
+# bf16 with f32 master; the same init and batches as a world-size-1 Trainer
+MESH2_MESHES = {"(1, 2)": ((1, 2), ("data", "model")), "(2, 1)": ((2, 1), ("data", "model"))}
+MESH2_RUNS = {"f32": ((2, 256), "float32"), "bf16": ((4, 1024), "bfloat16")}
+MESH2_STEPS, MESH2_CKPT = 3, 2
+MESH2_JOIN_S = 600
+# f32: the CPU tests' bound (tests/test_torch_tensor_parallel.py, LOSS_RTOL):
+# the mesh changes only the order of f32 sums (the row-parallel psums, the
+# vocab-parallel softmax, the global norm's squares), so each loss and grad
+# norm stays within 1e-5 relative of the run without a mesh
+MESH2_F32_REL_TOL = 1e-5
+# bf16: the f32 runs read within 2.1e-6 of the run without a mesh (NVIDIA
+# H100 80GB HBM3, 700 W), so the mesh's sums are sound and what bf16 adds is
+# rounding: a row-parallel product rounds each rank's partial sum to bf16
+# before the psum adds them, and FSDP sums two bf16 partial gradients, where
+# one GEMM rounds once.  The bf16 runs read at most 1.24e-4 (losses) and
+# 1.94e-3 (grad norms, FSDP) relative on the same card; the bounds leave 8x
+# and 5x room above that and stay far below a dropped psum's O(1)
+MESH2_BF16_LOSS_REL_TOL, MESH2_BF16_GNORM_REL_TOL = 1e-3, 1e-2
+MESH2_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd")
+
+
+def fingerprint(t, sh=None) -> int:
+    """A 64-bit sum over the elements of ``t`` of each one's bits times an
+    odd weight drawn from its flat index in the global leaf (``t`` the
+    block of ``NamedSharding`` ``sh``, or the whole leaf), mod 2^64: the
+    blocks' sums add up to the whole leaf's, and any one element that
+    differs changes it (an odd weight times a difference below 2^32 is not
+    0 mod 2^64)."""
+    import torch
+
+    shape = tuple(t.shape) if sh is None else sh.global_shape(t.shape)
+    index = [slice(0, n) for n in shape] if sh is None else sh.index(shape)
+    dev = t.device
+    flat = torch.zeros((), dtype=torch.int64, device=dev)
+    stride = 1
+    for d in reversed(range(t.dim())):
+        r = torch.arange(index[d].start, index[d].stop, dtype=torch.int64, device=dev)
+        flat = flat + (r * stride).view([-1] + [1] * (t.dim() - 1 - d))
+        stride *= shape[d]
+    w = flat * 0x5851F42D4C957F2D + 0x14057B7EF767814F
+    w = (w ^ (w >> 31)) * 0x2545F4914F6CDD1D | 1
+    bits = t.contiguous().view({2: torch.int16, 4: torch.int32}[t.element_size()]).long()
+    return int((w * bits).sum()) % (1 << 64)
+
+
+def mesh2_fingerprints(state, shardings=None) -> dict:
+    """{path: fingerprint} of a state's leaves; with ``shardings``, of this
+    rank's blocks it is the first holder of (``NamedSharding.writes``), 0
+    for the others, so the ranks' values add up to the whole leaf's."""
+    from repro_torch.checkpoint.checkpointer import _sharding_items
+    from repro_torch.models.common import tree_items
+
+    if shardings is None:
+        return {p: fingerprint(t) for p, t in tree_items(state)}
+    shs = [s for _, s in _sharding_items(shardings)]
+    return {p: fingerprint(t, s) if s.writes() else 0
+            for (p, t), s in zip(tree_items(state), shs)}
+
+
+def mesh2_trainer_config(run: str, ckpt_dir: str, save: bool = False):
+    """(config, TrainerConfig) of one run of phase 34: a checkpoint every
+    ``MESH2_CKPT`` steps into ``ckpt_dir`` where ``save``, else none (and
+    ``ckpt_dir`` empty, so nothing is restored)."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    (b, s), dt = MESH2_RUNS[run]
+    cfg = get_config(TRAIN_ARCH)
+    if dt == "float32":
+        cfg = cfg.scaled(param_dtype="float32", compute_dtype="float32")
+    tc = TrainerConfig(batch=b, seq_len=s, total_steps=MESH2_STEPS, warmup=1,
+                       ckpt_every=MESH2_CKPT if save else 0, ckpt_dir=ckpt_dir, ckpt_keep=1,
+                       zero_copy_data=False, log_every=100, seed=SEED)
+    return cfg, tc
+
+
+def mesh2_rank(rank: int, world: int, root: str) -> dict:
+    """One rank of phase 34 (started by ``launch.ranks.run_ranks``): on each
+    mesh of ``MESH2_MESHES``, each run of ``MESH2_RUNS`` through
+    ``Trainer(mesh=...)``, the kernels' counts set to 0 just before the run
+    and read just after, the layouts K1, K2, K1-bwd and K2-bwd ran on
+    recorded; on mesh (1, 2) the bf16 run saves at step ``MESH2_CKPT`` and
+    fingerprints its state there; then the step-2 checkpoint is restored on
+    mesh (2, 1) through the state's shardings and fingerprinted."""
+    import gc
+    import statistics
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as norm_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model, attention, transformer
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.sharding.partition import COLLECTIVE_CALLS, STAGED_BYTES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.empty(0, device=dev)          # the context, before the memory stats are read
+    ckpt = f"{root}/ckpt"
+    out = {"runs": {}, "layouts": {}}
+    rec = {"rmsnorm": BackwardCalls(transformer, "fused_rmsnorm"),
+           "flash_attention": BackwardCalls(attention, "flash_attention"),
+           "rmsnorm_bwd": BackwardCalls(norm_ops, "rmsnorm_bwd"),
+           "flash_attention_bwd": BackwardCalls(flash_ops, "flash_attention_bwd")}
+    for name, (shape, axes) in MESH2_MESHES.items():
+        mesh = make_mesh(shape, axes, device=dev)
+        for run in MESH2_RUNS:
+            saving = name == "(1, 2)" and run == "bf16"
+            cfg, tc = mesh2_trainer_config(run, ckpt if saving else f"{root}/{rank}-{run}-none",
+                                           saving)
+            t = Trainer(Model(cfg, device=dev), tc, mesh=mesh)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            calls0, staged0 = sum(COLLECTIVE_CALLS.values()), sum(STAGED_BYTES.values())
+            for r in rec.values():
+                r.__enter__()
+            try:
+                zero_counts(rec)
+                t.run(MESH2_CKPT if saving else MESH2_STEPS)
+                if saving:
+                    torch.cuda.synchronize()
+                    out["saved"] = mesh2_fingerprints(t.state, t._state_sh)
+                    t.tc.ckpt_every = 0         # the step-2 save is the one restored
+                    t.run(MESH2_STEPS)
+                torch.cuda.synchronize()
+                launches = {n: r.launches for n, r in rec.items()}
+            finally:
+                for r in rec.values():
+                    r.__exit__()
+            t.close()
+            log_ = t.metrics_log
+            out["runs"][(name, run)] = {
+                "coords": dict(zip(axes, mesh.get_coordinate())),
+                "losses": [x["loss"] for x in log_], "grad_norms": [x["grad_norm"] for x in log_],
+                "step_ms": 1e3 * statistics.median(x["dt"] for x in log_[1:]),
+                "step1_ms": 1e3 * log_[0]["dt"],
+                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "collectives_per_step": (sum(COLLECTIVE_CALLS.values()) - calls0) / len(log_),
+                "staged_gb_per_step": (sum(STAGED_BYTES.values()) - staged0) / len(log_) / 1e9,
+                "launches": launches}
+            del t
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["layouts"] = {n: dict(r.seen) for n, r in rec.items()}
+    # the step-2 checkpoint (saved on (1, 2)) restored on (2, 1)
+    cfg, tc = mesh2_trainer_config("bf16", ckpt)
+    mesh = make_mesh(*MESH2_MESHES["(2, 1)"], device=dev)
+    t = Trainer(Model(cfg, device=dev), tc, mesh=mesh)
+    sh = t._state_shardings()
+    like = tree_map(lambda x: torch.zeros(x.shape, dtype=x.dtype, device=dev),
+                    _mesh2_blocks_like(t, sh))
+    state, step, _ = Checkpointer(ckpt).restore(like, step=MESH2_CKPT, shardings=sh)
+    torch.cuda.synchronize()
+    out["restored_21"] = {"step": step, "fingerprints": mesh2_fingerprints(state, sh)}
+    return out
+
+
+def _mesh2_blocks_like(trainer, sh):
+    """The trainer's state tree as ``meta`` tensors of the rank's block shapes."""
+    import torch
+
+    from repro_torch.models.common import tree_map
+
+    p = trainer.model.abstract_params(whole=True)
+    f32 = tree_map(lambda x: torch.empty(x.shape, dtype=torch.float32, device="meta"), p)
+    whole = {"params": p, "master": f32, "m": f32, "v": f32,
+             "step": torch.empty((), dtype=torch.int32, device="meta")}
+    return tree_map(lambda x, s: torch.empty(s.shard_shape(x.shape), dtype=x.dtype,
+                                             device="meta"), whole, sh)
+
+
+def mesh2_plain(dev) -> dict:
+    """The world-size-1 runs phase 34 holds the meshes against: each run of
+    ``MESH2_RUNS`` through ``Trainer`` with no mesh, same init and batches."""
+    import gc
+    import statistics
+
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.runtime.trainer import Trainer
+
+    out = {}
+    for run in MESH2_RUNS:
+        cfg, tc = mesh2_trainer_config(run, str(ROOT / "build" / "mesh2" / "plain"))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = Trainer(Model(cfg, device=dev), tc)
+        t.run()
+        t.close()
+        log_ = t.metrics_log
+        out[run] = {"losses": [x["loss"] for x in log_],
+                    "grad_norms": [x["grad_norm"] for x in log_],
+                    "step_ms": 1e3 * statistics.median(x["dt"] for x in log_[1:]),
+                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh2_forward_layouts(dev, layouts: dict) -> dict:
+    """K1 and K2 at every layout the ranks ran them on (phase 34), on fresh
+    unit-scale inputs laid out as the path's, against their plain versions
+    at ``TOL``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, rmsnorm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+
+    def fresh(a):
+        if not (isinstance(a, tuple) and len(a) == 3 and isinstance(a[0], torch.dtype)):
+            return a
+        dt, shape, stride = a
+        n = 1 + sum((d - 1) * st for d, st in zip(shape, stride)) if all(shape) else 0
+        return torch.randn(n, generator=gen, device=dev).to(dt).as_strided(shape, stride)
+
+    out = {}
+    for name, fn, ref in (("rmsnorm", fused_rmsnorm, rmsnorm_ref),
+                          ("flash_attention", flash_attention, flash_attention_ref)):
+        worst = 0.0
+        for args, kw in layouts[name]:
+            ts = [fresh(a) for a in args]
+            if name == "rmsnorm":           # the scale: f32, around 1
+                ts[2] = 1.0 + 0.1 * torch.randn(ts[2].shape, generator=gen, device=dev)
+            with torch.no_grad():
+                got, want = fn(*ts, **dict(kw)), ref(*ts, **dict(kw))
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            dt = str(ts[0].dtype).split(".")[-1]
+            for i, (g, w) in enumerate(zip(got, want)):
+                if g is not None:
+                    worst = max(worst, check_close(f"{name} phase 34 layout {args} {kw} out {i}",
+                                                   g, w, dt))
+        out[name] = {"path_shapes": len(layouts[name]), "path_max_abs_err": worst}
+    return out
+
+
+def phase_mesh2(dev, card: str) -> dict:
+    """Phase 34, one part after the other so that no part shares the card
+    or the host with another: :func:`mesh2_plain`, then :func:`mesh2_rank`
+    on two ranks (``launch.ranks.run_ranks``, ``gloo``, both on ``cuda:0``),
+    then the ranks' step-2 checkpoint restored here on one rank (no mesh);
+    gates:
+    the f32 losses and grad norms within ``MESH2_F32_REL_TOL`` of the run
+    without a mesh, the bf16 ones within ``MESH2_BF16_*``, K1, K2, K1-bwd
+    and K2-bwd launched on every rank in every run, each at every layout the
+    ranks ran within ``TOL`` of its plain version, and the fingerprints of
+    the saved state, of its restore on (2, 1) and of its restore on one rank
+    equal leaf by leaf.  Returns the launches by path and the measurements."""
+    import shutil
+    import types as _types
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer, latest_step
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+
+    root = ROOT / "build" / "mesh2"
+    shutil.rmtree(root, ignore_errors=True)
+    torch.empty(0, device=dev)
+    log(f"phase 34 starts with {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    t0 = time.monotonic()
+    plain = mesh2_plain(dev)
+    t_plain = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = run_ranks(mesh2_rank, 2, str(root), workdir=str(root / "ranks"),
+                      join_s=MESH2_JOIN_S)
+    t_ranks = time.monotonic() - t0
+    # the step-2 checkpoint on one rank, here, with no mesh
+    cfg, tc = mesh2_trainer_config("bf16", str(root / "ckpt"))
+    if latest_step(tc.ckpt_dir) != MESH2_CKPT:
+        fail(f"phase 34: the ranks committed no step-{MESH2_CKPT} checkpoint")
+    t0 = time.monotonic()
+    like = AdamW().init(Model(cfg, device=dev).init(SEED))
+    state, step, _ = Checkpointer(tc.ckpt_dir).restore(like, step=MESH2_CKPT)
+    torch.cuda.synchronize()
+    whole = mesh2_fingerprints(state)
+    del like, state
+    torch.cuda.empty_cache()
+    t_restore = time.monotonic() - t0
+    bad, launches, rows = [], {}, []
+    for r, res in enumerate(ranks):
+        for (name, run), x in res["runs"].items():
+            want = plain[run]
+            if run == "f32":
+                tol_l = tol_g = MESH2_F32_REL_TOL
+            else:
+                tol_l, tol_g = MESH2_BF16_LOSS_REL_TOL, MESH2_BF16_GNORM_REL_TOL
+            dl = [abs(a - b) / abs(b) for a, b in zip(x["losses"], want["losses"])]
+            dg = [abs(a - b) / abs(b) for a, b in zip(x["grad_norms"], want["grad_norms"])]
+            x["loss_rel"], x["gnorm_rel"] = max(dl), max(dg)
+            if len(dl) != MESH2_STEPS or not all(v == v for v in x["losses"]) or \
+                    max(dl) > tol_l or max(dg) > tol_g:
+                bad.append(f"rank {r} mesh {name} {run}: losses {x['losses']} grad norms "
+                           f"{x['grad_norms']} against {want['losses']} {want['grad_norms']} "
+                           f"(relative {max(dl):.3e} / {max(dg):.3e}, bounds {tol_l} / {tol_g})")
+            if not all(x["launches"][k] > 0 for k in MESH2_KERNELS):
+                bad.append(f"rank {r} mesh {name} {run}: launches {x['launches']}")
+            launches[f"{TRAIN_ARCH} mesh {name} {run} rank {r}"] = x["launches"]
+            rows.append((r, name, run, x))
+    if bad:
+        fail("phase 34: " + "; ".join(bad))
+    mask = (1 << 64) - 1
+    saved = {p: sum(res["saved"][p] for res in ranks) & mask for p in whole}
+    on21 = {p: sum(res["restored_21"]["fingerprints"][p] for res in ranks) & mask for p in whole}
+    differ = [p for p in whole if not (whole[p] == saved[p] == on21[p])]
+    if step != MESH2_CKPT or differ or any(res["restored_21"]["step"] != MESH2_CKPT
+                                           for res in ranks):
+        fail(f"phase 34: the step-{MESH2_CKPT} checkpoint saved on (1, 2) restores on (2, 1) or "
+             f"one rank with leaves that differ from the saved blocks: {differ[:5]} of "
+             f"{len(whole)}")
+    # the kernels at the ranks' layouts against their plain versions
+    layouts = {n: {} for n in MESH2_KERNELS}
+    for res in ranks:
+        for n in MESH2_KERNELS:
+            layouts[n].update(res["layouts"][n])
+    checked = mesh2_forward_layouts(dev, layouts)
+    calls = {n: _types.SimpleNamespace(seen=layouts[n])
+             for n in ("rmsnorm_bwd", "flash_attention_bwd")}
+    calls["slstm_scan_bwd"] = _types.SimpleNamespace(seen={})
+    checked.update({k: v for k, v in phase_train_shapes(dev, calls, "phase 34's ranks").items()
+                    if k != "slstm_scan_bwd"})
+    log(f"phase 34: {len(whole)} leaves of the step-{MESH2_CKPT} state saved on (1, 2) equal "
+        f"restored on (2, 1) and on one rank (64-bit fingerprints, leaf by leaf); the kernels at "
+        f"the ranks' layouts against plain: {checked}; the world-size-1 runs {t_plain:.1f} s, "
+        f"then the ranks {t_ranks:.1f} s, then the one-rank restore {t_restore:.1f} s")
+    for run, x in plain.items():
+        print(f"mesh2 {TRAIN_ARCH} {run} B x S {MESH2_RUNS[run][0]} without a mesh: losses "
+              f"{x['losses']}, grad norms {x['grad_norms']}, step ms {x['step_ms']:.2f}, peak "
+              f"GB {x['peak_gb']:.2f} [{card}]", flush=True)
+    for r, name, run, x in rows:
+        print(f"mesh2 {TRAIN_ARCH} {run} mesh {name} rank {r} {x['coords']}: losses "
+              f"{x['losses']} (max rel {x['loss_rel']:.3e}), grad norms {x['grad_norms']} (max "
+              f"rel {x['gnorm_rel']:.3e}), step ms {x['step_ms']:.2f} (step 1 "
+              f"{x['step1_ms']:.2f}), peak GB {x['peak_gb']:.2f}, collective calls a step "
+              f"{x['collectives_per_step']:.1f}, host-staged GB a step "
+              f"{x['staged_gb_per_step']:.3f}, launches {x['launches']} [{card}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "checked": checked, "plain": plain,
+            "ranks": [{f"{n} {run}": {k: v for k, v in x.items() if k != "launches"}
+                       for (n, run), x in res["runs"].items()} for res in ranks],
+            "seconds": {"plain": t_plain, "ranks": t_ranks, "restore": t_restore}}
+
+
 REPLACES = {
     "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
@@ -4524,6 +4912,13 @@ def main() -> None:
     checks = phase_checks_and_pointcloud(card)
     log(f"phase 33 (the static checks and the paper's pointcloud chain) done in "
         f"{time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    mesh2 = phase_mesh2(dev, card)
+    launches.update(mesh2.pop("launches"))
+    for n, r in mesh2["checked"].items():
+        report[n]["mesh2_layouts"] = r
+    log(f"phase 34 (the dense trainer on meshes (1, 2) and (2, 1) of two ranks sharing the "
+        f"card) done in {time.monotonic() - t0:.1f} s")
     log(f"all phases done in {time.monotonic() - T_START:.1f} s")
 
     kernels = []
@@ -4543,12 +4938,14 @@ def main() -> None:
                                                       if name in p},
                         **{k: r[k] for k in ("by_seq", "hd256", "g16", "hd80", "cross", "shapes",
                                              "variant", "cluster", "torch_add_host_ms",
-                                             "path_shapes", "path_max_abs_err")
+                                             "path_shapes", "path_max_abs_err",
+                                             "mesh2_layouts")
                            if k in r}})
     print(json.dumps({"kernels": kernels, "train_step_ms": train["step_ms"],
                       "train_step_device_ms_by_group": train["groups_ms"],
                       "xlstm_train": xtrain, "mesh": mesh, "fleet_stages_ms": fleet_stages,
-                      "planes": planes, "checks_and_pointcloud": checks}), flush=True)
+                      "planes": planes, "checks_and_pointcloud": checks, "mesh2": mesh2}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

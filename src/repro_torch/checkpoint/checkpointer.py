@@ -16,9 +16,21 @@ files and ``manifest.json``) and its fault-tolerance contract:
   shapes and dtypes, not layouts.  ``restore(..., shardings=...)`` takes
   the target ``NamedSharding`` of each leaf (``repro_torch.sharding``, on
   whatever mesh the job restarted on) and keeps the rank's block of each
-  leaf it loads whole: the saving mesh and the restoring mesh need not
-  match.  Saving writes whole leaves, which is what a rank holds at world
-  size 1; saving from world size > 1 is ROADMAP.md Queue 1 item 8c.
+  leaf, read through a memory map so a rank reads only its block: the
+  saving mesh and the restoring mesh need not match.
+* **Save of blocks** — at world size > 1, ``save(..., shardings=...)``
+  writes each global leaf once, as one whole ``.npy`` with the manifest's
+  logical shape, so the directory is the one a world-size-1 save makes
+  (the reference reads it): rank 0 creates every leaf's file at its
+  global shape, a barrier, then each block is written into its window of
+  the file (``np.lib.format.open_memmap``) by the first rank that holds
+  it (``NamedSharding.writes``: nothing is sent between ranks), a
+  barrier, and rank 0 writes the manifest and commits.  That save is
+  synchronous (its barriers are collectives of the caller's group, which
+  a background thread must not share with the step's); the async thread
+  is the world-size-1 path.  It takes any state of blocks: no part of
+  ROADMAP.md Queue 1 item 8c remains here, only the families whose
+  layers do not yet train on a mesh (its later parts).
 * **Data-plane cursor** — the caller's ``extra`` (the data cursor) is
   stored in the manifest.
 
@@ -32,6 +44,7 @@ leaves on a given device.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
@@ -71,6 +84,24 @@ def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     return h.numpy(), str(h.numpy().dtype)
 
 
+def _np_dtype(dtype: str):
+    """The numpy dtype a leaf of manifest dtype ``dtype`` is stored as."""
+    return np.int16 if dtype == "bfloat16" else np.dtype(dtype)
+
+
+def _sharding_items(shardings):
+    """(path, ``NamedSharding``) pairs of a tree of shardings, in
+    ``tree_items`` order (a sharding is a leaf here)."""
+    if isinstance(shardings, dict):
+        for k in sorted(shardings):
+            yield from _sharding_items(shardings[k])
+    elif isinstance(shardings, (list, tuple)):
+        for v in shardings:
+            yield from _sharding_items(v)
+    else:
+        yield "", shardings
+
+
 def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     t = torch.from_numpy(arr)
     return t.view(torch.bfloat16) if dtype == "bfloat16" else t
@@ -89,9 +120,17 @@ class Checkpointer:
 
     # -- save -----------------------------------------------------------------
 
-    def save(self, step: int, state, *, extra: dict | None = None) -> None:
-        """Snapshot ``state`` (a tree of dicts and lists of tensors) at ``step``."""
+    def save(self, step: int, state, *, extra: dict | None = None, shardings=None) -> None:
+        """Snapshot ``state`` (a tree of dicts and lists of tensors) at
+        ``step``.  With ``shardings`` (a tree like ``state`` of
+        ``NamedSharding``s) on a mesh larger than 1, ``state`` holds the
+        rank's blocks and every rank of the mesh calls this: the save of
+        blocks above."""
         self.wait()
+        if shardings is not None and math.prod(
+                next(sh for _, sh in _sharding_items(shardings)).mesh.shape) > 1:
+            self._save_blocks(step, state, shardings, extra)
+            return
         items = list(tree_items(state))
         # snapshot to host NOW: the caller updates these tensors in place next
         host = [_to_host(t) for _, t in items]
@@ -131,6 +170,51 @@ class Checkpointer:
         else:
             _write()
             self._raise_if_failed()
+
+    def _save_blocks(self, step: int, state, shardings, extra: dict | None) -> None:
+        import torch.distributed as dist
+
+        items = list(tree_items(state))
+        shs = [sh for _, sh in _sharding_items(shardings)]
+        tmp = _step_dir(self.root, step) + ".tmp-blocks"
+        leaves = []
+        for i, ((p, t), sh) in enumerate(zip(items, shs)):
+            dt = "bfloat16" if t.dtype == torch.bfloat16 else str(
+                torch.empty((), dtype=t.dtype).numpy().dtype)
+            leaves.append({"path": p, "file": _leaf_name(i),
+                           "shape": list(sh.global_shape(t.shape)), "dtype": dt})
+        me = dist.get_rank()
+        if me == 0:
+            if os.path.isdir(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            for rec in leaves:
+                np.lib.format.open_memmap(os.path.join(tmp, rec["file"]), mode="w+",
+                                          dtype=_np_dtype(rec["dtype"]),
+                                          shape=tuple(rec["shape"])).flush()
+        dist.barrier()
+        for (_, t), sh, rec in zip(items, shs, leaves):
+            if sh.writes():
+                arr, _ = _to_host(t)
+                out = np.lib.format.open_memmap(os.path.join(tmp, rec["file"]), mode="r+")
+                out[sh.index(tuple(rec["shape"]))] = arr
+                out.flush()
+                del out
+        dist.barrier()
+        if me == 0:
+            manifest = {"step": int(step), "host": self.host, "time": time.time(),
+                        "treedef": f"{len(items)} leaves in dicts and lists",
+                        "leaves": leaves, "extra": extra or {}}
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+                f.flush()
+                os.fsync(f.fileno())
+            final = _step_dir(self.root, step)
+            if os.path.isdir(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)  # the atomic commit point
+            self._gc()
+        dist.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -182,14 +266,15 @@ class Checkpointer:
 
         def load(target: torch.Tensor, sh=None) -> torch.Tensor:
             rec = recs[next(it)]
-            t = _from_host(np.load(os.path.join(d, rec["file"])), rec["dtype"])
-            want = tuple(t.shape) if sh is None else sh.shard_shape(t.shape)
+            arr = np.load(os.path.join(d, rec["file"]), mmap_mode=None if sh is None else "r")
+            want = tuple(arr.shape) if sh is None else sh.shard_shape(arr.shape)
             if want != tuple(target.shape):
-                raise ValueError(f"{rec['path']}: checkpoint shape {tuple(t.shape)}"
+                raise ValueError(f"{rec['path']}: checkpoint shape {tuple(arr.shape)}"
                                  + ("" if sh is None else f" (block {want} under {sh.spec})")
                                  + f" != {tuple(target.shape)}")
-            if sh is not None:
-                t = sh.block(t)
+            if sh is not None:       # only the block is read
+                arr = np.array(arr[sh.index(arr.shape)])
+            t = _from_host(arr, rec["dtype"])
             if device is None:
                 with torch.no_grad():
                     return target.copy_(t)

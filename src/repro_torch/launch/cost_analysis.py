@@ -29,8 +29,15 @@ card the same step gives the same numbers (``chip_smoke.py`` checks it).
 * **Kernels** — a wrapper's ``kernels/_device.kernel_call`` records the
   kernel's ``cost`` once and hides the aten ops the wrapper runs around
   the launch: the record replaces them.
-* **Collectives** — none at world size 1: ``collective_wire_bytes`` is 0
-  and every collective of the reference's table counts 0.
+* **Collectives** — each collective of ``repro_torch.sharding`` records
+  itself (``record_collective``) by the reference's kind, with the
+  per-device wire bytes of the reference's ring formulas
+  (``repro/launch/dryrun.py:collective_stats``; :data:`WIRE`) over its
+  group's size; its own aten ops (copies, the result's allocation) are
+  hidden.  On ``meta`` (the dry run under an ``AbstractMesh`` with a
+  coordinate) nothing is sent and the record is the whole of it.  With
+  no mesh, as at world size 1, ``collective_wire_bytes`` is 0 and every
+  kind counts 0.
 * **Memory** — the arguments' and the results' bytes (storages counted
   once; results that alias an argument, as an updated cache does, also
   under ``alias_bytes``), and the peak of live storages: each storage is
@@ -69,10 +76,24 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import _device
 
-__all__ = ["count", "CostCounter", "StepCosts", "COLLECTIVES"]
+__all__ = ["count", "CostCounter", "StepCosts", "COLLECTIVES", "WIRE", "wire_bytes"]
 
-# the reference's collective kinds (hlo_analysis._COLLECTIVES): all 0 here
+# the reference's collective kinds (hlo_analysis._COLLECTIVES)
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+
+# per-device wire bytes of one collective whose result is ``r`` bytes over
+# ``g`` ranks: the reference's ring formulas (repro/launch/dryrun.py:88-134)
+WIRE = {
+    "all-gather": lambda r, g: r * (g - 1) / g,        # receives all but its own block
+    "all-reduce": lambda r, g: 2.0 * r * (g - 1) / g,  # reduce-scatter + all-gather
+    "reduce-scatter": lambda r, g: float(r * (g - 1)),  # its input is r x g
+    "all-to-all": lambda r, g: r * (g - 1) / g,
+    "collective-permute": lambda r, g: float(r),      # one send and one receive
+}
+
+
+def wire_bytes(kind: str, result_bytes: float, g: int) -> float:
+    return WIRE[kind](result_bytes, g)
 
 aten = torch.ops.aten
 
@@ -137,6 +158,7 @@ class StepCosts:
     collectives: dict
     ops: dict
     memory: dict = field(default_factory=dict)
+    collective_result_bytes: dict = field(default_factory=dict)   # kind -> result bytes
 
     def as_dict(self) -> dict:
         return {"flops": self.flops, "flops_bf16": self.flops_bf16,
@@ -174,6 +196,8 @@ class CostCounter(TorchDispatchMode):
         self.bytes = 0.0
         self.ops: dict[str, dict] = {}
         self.live = self.peak = 0
+        self.collectives = {c: {"count": 0, "wire_bytes": 0.0} for c in COLLECTIVES}
+        self.collective_results = {c: 0 for c in COLLECTIVES}
         self._storages: dict[int, int] = {}
         self._args = _tensors(args)
         for t in self._args:
@@ -213,6 +237,14 @@ class CostCounter(TorchDispatchMode):
         """One call of a Hopper kernel at its ``cost`` (``kernel_call``)."""
         self.flops[_peak_class(peak)] += flops
         self._add(f"kernel.{name}", flops, nbytes)
+
+    def record_collective(self, kind: str, result_bytes: int, g: int) -> None:
+        """One collective of ``kind`` over ``g`` ranks with a result of
+        ``result_bytes`` (``repro_torch.sharding``'s collectives call it)."""
+        rec = self.collectives[kind]
+        rec["count"] += 1
+        rec["wire_bytes"] += wire_bytes(kind, result_bytes, g)
+        self.collective_results[kind] += result_bytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -255,9 +287,11 @@ class CostCounter(TorchDispatchMode):
                   "peak_bytes": self.peak}
         return StepCosts(
             flops=self.flops["bf16"] + self.flops["f32"], flops_bf16=self.flops["bf16"],
-            flops_f32=self.flops["f32"], bytes=self.bytes, collective_wire_bytes=0.0,
-            collectives={c: {"count": 0, "wire_bytes": 0.0} for c in COLLECTIVES},
-            ops=dict(self.ops), memory=memory)
+            flops_f32=self.flops["f32"], bytes=self.bytes,
+            collective_wire_bytes=sum(c["wire_bytes"] for c in self.collectives.values()),
+            collectives={k: dict(v) for k, v in self.collectives.items()},
+            ops=dict(self.ops), memory=memory,
+            collective_result_bytes=dict(self.collective_results))
 
 
 def count(fn, *args, **kwargs) -> StepCosts:

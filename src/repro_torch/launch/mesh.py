@@ -7,7 +7,8 @@ initialised (one process per rank; nothing here starts a group);
 as an ``AbstractMesh`` (shape and axis names) unless the world is that
 size, so the spec functions of ``repro_torch.sharding`` can lay out the
 production meshes on one process.  ``HW`` holds the H100's constants where
-the reference's are a TPU v5e's.
+the reference's are a TPU v5e's.  ``launch/ranks.py`` starts the ranks of
+a job on one host.
 """
 
 from __future__ import annotations
@@ -33,14 +34,28 @@ class HW:
     PEAK_BF16_FLOPS = 989e12      # FLOP/s, bf16 on the tensor cores, dense
     PEAK_F32_FLOPS = 67e12        # FLOP/s, f32 on the CUDA cores
     HBM_BW = 3.35e12              # B/s
+    # B/s each way a card, NVLink 4 (NVIDIA's published 900 GB/s is both ways):
+    # the collective term's denominator.  No H100 machine has an NVLink domain
+    # of 256 (16x16) or 512 cards, so over the production meshes the term is an
+    # idealisation, as the reference's ICI_BW is over its mesh.
+    NVLINK_BW = 450e9
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
               device: torch.device | str | None = None):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the initialised
-    process group, on ``cuda`` unless ``device`` says ``cpu`` (the tests'
-    ``gloo`` ranks).  Raises if no group is initialised, if the mesh's size
-    is not the world size, or if ``cuda`` is asked for with no card."""
+    process group, for tensors on ``cuda`` unless ``device`` says ``cpu``
+    (the tests' ``gloo`` ranks).  Raises if no group is initialised, if the
+    mesh's size is not the world size, or if ``cuda`` is asked for with no
+    card.
+
+    A ``gloo`` group makes a ``DeviceMesh`` on ``cpu`` whatever ``device``
+    says: the ranks of one machine with one card (``launch.ranks``) share
+    it (``nccl`` refuses two ranks on one device), their tensors on
+    ``cuda:0`` and their collectives through pinned host buffers, every
+    collective, counted in ``sharding.partition.STAGED_BYTES``.  Such a
+    run shows the sharded layers and the kernels at the ranks' shapes, not
+    a fabric's speed."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_available() or not dist.is_initialized():
@@ -55,6 +70,8 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
     kind = torch.device("cuda" if device is None else device).type
     if kind == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' for a CPU mesh")
+    if dist.get_backend() == "gloo":
+        kind = "cpu"
     return init_device_mesh(kind, shape, mesh_dim_names=axes)
 
 

@@ -35,7 +35,28 @@ import torch
 from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
 
-__all__ = ["attention", "cross_attention_decode", "decode_attention_append"]
+__all__ = ["attention", "cross_attention_decode", "decode_attention_append", "kv_heads_for"]
+
+
+def kv_heads_for(rank: int, local_heads: int, heads: int, kv_heads: int) -> tuple[int, int]:
+    """(first, count) of the KV heads that query heads ``[rank * local_heads,
+    (rank + 1) * local_heads)`` read under GQA (query head j reads KV head
+    ``j // (heads / kv_heads)``), where the heads are split over a mesh axis
+    that the KV heads do not tile, so every rank keeps them whole and
+    slices its own.  The rank's slice must hold an integral group, so the
+    attention kernel's local G = local_heads / count maps its query heads
+    onto the slice as the global G does: qwen2-1.5b's 12 heads over 2 at
+    ``model`` 4, 3 query heads over KV head ``rank // 2``; llama3-8b's 32
+    over 8 at 16, 2 over ``rank // 2``.  Raises where the slice would not."""
+    g = heads // kv_heads
+    first = rank * local_heads // g
+    count = ((rank + 1) * local_heads - 1) // g - first + 1
+    if local_heads % count or any((rank * local_heads + i) // g - first != i // (local_heads // count)
+                                  for i in range(local_heads)):
+        raise ValueError(f"query heads {rank * local_heads}..{(rank + 1) * local_heads - 1} of "
+                         f"{heads} over {kv_heads} KV heads do not read a whole group of KV "
+                         f"heads: no integral local G")
+    return first, count
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,

@@ -148,6 +148,9 @@ class ModelConfig:
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
              gemma: bool = False) -> torch.Tensor:
+    """RMSNorm over the last dim.  ``scale`` is whole: under FSDP (its
+    ``embed`` dim split over ``data``) the caller gathers it first, as the
+    dense layers do (``transformer._Plan.weight``)."""
     dt = x.dtype
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
@@ -193,11 +196,33 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype, *,
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
-                  z_loss: float = 0.0) -> torch.Tensor:
-    """Token-mean CE over (B, S, V) logits, f32 logsumexp; optional z-loss."""
+                  z_loss: float = 0.0, vocab_axes: tuple[str, ...] = ()) -> torch.Tensor:
+    """Token-mean CE over (B, S, V) logits, f32 logsumexp; optional z-loss.
+
+    Vocab-parallel where ``vocab_axes`` (mesh axes larger than 1) split the
+    logits' last dim: ``logits`` are then the rank's block of the vocab,
+    ``targets`` global ids, and the rank's share is found from its index
+    over the axes.  The row max is a ``pmax`` (no gradient: the
+    log-sum-exp does not depend on the shift), the exp-sums a ``psum``, and
+    the gold logit is taken on the rank that holds it (0 elsewhere) and
+    ``psum``'d; the z-loss reads the same global log-sum-exp.  No rank
+    builds whole-vocab logits, and every rank joins every collective, its
+    block holding targets or not."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if not vocab_axes:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    else:
+        from repro_torch.sharding import axis_index, pmax, psum
+
+        n = logits.shape[-1]
+        local = targets.long() - axis_index(vocab_axes) * n
+        mine = (local >= 0) & (local < n)
+        shift = pmax(logits.detach().amax(dim=-1), vocab_axes)
+        sums = psum(torch.exp(logits - shift[..., None]).sum(dim=-1), vocab_axes)
+        lse = shift + torch.log(sums)
+        gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = psum(torch.where(mine, gold, torch.zeros_like(gold)), vocab_axes)
     loss = (lse - gold).mean()
     if z_loss:
         loss = loss + z_loss * lse.square().mean()

@@ -58,8 +58,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels._device import uncounted
-from repro_torch.sharding import P, active, all_gather, axis_index, logical_to_spec, psum, \
-    shard_map
+from repro_torch.sharding import P, active, all_gather, axis_index, copy_to, logical_to_spec, \
+    psum, shard_map
 from repro_torch.sharding.partition import NamedSharding, _axes_for_leaf
 
 from .common import dense_init
@@ -83,10 +83,19 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype) 
     }
 
 
-def gated_mlp(params: dict, x: torch.Tensor, *, act: str = "swiglu") -> torch.Tensor:
+def gated_mlp(params: dict, x: torch.Tensor, *, act: str = "swiglu",
+              tp: tuple[str, ...] = ()) -> torch.Tensor:
+    """``act(x @ w_gate) * (x @ w_up) @ w_down``.  With ``tp`` (the mesh axes
+    that split the ``mlp`` dim) the leaves are the rank's blocks:
+    ``w_gate``/``w_up`` column-parallel after a ``copy_to`` of ``x``,
+    ``w_down`` row-parallel, and one ``psum`` over ``tp`` joins the
+    partial products."""
+    if tp:
+        x = copy_to(x, tp)
     a = _act(act)
     h = a(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    return psum(y, tp) if tp else y
 
 
 # ---------------------------------------------------------------------------

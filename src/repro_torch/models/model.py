@@ -23,6 +23,8 @@ from dataclasses import dataclass
 import torch
 from torch.overrides import TorchFunctionMode
 
+from repro_torch.sharding import local_blocks
+
 from . import mllama_model, transformer, whisper_model, xlstm_model, zamba2_model
 from .common import ModelConfig
 
@@ -90,17 +92,23 @@ class Model:
     # -- parameters -----------------------------------------------------------
 
     def init(self, seed: int) -> dict:
+        """Random parameters drawn from ``seed``.  Under a mesh
+        (``sharding.use_mesh``, the rank placed on it) each leaf is the
+        rank's block of the same global draw (``sharding.local_blocks``)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return self._m.init_params(self.cfg, gen)
+        return local_blocks(self._m.init_params(self.cfg, gen))
 
-    def abstract_params(self) -> dict:
+    def abstract_params(self, *, whole: bool = False) -> dict:
         """The parameter tree as ``meta`` tensors of each leaf's shape and
         dtype, allocating nothing (the reference's ``jax.eval_shape`` of
         ``init``): the family's ``init_params`` run with every factory on
-        ``meta`` and no generator drawn from."""
+        ``meta`` and no generator drawn from.  Under a mesh, the rank's
+        blocks (the dry run counts one device's step on them), unless
+        ``whole`` asks for the global shapes the specs read."""
         with _OnMeta():
-            return self._m.init_params(self.cfg, torch.Generator())
+            tree = self._m.init_params(self.cfg, torch.Generator())
+        return tree if whole else local_blocks(tree)
 
     # -- steps ------------------------------------------------------------------
 

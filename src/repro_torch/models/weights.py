@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.sharding import local_blocks
+
 from . import mllama_model, transformer, whisper_model, xlstm_model, zamba2_model
 from .common import ModelConfig
 
@@ -60,11 +62,15 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device: torch.device | str) 
     (``tok_embed``, ``pos_embed``, ``layers``, ``final_ln``).
     mLLaMA: ``self_layers`` with leading ``(ng, ns)`` axes, ``cross_layers``
     with ``(ng,)`` (the gates ``(ng,)``), ``final_norm`` and, where untied,
-    ``lm_head``."""
+    ``lm_head``.
+
+    Under a mesh (``sharding.use_mesh``, the rank placed on it) each leaf is
+    the rank's block (``sharding.local_blocks``): a test bridges the
+    reference's tree onto any mesh."""
     stacked = {"xlstm": xlstm_model, "zamba2": zamba2_model, "whisper": whisper_model,
                "mllama": mllama_model}
     if cfg.family in stacked:
-        return _map(tree, stacked[cfg.family].param_shapes(cfg), "", device, None)
+        return local_blocks(_map(tree, stacked[cfg.family].param_shapes(cfg), "", device, None))
     spec = transformer.param_shapes(cfg)
     if set(tree) != set(spec):
         raise KeyError(f"top-level leaves {sorted(tree)}, expected {sorted(spec)}")
@@ -75,7 +81,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device: torch.device | str) 
                         for i in range(cfg.num_layers)]
         else:
             out[key] = _map(tree[key], sub, f"/{key}", device, None)
-    return out
+    return local_blocks(out)
 
 
 def state_from_numpy(state: dict, cfg: ModelConfig, device: torch.device | str) -> dict:

@@ -30,6 +30,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models.common import tree_items, tree_map
+from repro_torch.sharding import psum
 
 __all__ = ["AdamW", "TrainState"]
 
@@ -84,10 +85,17 @@ class AdamW:
         return out
 
     @torch.no_grad()
-    def update(self, state: TrainState, grads) -> tuple[TrainState, dict]:
+    def update(self, state: TrainState, grads, *, world=None) -> tuple[TrainState, dict]:
         """One step from ``grads`` (a tree like ``state["params"]``); the
         state is updated in place and returned with ``{"grad_norm",
-        "lr"}``."""
+        "lr"}``.
+
+        On a mesh the leaves are the rank's blocks and ``world`` is (every
+        axis of the mesh, the number of ranks that hold each leaf's block):
+        the global norm is then each leaf's local sum of squares over its
+        number of holders, ``psum``'d over the world, so the clip scale is
+        the same on every rank and ``grad_norm`` is the value without a
+        mesh."""
         grads = _leaves(grads)
         m, v, w = _leaves(state["m"]), _leaves(state["v"]), _leaves(state["master"])
         params = _leaves(state["params"])
@@ -95,7 +103,13 @@ class AdamW:
         norms = []
         for c in chunks:
             norms += torch._foreach_norm([grads[i].float() for i in c])
-        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        if world is None:
+            gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        else:
+            axes, holders = world
+            share = torch.stack(norms).square() / torch.tensor(holders, dtype=torch.float32,
+                                                               device=norms[0].device)
+            gnorm = psum(share.sum(), axes).sqrt()
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         # the step sets the learning rate and the bias corrections, Python
         # numbers; a meta state (the dry run) holds no value, and any step

@@ -19,9 +19,11 @@ memory is sharded over ``pod``, so a rank's tree has a leading dim of 1
 (:func:`init_error_state`'s default), and the batch a step takes is its
 pod's share.  The step runs under ``sharding.shard_map`` over the mesh,
 the collectives over ``pod``; within a pod the mesh's ``data`` and
-``model`` axes must be 1 (tensor-parallel and FSDP layers are ROADMAP.md
-Queue 1 item 8c).  The state is updated in place, as ``make_train_step``
-does.
+``model`` axes must be 1.  The dense family's tensor-parallel and FSDP
+layers train through ``launch.steps.make_train_step`` (ROADMAP.md Queue 1
+item 8c, part one, whose cross-pod sum is a plain psum); this int8 sum
+beside them is the last of item 8c's remaining parts.  The state is
+updated in place, as ``make_train_step`` does.
 """
 
 from __future__ import annotations
@@ -90,8 +92,9 @@ def make_hierarchical_train_step(model, opt, mesh, *, compress: bool = True):
         raise ValueError("hierarchical step needs a 'pod' mesh axis")
     inner = {a: n for a, n in sizes.items() if a != "pod" and n > 1}
     if inner:
-        raise NotImplementedError(f"mesh axes {inner} within a pod: tensor-parallel and FSDP "
-                                  f"layers are ROADMAP.md Queue 1 item 8c")
+        raise NotImplementedError(f"mesh axes {inner} within a pod: the int8 cross-pod sum "
+                                  f"beside tensor-parallel and FSDP layers is a remaining part "
+                                  f"of ROADMAP.md Queue 1 item 8c")
     npods = sizes["pod"]
 
     def per_pod(state: dict, ef_error, batch: dict):

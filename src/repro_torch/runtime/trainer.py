@@ -1,6 +1,6 @@
 """Training loop: zero-copy data plane + checkpoint/restart + stragglers.
 
-Counterpart of ``repro/runtime/trainer.py`` at world size 1::
+Counterpart of ``repro/runtime/trainer.py``::
 
     ZeroCopyPipeline (separate process, agnocast topics)
         └─▶ Trainer.step: tokens to the device → train_step (state in place)
@@ -12,17 +12,24 @@ with ``device="cpu"``.  ``Trainer.run`` restores the latest checkpoint in
 ``ckpt_dir`` if one exists (params, optimizer state, data cursor) and
 continues from the next step.
 
-With a ``mesh`` (``launch.mesh.make_mesh``; ``rules`` override
-``launch.steps.train_rules``) the state is laid out by
+With a ``mesh`` (``launch.mesh.make_mesh``, every rank of the world
+running its own ``Trainer``; ``rules`` override
+``launch.steps.train_rules``) the state is the rank's blocks under
 ``sharding.param_partition_specs`` (the optimizer's trees as the params,
-the step replicated), the restore keeps each leaf's block of those
-shardings (``Checkpointer.restore(shardings=...)``, so a checkpoint saved
-on another mesh, or without one, restores onto it), and the step runs
-under ``sharding.use_mesh``.  Only a mesh whose every axis is 1 runs: a
-rank then holds every block whole and the run equals the run without a
-mesh.  Data, tensor and pod parallelism (grads reduced across ranks,
-layers split over ``model``, a save of blocks) are ROADMAP.md Queue 1
-item 8c; a larger mesh raises rather than run a wrong step.
+the step replicated): ``Model.init`` under the mesh gives them.  The
+restore keeps each leaf's block of those shardings
+(``Checkpointer.restore(shardings=...)``, so a checkpoint saved on
+another mesh, or without one, restores onto it) and the save writes
+each global leaf once (``Checkpointer.save(shardings=...)``).  The step
+runs under ``sharding.use_mesh``: tensor parallelism over ``model``, FSDP
+over ``data``, data parallelism over ``("pod", "data")``
+(``launch.steps.make_train_step``).  Each rank takes its rows of every
+global batch, row-major over the batch axes (the same rows on every
+``model`` rank); every rank draws the same global batches, so the data
+cursor is the global one.  ``loss`` and ``grad_norm`` in ``metrics_log``
+are the global values.  On a mesh of size 1 the run equals the run
+without one.  The dense family trains there; the others, and serving on
+a mesh, are the later parts of ROADMAP.md Queue 1 item 8c, and raise.
 
 The data cursor: the in-process pipeline's is its document cursor and the
 packer's buffer, as in the reference.  The zero-copy data plane is
@@ -46,11 +53,11 @@ import torch
 from repro_torch.checkpoint import Checkpointer, latest_step
 from repro_torch.data import BatchSpec, InProcessPipeline
 from repro_torch.data.ordered import OrderedZeroCopyPipeline
-from repro_torch.launch.steps import make_train_step, shardings_for, train_rules
-from repro_torch.models.common import tree_map
+from repro_torch.launch.steps import batch_specs, make_train_step, shardings_for, train_rules
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.runtime.fault_tolerance import StragglerMonitor
-from repro_torch.sharding import P, NamedSharding, mesh_shape, param_partition_specs, use_mesh
+from repro_torch.sharding import (P, MeshContext, NamedSharding, check_on_mesh,
+                                  param_partition_specs, use_mesh)
 
 __all__ = ["Trainer", "TrainerConfig"]
 
@@ -74,17 +81,13 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model, tc: TrainerConfig, *, mesh=None, rules: dict | None = None):
         if mesh is not None:
-            split = {a: n for a, n in mesh_shape(mesh).items() if n > 1}
-            if split:
-                raise NotImplementedError(
-                    f"Trainer on a mesh with axes {split} larger than 1: data, tensor and pod "
-                    f"parallelism and a save of blocks are ROADMAP.md Queue 1 item 8c")
+            check_on_mesh(model.cfg, "train", mesh)
         self.model = model
         self.tc = tc
         self.mesh = mesh
         self.rules = {**(train_rules(model.cfg, mesh) if mesh is not None else {}),
                       **(rules or {})}
-        self._state_sh = None
+        self._state_sh = self._batch_sh = None
         self.opt = AdamW(lr=cosine_schedule(tc.lr, tc.warmup, tc.total_steps))
         self.ckpt = Checkpointer(tc.ckpt_dir, keep=tc.ckpt_keep)
         self.monitor = StragglerMonitor([0])
@@ -103,19 +106,25 @@ class Trainer:
     def _state_shardings(self) -> dict:
         """The state's ``NamedSharding``s on the mesh: params, master, m and
         v by the params' specs, the step replicated."""
-        with use_mesh(self.mesh, self.rules) as ctx:
-            psh = shardings_for(param_partition_specs(self.model.abstract_params(), ctx),
-                                self.mesh)
+        ctx = MeshContext(self.mesh, self.rules)
+        psh = shardings_for(param_partition_specs(self.model.abstract_params(whole=True), ctx),
+                            self.mesh)
         return {"params": psh, "master": psh, "m": psh, "v": psh,
                 "step": NamedSharding(self.mesh, P())}
 
     def _init_or_restore(self):
         spec = BatchSpec(self.tc.batch, self.tc.seq_len, self.model.cfg.vocab_size,
                          seed=self.tc.seed)
-        self._state = self.opt.init(self.model.init(self.tc.seed))
-        if self.mesh is not None:
+        if self.mesh is None:
+            self._state = self.opt.init(self.model.init(self.tc.seed))
+        else:
             self._state_sh = self._state_shardings()
-            self._state = tree_map(lambda t, sh: sh.block(t), self._state, self._state_sh)
+            with use_mesh(self.mesh, self.rules) as ctx:
+                self._state = self.opt.init(self.model.init(self.tc.seed))
+                tokens = torch.empty((self.tc.batch, self.tc.seq_len), dtype=torch.int32,
+                                     device="meta")
+                self._batch_sh = NamedSharding(
+                    self.mesh, batch_specs(self.model.cfg, {"tokens": tokens}, ctx)["tokens"])
         dstate = None
         if latest_step(self.tc.ckpt_dir) is not None:
             # filled in place: one state on the card, not two
@@ -148,8 +157,10 @@ class Trainer:
         losses = []
         while self.step_num < steps:
             t0 = time.monotonic()
-            raw = self._next_batch()
-            batch = {"tokens": torch.from_numpy(raw["tokens"]).to(dev)}
+            raw = torch.from_numpy(self._next_batch()["tokens"])
+            if self._batch_sh is not None:      # the rank's rows of the global batch
+                raw = self._batch_sh.block(raw)
+            batch = {"tokens": raw.to(dev)}
             if self.mesh is None:
                 self._state, metrics = self._step_fn(self._state, batch)
             else:
@@ -179,7 +190,8 @@ class Trainer:
         dstate = (self._pipeline.state()
                   if isinstance(self._pipeline, InProcessPipeline)
                   else {"batches": self._pipeline.cursor})
-        self.ckpt.save(self.step_num, self._state, extra={"data_state": dstate})
+        self.ckpt.save(self.step_num, self._state, extra={"data_state": dstate},
+                       shardings=self._state_sh)
 
     def close(self):
         self.ckpt.wait()

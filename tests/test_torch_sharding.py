@@ -212,8 +212,9 @@ def test_make_mesh_checks_the_world_size(group1):
     assert mesh.mesh_dim_names == ("data", "model")
     with pytest.raises(RuntimeError, match="abstract|process group"):
         shard_map(lambda: psum(torch.ones(1), "data"), mesh=AbstractMesh((1,), ("data",)))()
-    with pytest.raises(NotImplementedError, match="8c"):
-        shard_map(lambda: psum(torch.ones(1, requires_grad=True), "data"), mesh=mesh)()
+    x = torch.ones(1, requires_grad=True)     # a collective with a gradient: psum's is 1
+    shard_map(lambda: (psum(x, "data") * 3.0).sum().backward(), mesh=mesh)()
+    assert torch.equal(x.grad, torch.full((1,), 3.0))
 
 
 def _moe_cfgs(**kw):
@@ -312,9 +313,14 @@ def test_trainer_on_a_mesh_of_size_1_equals_the_run_without_one(group1, tmp_path
 
 @pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
 def test_trainer_refuses_a_mesh_it_cannot_run(shape):
-    with pytest.raises(NotImplementedError, match="8c"):
-        Trainer(Model(_trainer_cfg(), device="cpu"), TrainerConfig(),
-                mesh=AbstractMesh(shape, ("data", "model")))
+    """Beyond world size 1 only the dense family trains (its runs are in
+    ``test_torch_tensor_parallel.py``); an MoE model on a 2-way mesh, or a
+    dense one with sequence-parallel activations, raises naming item 8c."""
+    mesh = AbstractMesh(shape, ("data", "model"))
+    moe = model_100m("qwen2-moe-a2.7b").scaled(num_layers=2)
+    for cfg in (moe, _trainer_cfg().scaled(seq_shard_activations=True)):
+        with pytest.raises(NotImplementedError, match="8c"):
+            Trainer(Model(cfg, device="cpu"), TrainerConfig(), mesh=mesh)
 
 
 def test_restore_reshards_onto_an_abstract_two_way_mesh(tmp_path):
